@@ -9,7 +9,11 @@ Phases, each fatal on failure:
 2. build the CUDA kernels from ``image_enhancement_deglaring_tpu_torch/csrc``;
 3. hold every kernel against its plain PyTorch version at the main path's
    shapes, in bfloat16 and float32 (TF32 off), and time the kernel, the
-   plain version and one PyTorch library call computing the same function;
+   plain version and one PyTorch library call computing the same function
+   (for the dec1 tail, which no one call computes, the composition of ops);
+   K4 also against K3, bit for bit, and its batch check; K5 in bf16 also
+   with its largest error traced to its source and two rounding faults
+   that its gate must reject;
 4. serve 16 seeded 512x512 frames through ``InferenceEngine.submit`` on the
    bf16 LightweightUNet with ``pallas_gn=True, fused_blocks="auto"`` and the
    production weights (``deploy/models/best_model.onnx``); check the launch
@@ -17,7 +21,16 @@ Phases, each fatal on failure:
    drive a 32x32 forward, which reaches the NHWC GroupNorm kernel and runs
    the conv kernel on images smaller than its 8x8 tile, and compare it the
    same way, beside the bf16 readings of its plain versions on the CPU;
-5. time serving throughput (``infer_batch``) at buckets 8 and 64, with and
+5. the kernels' own entry points on the production model's activations:
+   8 frames at 512x512 and at 32x32 through the bf16 and float32 engines
+   with the kernels on; the enc4 and bottleneck blocks rerun through
+   ``fused_conv3x3_gn_silu(images_per_step=K)`` (K4, equal to the blocks'
+   own K3 output bit for bit), dec1's inputs through ``fused_dec1_output``
+   (K5) against its plain version and, as uint8 frames, against the model's
+   own tail; at 512x512 K5's time beside the model's tail and the
+   composition, each split by kernel; then the bench entry
+   ``tools.dec1_slice_bench`` at its defaults (batch 128);
+6. time serving throughput (``infer_batch``) at buckets 8 and 64, with and
    without the kernels, and profile one batch of each: device time by
    kernel and the device's busy share.
 
@@ -58,6 +71,22 @@ TOL = {
     ("conv", torch.float32): (2e-4, 2e-4),
     ("conv", torch.bfloat16): (1e-2, 1.6e-2),
 }
+# dec1 (K5, float32 output): bounds on the largest |kernel - plain|, on the
+# mean, and on the share of outputs beyond a threshold. bf16: both sides
+# store h1, a1 and h2 in bf16 from float32 sums taken in another order, so
+# now and then a value on a rounding boundary lands one bf16 ulp away and
+# moves the outputs it feeds (dec1_error_sources traces the largest error
+# to one such a1 value). The flips are rare but move single outputs by up
+# to 0.0227 on the H100 at 8x512x512, more than a rounding fault moves any
+# one output at the other shapes: so the element bound, a third above that
+# reading, only catches gross faults, and the mean and the share tell
+# rounding faults from sound rounding (dec1_controls shows on the card that
+# two such faults fail them; PERF.md has the readings). f32: the summation
+# order of three convs and of the statistics only.
+DEC1_GATE = {
+    torch.float32: {"max": 1e-4, "mean": 1e-5, "beyond": (1e-3, 0.0)},
+    torch.bfloat16: {"max": 0.03, "mean": 1e-4, "beyond": (1e-3, 0.01)},
+}
 
 # (shape, path): the forward that gives a kernel this shape, "512" or "32"
 # for the batch-8 512x512 and 32x32 forwards that serve_slice drives, None
@@ -74,7 +103,19 @@ K3_SHAPES = [(((8, 64, 64, 32), 64), "512"), (((8, 64, 64, 64), 64), "512"),
              (((8, 32, 32, 64), 128), "512"), (((8, 32, 32, 128), 128), "512"),
              (((8, 4, 4, 32), 64), "32"), (((8, 4, 4, 64), 64), "32"),
              (((8, 2, 2, 64), 128), "32"), (((8, 2, 2, 128), 128), "32")]
+# K4's images per conv block, at batch 8
+K4_IMAGES = (2, 4, 8)
+# (shape, tile_h), path: the JAX tests' shapes and tilings, then the 512x512
+# and 32x32 dec1 inputs of a batch of 8 (tile_h 64 falls back to one tile at 32)
+DEC1_SHAPES = [(((2, 64, 128, 8), 16), None), (((1, 48, 128, 8), 48), None),
+               (((1, 48, 128, 8), 7), None), (((1, 48, 128, 8), 16), None),
+               (((8, 512, 512, 8), 64), "512"), (((8, 32, 32, 8), 64), "32")]
+# dec1 tail FLOP per pixel: two 3x3 convs 8->8 into h1, one into h2, the 1x1
+DEC1_FLOPS_PER_PIXEL = 3 * 9 * 8 * 8 * 2 + 8 * 2
 GROUPS = 8
+# bf16 frames of the model's tail vs K5 on its dec1 inputs: phase 4's gate
+# for two bf16 paths of one model (written before the first run)
+DEC1_PSNR_GATE_DB = 45.0
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -97,8 +138,11 @@ def bound(nbytes: float, flops: float, dtype) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def check_close(name: str, got: torch.Tensor, want: torch.Tensor, kind: str) -> float:
-    atol, rtol = TOL[(kind, got.dtype)]
+def check_close(name: str, got: torch.Tensor, want: torch.Tensor, kind: str,
+                dtype=None) -> float:
+    """Max |got - want|; fails beyond TOL[(kind, dtype)], dtype the
+    kernel's input dtype (got's by default)."""
+    atol, rtol = TOL[(kind, dtype or got.dtype)]
     g, w = got.float(), want.float()
     if not torch.isfinite(g).all():
         raise AssertionError(f"{name}: non-finite kernel output")
@@ -185,14 +229,222 @@ def check_kernels() -> list[dict]:
             nbytes = (x.numel() + 9 * cin * cout + out_elems) * x.element_size() + 8 * cout
             flops = 2 * 9 * cin * out_elems
             b = bound(nbytes, flops, dtype)
+            tol = f"(atol {TOL[('conv', dtype)][0]}, rtol {TOL[('conv', dtype)][1]})"
             print(f"conv3x3_gn_silu {shape}->{cout} {str(dtype)[6:]} path {path}: "
-                  f"max_abs_err {err:.3g} "
-                  f"(atol {TOL[('conv', dtype)][0]}, rtol {TOL[('conv', dtype)][1]}) "
-                  f"ms {ms:.5f} plain_ms {plain_ms:.5f} library_ms {lib_ms:.5f} "
-                  f"bound_ms {b[0]:.3g} ({b[1]})", flush=True)
+                  f"max_abs_err {err:.3g} {tol} ms {ms:.5f} plain_ms {plain_ms:.5f} "
+                  f"library_ms {lib_ms:.5f} bound_ms {b[0]:.3g} ({b[1]})", flush=True)
             if dtype == torch.bfloat16:
                 record("conv3x3_gn_silu", path is not None, err, ms, plain_ms, lib_ms, b)
+            # K4: the same function, K images per conv block, equal to K3
+            for k in K4_IMAGES:
+                name = f"conv3x3_gn_silu_batched{shape}->{cout} images {k} {dtype}"
+                with highest_precision():
+                    got4 = fk.conv3x3_gn_silu_batched(x, w, gamma, beta, num_groups=GROUPS,
+                                                      images=k)
+                    torch.cuda.synchronize()
+                    err4 = check_close(name, got4, want, "conv")
+                    if not torch.equal(got4, got):
+                        d = float((got4.float() - got.float()).abs().max())
+                        raise AssertionError(f"{name}: differs from K3 by up to {d:.3g}")
+                    ms4 = time_ms(lambda: fk.conv3x3_gn_silu_batched(
+                        x, w, gamma, beta, num_groups=GROUPS, images=k))
+                print(f"conv3x3_gn_silu_batched {shape}->{cout} images {k} {str(dtype)[6:]} "
+                      f"path {path}: max_abs_err {err4:.3g} {tol}, equal to K3 bit for bit; "
+                      f"ms {ms4:.5f} plain_ms {plain_ms:.5f} library_ms {lib_ms:.5f} "
+                      f"bound_ms {b[0]:.3g} ({b[1]})", flush=True)
+                if dtype == torch.bfloat16:
+                    record("conv3x3_gn_silu_batched", path is not None, err4, ms4, plain_ms,
+                           lib_ms, b)
+
+    # a batch that K does not divide is refused on the card too, before a launch
+    x6 = randn(6, 8, 8, 64, dtype=torch.bfloat16)
+    w6 = randn(3, 3, 64, 64)
+    ones, zeros = torch.ones(64, device="cuda"), torch.zeros(64, device="cuda")
+    before = fk.LAUNCHES["conv3x3_gn_silu_batched"]
+    for call in (lambda: fk.conv3x3_gn_silu_batched(x6, w6, ones, zeros, num_groups=GROUPS,
+                                                    images=4),
+                 lambda: fk.fused_conv3x3_gn_silu(x6, w6, ones, zeros, num_groups=GROUPS,
+                                                  images_per_step=4)):
+        try:
+            call()
+        except ValueError as e:
+            print(f"batch 6, K=4 on the card: ValueError ({e})", flush=True)
+        else:
+            raise AssertionError("batch 6 with K=4 did not raise ValueError")
+    if fk.LAUNCHES["conv3x3_gn_silu_batched"] != before:
+        raise AssertionError("a refused K4 call launched the kernel")
+
+    check_dec1(randn, record)
     return rows
+
+
+def dec1_weights(randn) -> tuple:
+    """Seeded dec1 weights, scaled as the JAX tests scale them."""
+    c = 8
+    return (randn(3, 3, c, c, scale=0.2), randn(3, 3, c, c, scale=0.2),
+            randn(3, 3, c, c, scale=0.2), randn(c), randn(c), randn(c), randn(c),
+            randn(1, 1, c, 1, scale=0.3), randn(1))
+
+
+def dec1_gate(got: torch.Tensor, want: torch.Tensor, dtype) -> tuple[dict, str | None]:
+    """K5's output against its plain version under DEC1_GATE[dtype]: the
+    readings, and the first bound they break (None if none)."""
+    g = DEC1_GATE[dtype]
+    err = (got.float() - want.float()).abs()
+    thr, share = g["beyond"]
+    r = {"max": float(err.max()), "mean": float(err.mean()),
+         "beyond": float((err > thr).float().mean())}
+    if not torch.isfinite(got).all():
+        return r, "non-finite output"
+    if r["max"] > g["max"]:
+        return r, f"max {r['max']:.3g} > {g['max']}"
+    if r["mean"] > g["mean"]:
+        return r, f"mean {r['mean']:.3g} > {g['mean']}"
+    if r["beyond"] > share:
+        return r, f"{r['beyond']:.3g} of the outputs beyond {thr} (at most {share})"
+    return r, None
+
+
+def check_dec1_close(name: str, got: torch.Tensor, want: torch.Tensor, dtype) -> dict:
+    """K5 against its plain version; fails beyond DEC1_GATE[dtype]."""
+    r, broken = dec1_gate(got, want, dtype)
+    if broken:
+        raise AssertionError(f"{name}: {broken}")
+    return r
+
+
+def dec1_controls(name: str, args: tuple, want: torch.Tensor) -> str:
+    """Two rounding faults K5 could have, on the same bf16 inputs: the
+    composition's rounding (statistics of the rounded h1/h2, a2 and the
+    output in bf16) and none of the kernel's bf16 rounding of h1, a1 and h2
+    (the plain version in float32 on the same bf16 values and weights).
+    Fails unless the bf16 gate rejects both."""
+    from image_enhancement_deglaring_tpu_torch.ops import dec1
+
+    xu, xs, wa, wb, w2, *rest = args
+    faults = {
+        "composition": dec1.dec1_output_composition(*args)[..., 0],
+        "no bf16 h1/a1/h2": dec1.dec1_output_plain(
+            xu.float(), xs.float(), *(w.to(xu.dtype).float() for w in (wa, wb, w2)), *rest),
+    }
+    out = []
+    for fault, got in faults.items():
+        r, broken = dec1_gate(got, want, torch.bfloat16)
+        if broken is None:
+            raise AssertionError(f"{name}: the bf16 gate passes the control '{fault}' "
+                                 f"(max {r['max']:.3g}, mean {r['mean']:.3g}, share "
+                                 f"{r['beyond']:.3g})")
+        out.append(f"{fault}: max {r['max']:.3g} mean {r['mean']:.3g} share "
+                   f"{r['beyond']:.3g}, fails ({broken})")
+    return "; ".join(out)
+
+
+def _other_rounding(exact: torch.Tensor, rounded: torch.Tensor) -> torch.Tensor:
+    """The bf16 neighbour of ``rounded`` on the other side of ``exact``
+    (float32): the value a sum on the rounding boundary takes when it lands
+    on that side."""
+    bits = rounded.contiguous().view(torch.int16)
+    up, down = (bits + 1).view(torch.bfloat16), (bits - 1).view(torch.bfloat16)
+    below = rounded.float() < exact
+    # one step of the bits moves the magnitude: pick the step past ``exact``
+    pick_up = (up.float() > down.float()) == below
+    return torch.where(pick_up, up, down)
+
+
+def dec1_error_sources(args: tuple, tile_h: int, want: dict) -> str:
+    """Where K5's largest bf16 error against its plain version comes from.
+    Compares the stored h1 and h2 of the kernel and of the plain version;
+    at the worst output pixel, the part of the error that K5's h2 there
+    explains under the plain GroupNorm affine; and which single a1 value in
+    the pixel's 3x3 window, rounded to its other bf16 neighbour, moves the
+    plain h2 there onto K5's in all 8 channels (the one-ulp flip upstream)."""
+    from image_enhancement_deglaring_tpu_torch.ops import dec1
+
+    dt = args[0].dtype
+    out, h1, h2 = dec1._launch(*args, eps=1e-5, tile_h=tile_h)
+    p1, p2 = want["h1"].to(dt), want["h2"].to(dt)
+    d1, d2 = (h1.float() - p1.float()).abs(), (h2.float() - p2.float()).abs()
+    err = (out - want["out"]).abs()
+    b, rem = divmod(int(err.argmax()), out.shape[1] * out.shape[2])
+    y, x = divmod(rem, out.shape[2])
+    w_out, b_out = args[-2].reshape(-1).float(), args[-1].float().reshape(())
+
+    def tail(h, coef):  # the 1x1 conv of a2 at one pixel
+        z = h.float() * coef[0][b] + coef[1][b]
+        return float((z * torch.sigmoid(z)) @ w_out + b_out)
+
+    explained = tail(h2[b, y, x], want["coef2"]) - tail(p2[b, y, x], want["coef2"])
+    total = float(out[b, y, x] - want["out"][b, y, x])
+    # each plain a1 value of the pixel's 3x3 window rounded the other way:
+    # h2 over the 3x3 pixels that value feeds, against K5's h2 there
+    hh, ww = out.shape[1:]
+    c1 = want["coef1"]
+    w2 = args[4].to(dt).float()
+    best = (-1, None)
+    for qy in range(max(y - 1, 0), min(y + 2, hh)):
+        for qx in range(max(x - 1, 0), min(x + 2, ww)):
+            zq = p1[b, qy, qx].float() * c1[0][b] + c1[1][b]
+            exact = zq * torch.sigmoid(zq)
+            rounded = exact.to(dt)
+            steps = _other_rounding(exact, rounded).float() - rounded.float()
+            rows = list(range(max(qy - 1, 0), min(qy + 2, hh)))
+            cols = list(range(max(qx - 1, 0), min(qx + 2, ww)))
+            taps = w2[[qy - r + 1 for r in rows]][:, [qx - c + 1 for c in cols]]
+            base, kern = want["h2"][b, rows][:, cols], h2[b, rows][:, cols]
+            for ci in range(steps.numel()):
+                tried = (base + steps[ci] * taps[:, :, ci, :]).to(dt)
+                agree = int((tried == kern).sum())
+                if agree > best[0]:
+                    mid = float(rounded[ci].float() + steps[ci] / 2)
+                    off = abs(float(exact[ci]) - mid) / abs(float(steps[ci]))
+                    best = (agree, (qy - y, qx - x, ci, off, tried.numel(),
+                                    int((base.to(dt) == kern).sum())))
+    agree, (oy, ox, ci, off, n, plain_agree) = best
+    found = ("K5's h2 equals the plain h2 around it" if plain_agree == n else
+             f"the plain a1 at offset ({oy}, {ox}), channel {ci}, whose float32 value is "
+             f"{off:.3g} ulp from its bf16 rounding midpoint, rounded the other way gives "
+             f"K5's h2 at {agree} of the {n} values it feeds (the plain h2 agrees at "
+             f"{plain_agree})")
+    return (f"h1 differs at {float((d1 > 0).float().mean()):.3g} of values (max |delta| "
+            f"{float(d1.max()):.3g}), h2 at {float((d2 > 0).float().mean()):.3g} (max |delta| "
+            f"{float(d2.max()):.3g}); worst output ({b}, {y}, {x}): error {total:.4g}, h2 "
+            f"channels differing there {int((d2[b, y, x] > 0).sum())}, explaining "
+            f"{explained:.4g} under the plain affine; {found}")
+
+
+def check_dec1(randn, record) -> None:
+    """Phase 3, K5: the dec1 tail against its plain version at the JAX tests'
+    shapes and tilings and at the model's 512x512 and 32x32 dec1 shapes."""
+    from image_enhancement_deglaring_tpu_torch.ops import dec1
+
+    for dtype in (torch.bfloat16, torch.float32):
+        for (shape, tile_h), path in DEC1_SHAPES:
+            xu, xs = randn(*shape, dtype=dtype), randn(*shape, dtype=dtype)
+            args = (xu, xs, *dec1_weights(randn))
+            name = f"dec1_output{shape} tile_h {tile_h} {dtype}"
+            got = dec1.fused_dec1_output(*args, tile_h=tile_h)
+            want = dec1.dec1_stages_plain(*args)
+            torch.cuda.synchronize()
+            if got.shape != shape[:3] or got.dtype != torch.float32:
+                raise AssertionError(f"{name}: output {tuple(got.shape)} {got.dtype}")
+            r = check_dec1_close(name, got, want["out"], dtype)
+            ms = time_ms(lambda: dec1.fused_dec1_output(*args, tile_h=tile_h))
+            plain_ms = time_ms(lambda: dec1.dec1_output_plain(*args))
+            comp_ms = time_ms(lambda: dec1.dec1_output_composition(*args))
+            pixels = shape[0] * shape[1] * shape[2]
+            nbytes = 2 * xu.numel() * xu.element_size() + 4 * pixels + 4 * (3 * 576 + 41)
+            b = bound(nbytes, DEC1_FLOPS_PER_PIXEL * pixels, dtype)
+            print(f"dec1_output {shape} tile_h {tile_h} (runs "
+                  f"{dec1.effective_tile_h(shape[1], tile_h)}) {str(dtype)[6:]} path {path}: "
+                  f"max_abs_err {r['max']:.3g} mean {r['mean']:.3g} share beyond "
+                  f"{DEC1_GATE[dtype]['beyond'][0]} {r['beyond']:.3g} (gate {DEC1_GATE[dtype]}) "
+                  f"ms {ms:.5f} plain_ms {plain_ms:.5f} composition_ms {comp_ms:.5f} "
+                  f"bound_ms {b[0]:.3g} ({b[1]})", flush=True)
+            if dtype == torch.bfloat16 and path is not None:
+                print(f"  sources: {dec1_error_sources(args, tile_h, want)}", flush=True)
+                print(f"  controls: {dec1_controls(name, args, want['out'])}", flush=True)
+            if dtype == torch.bfloat16:
+                record("dec1_output", path is not None, r["max"], ms, plain_ms, comp_ms, b)
 
 
 def make_frames(n: int, s: int, seed: int) -> np.ndarray:
@@ -219,6 +471,7 @@ def serve_slice() -> dict:
     """Phase 4: the main path. Returns the launch counts of its bf16 512x512
     and 32x32 runs, added up."""
     from image_enhancement_deglaring_tpu_torch.modelio import load_lightweight_unet
+    from image_enhancement_deglaring_tpu_torch.ops import dec1
     from image_enhancement_deglaring_tpu_torch.ops import fused_kernels as fk
     from image_enhancement_deglaring_tpu_torch.serve import InferenceEngine
 
@@ -237,6 +490,7 @@ def serve_slice() -> dict:
 
     batches0 = eng.stats()["batches_dispatched"]
     fk.reset_launch_counts()
+    dec1.reset_launch_counts()
     threads = [threading.Thread(target=client, args=(k,)) for k in range(4)]
     for t in threads:
         t.start()
@@ -244,13 +498,15 @@ def serve_slice() -> dict:
         t.join(timeout=60)
     outs = np.stack([f.result(timeout=300) for f in futures])
     torch.cuda.synchronize()
-    counts = dict(fk.LAUNCHES)
+    counts = {**fk.LAUNCHES, **dec1.LAUNCHES}
     forwards = eng.stats()["batches_dispatched"] - batches0
     eng.stop()
     print(f"served {len(frames)} frames in {forwards} device batches; launches {counts}",
           flush=True)
+    # the model has no K4 or K5 switch, as the JAX model has none
     if counts != {"gn_silu_flat": 14 * forwards, "gn_silu_nhwc": 0,
-                  "conv3x3_gn_silu": 4 * forwards}:
+                  "conv3x3_gn_silu": 4 * forwards, "conv3x3_gn_silu_batched": 0,
+                  "dec1_output": 0}:
         raise AssertionError(f"want 14 gn_silu_flat and 4 conv3x3_gn_silu launches per "
                              f"forward over {forwards} forwards, got {counts}")
     if outs.shape != (16, 512, 512) or outs.dtype != np.uint8:
@@ -278,7 +534,8 @@ def serve_slice() -> dict:
     torch.cuda.synchronize()
     counts32 = dict(fk.LAUNCHES)
     print(f"32x32 forward: launches {counts32}", flush=True)
-    want32 = {"gn_silu_flat": 12, "gn_silu_nhwc": 2, "conv3x3_gn_silu": 4}
+    want32 = {"gn_silu_flat": 12, "gn_silu_nhwc": 2, "conv3x3_gn_silu": 4,
+              "conv3x3_gn_silu_batched": 0}
     if counts32 != want32:
         raise AssertionError(f"32x32 forward: want 12/2/4 launches, got {counts32}")
 
@@ -311,7 +568,148 @@ def serve_slice() -> dict:
     if p_k < p_c - 3.0:
         raise AssertionError(f"32x32 bf16 kernels {p_k:.2f} dB vs composition {p_c:.2f} dB")
     # launches of the two bf16 path runs (the f32 run is a comparison)
-    return {k: counts[k] + counts32[k] for k in counts}
+    return {k: counts[k] + counts32[k] for k in counts32}
+
+
+def u8_frames(out: torch.Tensor) -> np.ndarray:
+    """The engine's float -> uint8 step: clip to [0, 1], x255, truncate."""
+    out = out.reshape(out.shape[:3]).float()
+    return torch.floor(out.clamp(0.0, 1.0) * 255.0).to(torch.uint8).cpu().numpy()
+
+
+def dec1_tail_times(model, args: tuple) -> None:
+    """K5 beside the model's own dec1 tail (cuDNN convs, K1, the 1x1 conv as
+    a matmul) and beside dec1_output_composition on the same activations:
+    CUDA-event times, then device time by kernel kind from a profile."""
+    from image_enhancement_deglaring_tpu_torch.ops import dec1
+    from image_enhancement_deglaring_tpu_torch.ops.conv_blocks import conv2d
+
+    x_up, x_skip = args[:2]
+    paths = {
+        "K5": lambda: dec1.fused_dec1_output(*args),
+        "model tail": lambda: conv2d(model.dec1(x_up, x_skip), model.output_conv_weight,
+                                     model.output_conv_bias).float(),
+        "composition": lambda: dec1.dec1_output_composition(*args),
+    }
+    for label, fn in paths.items():
+        print(f"512x512 bf16 dec1 {label}: {time_ms(fn):.5f} ms", flush=True)
+        profile(fn, f"512x512 bf16 dec1 {label}", reps=5)
+
+
+def model_entry_points() -> dict:
+    """Phase 5: K4 and K5 through their entry points on the production
+    model's activations, at 512x512 and 32x32; then the dec1 bench entry.
+    Returns the launches of those entry points."""
+    from image_enhancement_deglaring_tpu_torch.modelio import load_lightweight_unet
+    from image_enhancement_deglaring_tpu_torch.ops import dec1
+    from image_enhancement_deglaring_tpu_torch.ops import fused_kernels as fk
+    from image_enhancement_deglaring_tpu_torch.serve import InferenceEngine
+    from image_enhancement_deglaring_tpu_torch.tools import dec1_slice_bench
+
+    launches = {"conv3x3_gn_silu_batched": 0, "dec1_output": 0}
+    for size in (512, 32):
+        frames = make_frames(8, size, seed=4)
+        res = {}
+        for dtype in (torch.bfloat16, torch.float32):
+            tag = f"{size}x{size} {str(dtype)[6:]}"
+            model = load_lightweight_unet(ONNX, dtype=dtype, device="cuda", pallas_gn=True,
+                                          fused_blocks="auto")
+            eng = InferenceEngine(model, image_size=size, max_batch_size=8,
+                                  compute_dtype=dtype, warmup=False, device="cuda")
+            caught = {}
+
+            def keep(key):
+                return lambda _m, args, out=None: caught.__setitem__(key, (args, out))
+
+            hooks = [model.dec1.register_forward_pre_hook(keep("dec1"))]
+            hooks += [getattr(model, k).register_forward_hook(keep(k))
+                      for k in ("enc4", "bottleneck")]
+            try:
+                served = eng.infer_batch(frames)  # the model's own tail, as uint8
+            finally:
+                for hk in hooks:
+                    hk.remove()
+                eng.stop()
+
+            fk.reset_launch_counts()
+            dec1.reset_launch_counts()
+            with torch.inference_mode():
+                for key in ("enc4", "bottleneck"):
+                    blk, ((xin,), yref) = getattr(model, key), caught[key]
+                    for k in K4_IMAGES:
+                        y = xin
+                        for conv, g, b in ((blk.conv1, blk.gn1_scale, blk.gn1_bias),
+                                           (blk.conv2, blk.gn2_scale, blk.gn2_bias)):
+                            y = fk.fused_conv3x3_gn_silu(y, conv, g, b, num_groups=blk.groups,
+                                                         images_per_step=k)
+                        if not torch.equal(y, yref):
+                            d = float((y.float() - yref.float()).abs().max())
+                            raise AssertionError(f"{tag} {key} with images_per_step {k} "
+                                                 f"differs from the block's K3 output by {d:.3g}")
+                (x_up, x_skip), _ = caught["dec1"]
+                args = dec1.dec1_output_args(model)
+                k5 = dec1.fused_dec1_output(x_up, x_skip, **args)
+            torch.cuda.synchronize()
+            counts = {**fk.LAUNCHES, **dec1.LAUNCHES}
+            want = {"gn_silu_flat": 0, "gn_silu_nhwc": 0, "conv3x3_gn_silu": 0,
+                    "conv3x3_gn_silu_batched": 2 * 2 * len(K4_IMAGES), "dec1_output": 1}
+            if counts != want:
+                raise AssertionError(f"{tag}: entry-point launches {counts}, want {want}")
+            if dtype == torch.bfloat16:
+                for k in launches:
+                    launches[k] += counts[k]
+            with torch.inference_mode():
+                want5 = dec1.dec1_stages_plain(x_up, x_skip, **args)
+            name = f"dec1_output on {tag} activations"
+            r = check_dec1_close(name, k5, want5["out"], dtype)
+            res[dtype] = (u8_frames(k5), served)
+            print(f"{tag} production activations: enc4 and bottleneck through "
+                  f"images_per_step {K4_IMAGES} equal the model's K3 output bit for bit; "
+                  f"K5 against plain: max {r['max']:.3g} mean {r['mean']:.3g} share beyond "
+                  f"{DEC1_GATE[dtype]['beyond'][0]} {r['beyond']:.3g}", flush=True)
+            if dtype == torch.bfloat16:
+                targs = (x_up, x_skip, *(v for k, v in args.items() if k != "num_groups"))
+                with torch.inference_mode():
+                    print(f"  sources: {dec1_error_sources(targs, 64, want5)}", flush=True)
+                    print(f"  controls: {dec1_controls(name, targs, want5['out'])}", flush=True)
+                    if size == 512:
+                        dec1_tail_times(model, targs)
+
+        (k5_bf, tail_bf), (k5_32, tail_32) = res[torch.bfloat16], res[torch.float32]
+        d32 = int(np.abs(k5_32.astype(np.int16) - tail_32.astype(np.int16)).max())
+        print(f"{size}x{size} f32: K5 frame vs the f32 model's output: max |delta| {d32} "
+              f"uint8 (need <= 1)", flush=True)
+        if d32 > 1:
+            raise AssertionError(f"{size}x{size} f32 K5 frames differ by {d32} levels")
+        p_bf = psnr_u8(k5_bf, tail_bf)
+        d_bf = int(np.abs(k5_bf.astype(np.int16) - tail_bf.astype(np.int16)).max())
+        if size == 512:
+            print(f"512x512 bf16: K5 frame vs the model's own tail: PSNR {p_bf:.2f} dB, max "
+                  f"|delta| {d_bf} uint8 (need >= {DEC1_PSNR_GATE_DB} dB)", flush=True)
+            if p_bf < DEC1_PSNR_GATE_DB:
+                raise AssertionError(f"512x512 bf16 K5 vs model tail {p_bf:.2f} dB")
+        else:
+            # phase 4's 32x32 rule: both bf16 paths against the f32 output
+            p_k, p_m = psnr_u8(k5_bf, tail_32), psnr_u8(tail_bf, tail_32)
+            print(f"32x32 bf16 vs the f32 model's output: K5 frame {p_k:.2f} dB, model's "
+                  f"tail {p_m:.2f} dB (K5 needs >= tail - 3 dB); K5 vs the bf16 tail "
+                  f"{p_bf:.2f} dB, max |delta| {d_bf} uint8", flush=True)
+            if p_k < p_m - 3.0:
+                raise AssertionError(f"32x32 bf16 K5 {p_k:.2f} dB vs model tail {p_m:.2f} dB")
+
+    dec1.reset_launch_counts()
+    r = dec1_slice_bench.run()
+    torch.cuda.synchronize()
+    launches["dec1_output"] += dec1.LAUNCHES["dec1_output"]
+    print(f"dec1_slice_bench (defaults: b{r['batch']} {r['size']}x{r['size']} {r['dtype']}, "
+          f"tile_h {r['tile_h']}) on {r['device']}: composition {r['composition_ms']:.5f} ms, "
+          f"K5 {r['dec1_output_ms']:.5f} ms, ratio {r['ratio']:.3f}x; max |K5 - composition| "
+          f"{r['max_abs_err']:.5f}, mean {r['mean_abs_err']:.6f}; input transposes: none "
+          f"(NHWC)", flush=True)
+    if not r["finite"] or dec1.LAUNCHES["dec1_output"] == 0:
+        raise AssertionError(f"dec1_slice_bench: finite {r['finite']}, "
+                             f"launches {dec1.LAUNCHES['dec1_output']}")
+    return launches
 
 
 def throughput(card: str) -> None:
@@ -333,37 +731,37 @@ def throughput(card: str) -> None:
             dt = time.perf_counter() - t0
             print(f"throughput bf16 512x512 bucket {b} kernels={kernels}: "
                   f"{b * iters / dt:.1f} img/s on {card}", flush=True)
-            profile_batches(eng, frames[:b], f"bucket {b} kernels={kernels}")
+            profile(lambda: eng.infer_batch(frames[:b]), f"bucket {b} kernels={kernels}")
         eng.stop()
 
 
 def _kernel_kind(name: str) -> str:
     low = name.lower()
-    if "gnk::" in name or "conv3x3_partials" in name:
+    if "gnk::" in name or "conv3x3_partials" in name or "dec1_" in name:
         return "port CUDA kernels"
-    if "conv" in low or "xmma" in low or "implicit" in low or "cudnn" in low:
+    if any(k in low for k in ("conv", "fprop", "implicit", "cudnn")):
         return "cuDNN convolution"
-    if "gemm" in low or "cutlass" in low:
+    if any(k in low for k in ("gemm", "cutlass", "xmma", "nvjet")):
         return "matmul"
     if "memcpy" in low or "memset" in low:
         return "copies"
     return "other PyTorch kernels"
 
 
-def profile_batches(eng, frames: np.ndarray, label: str, reps: int = 3) -> None:
-    """Where the device time of ``infer_batch`` goes: kernel time by kind and
-    by name from a torch.profiler trace, and the device's busy share of the
-    host wall time over ``reps`` synchronous batches."""
+def profile(fn, label: str, reps: int = 3) -> None:
+    """Where the device time of ``fn()`` goes: kernel time by kind and by
+    name from a torch.profiler trace, and the device's busy share of the
+    host wall time over ``reps`` synchronous calls."""
     import tempfile
 
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile as torch_profile
 
     with tempfile.TemporaryDirectory() as tmp:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             for _ in range(reps):
-                eng.infer_batch(frames)
+                fn()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         path = os.path.join(tmp, "trace.json")
@@ -409,34 +807,52 @@ def main() -> int:
     print(card, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
+    t0 = time.perf_counter()
     secs = _build.build()
     print(f"kernels built in {secs:.1f} s", flush=True)
     for name, log in _build.build_log.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  {name}: {line.strip()}")
 
-    rows = check_kernels()
-    launches = serve_slice()
-    throughput(card)
+    def phase(label, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        print(f"phase {label}: {time.perf_counter() - t:.1f} s", flush=True)
+        return out
 
+    rows = phase("3 kernels vs plain", check_kernels)
+    launches = phase("4 serving slice", serve_slice)
+    launches.update(phase("5 kernel entry points on model activations", model_entry_points))
+    phase("6 throughput", throughput, card)
+
+    src = "image_enhancement_deglaring_tpu_torch/csrc/"
+    tpu = "image_enhancement_deglaring_tpu/ops/"
     meta = {
-        "gn_silu_flat": ("image_enhancement_deglaring_tpu_torch/csrc/gn_silu.cu",
-                         "image_enhancement_deglaring_tpu/ops/pallas_kernels.py:251"),
-        "gn_silu_nhwc": ("image_enhancement_deglaring_tpu_torch/csrc/gn_silu.cu",
-                         "image_enhancement_deglaring_tpu/ops/pallas_kernels.py:92"),
-        "conv3x3_gn_silu": ("image_enhancement_deglaring_tpu_torch/csrc/conv_gn_silu.cu",
-                            "image_enhancement_deglaring_tpu/ops/pallas_kernels.py:339"),
+        "gn_silu_flat": (src + "gn_silu.cu", tpu + "pallas_kernels.py:251"),
+        "gn_silu_nhwc": (src + "gn_silu.cu", tpu + "pallas_kernels.py:92"),
+        "conv3x3_gn_silu": (src + "conv_gn_silu.cu", tpu + "pallas_kernels.py:339"),
+        "conv3x3_gn_silu_batched": (src + "conv_gn_silu.cu", tpu + "pallas_kernels.py:419"),
+        "dec1_output": (src + "dec1_output.cu", tpu + "pallas_dec1.py:249"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():
         r = rows[name]
-        kernels.append({
+        row = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": max(r["by"], key=r["by"].get), "library_ms": r["library_ms"],
-        })
+        }
+        if name == "dec1_output":
+            # no one PyTorch call computes the dec1 tail: its yardstick is the
+            # composition of the model's ops
+            row["library_ms"], row["composition_ms"] = None, r["library_ms"]
+        kernels.append(row)
+    missing = [k["name"] for k in kernels if k["launches"] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on their paths: {missing}")
+    print(f"total {time.perf_counter() - t0:.1f} s after start of build", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

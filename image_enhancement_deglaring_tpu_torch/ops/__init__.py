@@ -11,9 +11,16 @@ from .conv_blocks import (
     silu,
     upsample2x_matmul,
 )
+from .dec1 import (
+    dec1_output_args,
+    dec1_output_composition,
+    dec1_output_plain,
+    fused_dec1_output,
+)
 from .fused_kernels import (
     LAUNCHES,
     conv3x3_gn_silu,
+    conv3x3_gn_silu_batched,
     conv3x3_gn_silu_plain,
     fused_conv3x3_gn_silu,
     fused_group_norm_silu,

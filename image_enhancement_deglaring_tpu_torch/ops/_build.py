@@ -22,7 +22,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("gn_silu", "conv_gn_silu")
+SOURCES = ("gn_silu", "conv_gn_silu", "dec1_output")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -33,7 +33,9 @@ _GN_ARGS = [_P] * 6 + [_I] * 7 + [_F, _I, _P]
 #: C entry points of each library and their argument types
 SIGNATURES = {
     "gn_silu": {"gn_silu_flat": _GN_ARGS, "gn_silu_nhwc": _GN_ARGS},
-    "conv_gn_silu": {"conv3x3_gn_silu": [_P] * 8 + [_I] * 9 + [_F, _I, _P]},
+    "conv_gn_silu": {"conv3x3_gn_silu": [_P] * 8 + [_I] * 9 + [_F, _I, _P],
+                     "conv3x3_gn_silu_batched": [_P] * 8 + [_I] * 10 + [_F, _I, _P]},
+    "dec1_output": {"dec1_output": [_P] * 9 + [_I] * 4 + [_F, _I, _P]},
 }
 
 _lock = threading.Lock()

@@ -2,13 +2,16 @@
 
 Counterpart of ``image_enhancement_deglaring_tpu.ops.pallas_kernels``:
 
-==================  =====================================  ==================
-wrapper             TPU kernel it replaces                 CUDA source
-==================  =====================================  ==================
-gn_silu_flat        _gn_silu_flat_kernel (K1)               csrc/gn_silu.cu
-gn_silu_nhwc        _gn_silu_kernel (K2)                    csrc/gn_silu.cu
-conv3x3_gn_silu     _conv_gn_silu_kernel (K3)               csrc/conv_gn_silu.cu
-==================  =====================================  ==================
+========================  ===================================  ====================
+wrapper                   TPU kernel it replaces               CUDA source
+========================  ===================================  ====================
+gn_silu_flat              _gn_silu_flat_kernel (K1)            csrc/gn_silu.cu
+gn_silu_nhwc              _gn_silu_kernel (K2)                 csrc/gn_silu.cu
+conv3x3_gn_silu           _conv_gn_silu_kernel (K3)            csrc/conv_gn_silu.cu
+conv3x3_gn_silu_batched   _conv_gn_silu_batched_kernel (K4)    csrc/conv_gn_silu.cu
+========================  ===================================  ====================
+
+(K5, the dec1 tail of ``pallas_dec1``, is in :mod:`.dec1`.)
 
 Every wrapper takes and returns NHWC tensors. On a CPU tensor it computes
 its plain PyTorch version (``gn_silu_plain``, ``conv3x3_gn_silu_plain``);
@@ -27,7 +30,8 @@ from . import _build
 from .conv_blocks import conv2d, group_norm, highest_precision, silu
 
 #: kernel launches per wrapper since the last reset_launch_counts()
-LAUNCHES = {"gn_silu_flat": 0, "gn_silu_nhwc": 0, "conv3x3_gn_silu": 0}
+LAUNCHES = {"gn_silu_flat": 0, "gn_silu_nhwc": 0, "conv3x3_gn_silu": 0,
+            "conv3x3_gn_silu_batched": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -147,15 +151,10 @@ def gn_silu_nhwc(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *,
     return _gn_silu_launch("gn_silu_nhwc", x, scale, bias, num_groups, eps)
 
 
-def conv3x3_gn_silu(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
-                    bias: torch.Tensor, *, num_groups: int,
-                    eps: float = 1e-5) -> torch.Tensor:
-    """K3: Conv3x3(same, no bias) -> GroupNorm -> SiLU (replaces
-    ``_fused_conv_gn_silu_pallas``). x: (N, H, W, Cin), w: (3, 3, Cin, Cout)
-    HWIO -> (N, H, W, Cout) in x's dtype."""
-    if x.device.type == "cpu":
-        return conv3x3_gn_silu_plain(x, w, scale, bias, num_groups=num_groups, eps=eps)
-    name = "conv3x3_gn_silu"
+def _conv_launch(name: str, x, w, scale, bias, num_groups: int, eps: float,
+                 images: int | None):
+    """Launch the C entry ``name`` of conv_gn_silu.cu: K3's, or K4's with
+    ``images`` images per conv block."""
     if x.device.type != "cuda":
         raise ValueError(f"{name}: tensor on {x.device}, want cpu or cuda")
     _check_activation(name, x)
@@ -173,15 +172,44 @@ def conv3x3_gn_silu(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     part = torch.empty((n * max(tiles, chunks) * cout * 2,), dtype=torch.float32,
                        device=x.device)
     stats = torch.empty((n, num_groups, 2), dtype=torch.float32, device=x.device)
-    fn = _build.load("conv_gn_silu").conv3x3_gn_silu
+    fn = getattr(_build.load("conv_gn_silu"), name)
+    per_block = () if images is None else (images,)
     with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), wk.data_ptr(), g.data_ptr(), b.data_ptr(),
-                 out.data_ptr(), yscr.data_ptr(), part.data_ptr(), stats.data_ptr(),
-                 n, h, wd, cin, cout, num_groups, chunk_pix, chunks, threads, eps,
-                 _DTYPE_CODE[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
+        err = fn(x.data_ptr(), wk.data_ptr(), g.data_ptr(), b.data_ptr(), out.data_ptr(),
+                 yscr.data_ptr(), part.data_ptr(), stats.data_ptr(),
+                 n, h, wd, cin, cout, num_groups, chunk_pix, chunks, threads, *per_block,
+                 eps, _DTYPE_CODE[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on_error(name, err)
     LAUNCHES[name] += 1
     return out
+
+
+def conv3x3_gn_silu(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
+                    bias: torch.Tensor, *, num_groups: int,
+                    eps: float = 1e-5) -> torch.Tensor:
+    """K3: Conv3x3(same, no bias) -> GroupNorm -> SiLU (replaces
+    ``_fused_conv_gn_silu_pallas``). x: (N, H, W, Cin), w: (3, 3, Cin, Cout)
+    HWIO -> (N, H, W, Cout) in x's dtype."""
+    if x.device.type == "cpu":
+        return conv3x3_gn_silu_plain(x, w, scale, bias, num_groups=num_groups, eps=eps)
+    return _conv_launch("conv3x3_gn_silu", x, w, scale, bias, num_groups, eps, None)
+
+
+def conv3x3_gn_silu_batched(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
+                            bias: torch.Tensor, *, num_groups: int, images: int,
+                            eps: float = 1e-5) -> torch.Tensor:
+    """K4: K3's function with one conv block owning its output tile across
+    ``images`` images, which stages each weight chunk once for all of them
+    (replaces ``_fused_conv_gn_silu_batched``). The output equals K3's bit
+    for bit. Raises ValueError unless ``images`` divides the batch."""
+    n = x.shape[0]
+    if images < 1 or n % images != 0:
+        raise ValueError(f"conv3x3_gn_silu_batched: batch {n} not divisible by "
+                         f"images {images}")
+    if x.device.type == "cpu":
+        return conv3x3_gn_silu_plain(x, w, scale, bias, num_groups=num_groups, eps=eps)
+    return _conv_launch("conv3x3_gn_silu_batched", x, w, scale, bias, num_groups, eps,
+                        images)
 
 
 # --------------------------------------------------------------- dispatchers
@@ -217,13 +245,16 @@ def fused_group_norm_silu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tens
 
 def fused_conv3x3_gn_silu(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
                           bias: torch.Tensor, *, num_groups: int, eps: float = 1e-5,
-                          use_kernel: bool | None = None) -> torch.Tensor:
-    """Conv3x3(same, no bias) -> GroupNorm -> SiLU through K3.
+                          use_kernel: bool | None = None,
+                          images_per_step: int | None = None) -> torch.Tensor:
+    """Conv3x3(same, no bias) -> GroupNorm -> SiLU through K3 or K4.
 
-    ``use_kernel=None`` picks K3 for ``cout % num_groups == 0 and
+    ``use_kernel=None`` picks a kernel for ``cout % num_groups == 0 and
     cout >= 64`` and the composition elsewhere. The JAX dispatcher also
     required the per-image slab to fit a 6 MB on-chip budget of the TPU;
-    that rule has no meaning on the H100 and is dropped."""
+    that rule has no meaning on the H100 and is dropped. With a kernel,
+    ``images_per_step=K > 1`` routes to K4 (K images per conv block; the
+    batch must divide by K, else ValueError) and None or <= 1 to K3."""
     cout = w.shape[-1]
     if use_kernel is None:
         use_kernel = cout % num_groups == 0 and cout >= 64
@@ -234,4 +265,10 @@ def fused_conv3x3_gn_silu(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
         # a forced call must not compute ragged pseudo-group statistics
         raise ValueError(f"fused conv+GN+SiLU needs cout % num_groups == 0 "
                          f"(got cout={cout}, num_groups={num_groups})")
+    if images_per_step is not None and images_per_step > 1:
+        if x.shape[0] % images_per_step != 0:
+            raise ValueError(f"batch {x.shape[0]} not divisible by images_per_step "
+                             f"{images_per_step}")
+        return conv3x3_gn_silu_batched(x.contiguous(), w, scale, bias, num_groups=num_groups,
+                                       images=images_per_step, eps=eps)
     return conv3x3_gn_silu(x.contiguous(), w, scale, bias, num_groups=num_groups, eps=eps)

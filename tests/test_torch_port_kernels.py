@@ -1,7 +1,7 @@
 """The port's kernel wrappers on CPU tensors (their plain PyTorch versions)
 against the JAX package's Pallas kernels run in interpret mode, at the
-tolerances of tests/test_pallas.py; plus the dispatch rules, the forced-call
-errors and the launch counters. The CUDA kernels themselves are held
+tolerances of tests/test_pallas.py; plus the dispatch rules (images_per_step
+included), the forced-call errors and the launch counters. The CUDA kernels themselves are held
 against these plain versions on the card by chip_smoke.py."""
 
 import numpy as np
@@ -100,6 +100,86 @@ def test_conv3x3_gn_silu_bf16_rounds_weights_like_pallas_conv(rng):
                                atol=0.06)
 
 
+@pytest.mark.parametrize("images", [2, 4])
+def test_conv3x3_gn_silu_batched_matches_pallas_batched(rng, images):
+    """K4 (K images per conv block) vs the TPU's batched-grid kernel in
+    interpret mode, at tests/test_pallas.py's tolerance."""
+    x = rng.standard_normal((4, 8, 8, 16)).astype(np.float32)
+    w = rng.standard_normal((3, 3, 16, 32)).astype(np.float32) * 0.1
+    s = rng.standard_normal(32).astype(np.float32)
+    b = rng.standard_normal(32).astype(np.float32)
+    want = jpk._fused_conv_gn_silu_batched(jnp.asarray(x), jnp.asarray(w), jnp.asarray(s),
+                                           jnp.asarray(b), num_groups=8, eps=1e-5,
+                                           images=images, interpret=True)
+    got = fk.conv3x3_gn_silu_batched(_t(x), _t(w), _t(s), _t(b), num_groups=8, images=images)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4, atol=2e-4)
+
+
+def test_conv3x3_gn_silu_batched_bf16_matches_pallas_batched(rng):
+    """bfloat16: both round the weights to bf16 and the output once; the
+    bound is that of the K3 bf16 test and of tests/test_pallas.py's bf16
+    GroupNorm test (0.06, a few bf16 ulps of outputs up to ~4)."""
+    x = rng.standard_normal((4, 8, 8, 16)).astype(np.float32)
+    w = rng.standard_normal((3, 3, 16, 32)).astype(np.float32) * 0.1
+    s = rng.standard_normal(32).astype(np.float32)
+    b = rng.standard_normal(32).astype(np.float32)
+    want = jpk._fused_conv_gn_silu_batched(jnp.asarray(x).astype(jnp.bfloat16), jnp.asarray(w),
+                                           jnp.asarray(s), jnp.asarray(b), num_groups=8,
+                                           eps=1e-5, images=2, interpret=True)
+    got = fk.conv3x3_gn_silu_batched(_t(x).bfloat16(), _t(w), _t(s), _t(b), num_groups=8,
+                                     images=2)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want.astype(jnp.float32)),
+                               atol=0.06)
+
+
+@pytest.mark.parametrize("images_per_step", [None, 1, 2, 4])
+def test_conv_dispatcher_images_per_step_matches_jax(rng, images_per_step):
+    """The forced dispatchers with images_per_step: both packages give the
+    same function (K3 for None or <= 1, K4 above)."""
+    x = rng.standard_normal((4, 8, 8, 64)).astype(np.float32)
+    w = rng.standard_normal((3, 3, 64, 64)).astype(np.float32) * 0.1
+    s = rng.standard_normal(64).astype(np.float32)
+    b = rng.standard_normal(64).astype(np.float32)
+    want = jpk.fused_conv3x3_gn_silu(jnp.asarray(x), jnp.asarray(w), jnp.asarray(s),
+                                     jnp.asarray(b), num_groups=8, use_pallas=True,
+                                     images_per_step=images_per_step)
+    got = fk.fused_conv3x3_gn_silu(_t(x), _t(w), _t(s), _t(b), num_groups=8, use_kernel=True,
+                                   images_per_step=images_per_step)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("images_per_step,route", [
+    (None, "conv3x3_gn_silu"), (1, "conv3x3_gn_silu"), (0, "conv3x3_gn_silu"),
+    (2, "conv3x3_gn_silu_batched"), (4, "conv3x3_gn_silu_batched")])
+def test_conv_dispatcher_images_per_step_routes(monkeypatch, images_per_step, route):
+    calls = []
+    for name in ("conv3x3_gn_silu", "conv3x3_gn_silu_batched"):
+        monkeypatch.setattr(fk, name, lambda *a, _n=name, **k: calls.append((_n, k)))
+    fk.fused_conv3x3_gn_silu(torch.zeros(4, 4, 4, 8), torch.zeros(3, 3, 8, 64), torch.ones(64),
+                             torch.zeros(64), num_groups=8, images_per_step=images_per_step)
+    assert [c[0] for c in calls] == [route]
+    if route == "conv3x3_gn_silu_batched":
+        assert calls[0][1]["images"] == images_per_step
+
+
+def test_conv_dispatcher_rejects_bad_images_per_step(rng):
+    """batch % images_per_step != 0 raises in both packages, with the same
+    word in the message; the K4 wrapper raises on its own too."""
+    x = rng.standard_normal((3, 8, 8, 64)).astype(np.float32)
+    w = rng.standard_normal((3, 3, 64, 64)).astype(np.float32) * 0.1
+    with pytest.raises(ValueError, match="images_per_step"):
+        jpk.fused_conv3x3_gn_silu(jnp.asarray(x), jnp.asarray(w), jnp.ones(64), jnp.zeros(64),
+                                  num_groups=8, use_pallas=True, images_per_step=2)
+    with pytest.raises(ValueError, match="images_per_step"):
+        fk.fused_conv3x3_gn_silu(_t(x), _t(w), torch.ones(64), torch.zeros(64), num_groups=8,
+                                 use_kernel=True, images_per_step=2)
+    for device in ("cpu", "meta"):
+        with pytest.raises(ValueError, match="not divisible"):
+            fk.conv3x3_gn_silu_batched(torch.zeros(3, 8, 8, 64, device=device), _t(w),
+                                       torch.ones(64), torch.zeros(64), num_groups=8, images=2)
+
+
 def test_conv_dispatcher_forced_rejects_bad_groups(rng):
     x = rng.standard_normal((1, 8, 8, 64)).astype(np.float32)
     w = rng.standard_normal((3, 3, 64, 64)).astype(np.float32) * 0.1
@@ -160,14 +240,28 @@ def test_cpu_wrappers_leave_launch_counts_at_zero(rng):
     fk.gn_silu_flat(_t(x), _t(s), _t(b), num_groups=8)
     fk.gn_silu_nhwc(_t(x), _t(s), _t(b), num_groups=8)
     fk.conv3x3_gn_silu(_t(x), torch.zeros(3, 3, 64, 64), _t(s), _t(b), num_groups=8)
-    assert fk.LAUNCHES == {"gn_silu_flat": 0, "gn_silu_nhwc": 0, "conv3x3_gn_silu": 0}
+    fk.conv3x3_gn_silu_batched(_t(x), torch.zeros(3, 3, 64, 64), _t(s), _t(b), num_groups=8,
+                               images=1)
+    assert fk.LAUNCHES == {"gn_silu_flat": 0, "gn_silu_nhwc": 0, "conv3x3_gn_silu": 0,
+                           "conv3x3_gn_silu_batched": 0}
 
 
-@pytest.mark.parametrize("name", ["gn_silu_flat", "gn_silu_nhwc", "conv3x3_gn_silu"])
+@pytest.mark.parametrize("name", ["gn_silu_flat", "gn_silu_nhwc", "conv3x3_gn_silu",
+                                  "conv3x3_gn_silu_batched", "fused_dec1_output"])
 def test_wrappers_raise_off_cpu_and_cuda(name):
     """A tensor that is neither on the CPU nor on a CUDA device is refused,
     never computed by the plain version."""
+    from image_enhancement_deglaring_tpu_torch.ops import dec1
+
+    if name == "fused_dec1_output":
+        x = torch.empty(1, 16, 16, 8, device="meta")
+        w3, v = torch.zeros(3, 3, 8, 8), torch.zeros(8)
+        with pytest.raises(ValueError, match="meta"):
+            dec1.fused_dec1_output(x, x, w3, w3, w3, v, v, v, v, torch.zeros(1, 1, 8, 1),
+                                   torch.zeros(1))
+        return
     x = torch.empty(1, 8, 16, 64, device="meta")
-    args = (x, torch.zeros(3, 3, 64, 64)) if name == "conv3x3_gn_silu" else (x,)
+    args = (x, torch.zeros(3, 3, 64, 64)) if name.startswith("conv") else (x,)
+    kw = {"images": 1} if name == "conv3x3_gn_silu_batched" else {}
     with pytest.raises(ValueError, match="meta"):
-        getattr(fk, name)(*args, torch.ones(64), torch.zeros(64), num_groups=8)
+        getattr(fk, name)(*args, torch.ones(64), torch.zeros(64), num_groups=8, **kw)
