@@ -10,8 +10,16 @@ Phases, each fatal on failure:
 3. hold every kernel against its plain PyTorch version at the main path's
    shapes, in bfloat16 and float32 (TF32 off), and time the kernel, the
    plain version and one PyTorch library call computing the same function
-   (for the dec1 tail, which no one call computes, the composition of ops);
-   K4 also against K3, bit for bit, and its batch check; K5 in bf16 also
+   (for the dec1 tail, which no one call computes, the composition of ops),
+   each the median of 5 rounds of 20 calls (9 of 40 for the conv kernel),
+   the rounds of a shape's functions taking turns in a seeded order; the
+   conv kernel with weights in the activation dtype, as the model holds
+   them, and with float32 weights cast in every call, and for the bf16 conv
+   at 512x512 also the device time of K3, K4 and the library call and K3's
+   split by kernel;
+   K4 also against K3, bit for bit, and its batch check; the conv kernel
+   also at ragged channel counts and image sizes and on an output whose
+   group means are >= 30x their standard deviations; K5 in bf16 also
    with its largest error traced to its source and two rounding faults
    that its gate must reject;
 4. serve 16 seeded 512x512 frames through ``InferenceEngine.submit`` on the
@@ -42,9 +50,11 @@ result.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
+import random
 import subprocess
 import sys
 import threading
@@ -103,8 +113,16 @@ K3_SHAPES = [(((8, 64, 64, 32), 64), "512"), (((8, 64, 64, 64), 64), "512"),
              (((8, 32, 32, 64), 128), "512"), (((8, 32, 32, 128), 128), "512"),
              (((8, 4, 4, 32), 64), "32"), (((8, 4, 4, 64), 64), "32"),
              (((8, 2, 2, 64), 128), "32"), (((8, 2, 2, 128), 128), "32")]
-# K4's images per conv block, at batch 8
+# K4's images per step, at batch 8 (K = 8 at 8x32x32x128->128: a grid cut
+# by K would have 16 tiles x 2 channel tiles = 32 blocks, fewer than the SMs)
 K4_IMAGES = (2, 4, 8)
+# conv cases on no model path, checked only: channel counts that are no
+# multiple of 16 (or of 8, or of 64), image sizes that are no multiple of 8,
+# and more input channels than one weight window holds (128)
+CONV_RAGGED = [((2, h, w, cin), cout) for h, w in ((6, 6), (36, 20))
+               for cin in (1, 8, 24) for cout in (8, 16, 96)] + [((2, 16, 16, 256), 64)]
+# a conv output whose group means are >= 30x their standard deviations
+CONV_OFFSET_SHAPE, CONV_OFFSET_MIN_RATIO = ((4, 32, 32, 64), 64), 30.0
 # (shape, tile_h), path: the JAX tests' shapes and tilings, then the 512x512
 # and 32x32 dec1 inputs of a batch of 8 (tile_h 64 falls back to one tile at 32)
 DEC1_SHAPES = [(((2, 64, 128, 8), 16), None), (((1, 48, 128, 8), 48), None),
@@ -118,18 +136,53 @@ GROUPS = 8
 DEC1_PSNR_GATE_DB = 45.0
 
 
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of one call, by CUDA events around ``iters`` calls."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
+def time_many(fns: dict, iters: int = 20, warmup: int = 3, rounds: int = 5) -> dict:
+    """Time of one call of each function: the median over ``rounds`` rounds
+    (at least one per function) of the mean by CUDA events around ``iters``
+    back-to-back calls, each round's calls after ``warmup`` untimed ones.
+    The functions' rounds take turns, in a seeded order that changes from
+    round to round: below ~0.1 ms a call is bound by its host cost, which
+    the machine's other work makes vary, so a slow spell weighs on all of
+    them alike and the median keeps it out, and no function always runs
+    right after the same other one."""
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
+    keys = list(fns)
+    means: dict = {k: [] for k in fns}
+    for r in range(max(rounds, len(keys))):
+        order = keys[:]
+        random.Random(r).shuffle(order)
+        for k in order:
+            fn = fns[k]
+            for _ in range(warmup):
+                fn()
+            torch.cuda.synchronize()
+            start.record()
+            for _ in range(iters):
+                fn()
+            end.record()
+            torch.cuda.synchronize()
+            means[k].append(start.elapsed_time(end) / iters)
+    return {k: sorted(v)[len(v) // 2] for k, v in means.items()}
+
+
+def time_ms(fn, iters: int = 20, warmup: int = 3, rounds: int = 5) -> float:
+    """``time_many`` of one function."""
+    return time_many({0: fn}, iters, warmup, rounds)[0]
+
+
+def device_ms(fn, reps: int = 10) -> float:
+    """Device time of one call: the durations of its kernels and copies in
+    a torch.profiler trace of ``reps`` calls, summed, over ``reps``. The
+    host's cost, which sets CUDA-event times below ~0.1 ms, does not enter."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    fn()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.device_time_total for e in prof.key_averages()) / reps / 1e3
 
 
 def bound(nbytes: float, flops: float, dtype) -> tuple[float, str]:
@@ -211,19 +264,42 @@ def check_kernels() -> list[dict]:
             x = randn(*shape, dtype=dtype)
             w = randn(3, 3, cin, cout, scale=1.0 / math.sqrt(9 * cin))
             gamma, beta = randn(cout), randn(cout)
+            name = f"conv3x3_gn_silu{shape}->{cout} {dtype}"
             with highest_precision():
                 got = fk.conv3x3_gn_silu(x, w, gamma, beta, num_groups=GROUPS)
                 want = fk.conv3x3_gn_silu_plain(x, w, gamma, beta, num_groups=GROUPS)
                 torch.cuda.synchronize()
-                err = check_close(f"conv3x3_gn_silu{shape}->{cout} {dtype}", got, want, "conv")
-                ms = time_ms(lambda: fk.conv3x3_gn_silu(x, w, gamma, beta, num_groups=GROUPS))
-                plain_ms = time_ms(lambda: fk.conv3x3_gn_silu_plain(
-                    x, w, gamma, beta, num_groups=GROUPS))
+                err = check_close(name, got, want, "conv")
+                # K4: the same function, K images per step, equal to K3
+                err4 = {}
+                for k in K4_IMAGES:
+                    got4 = fk.conv3x3_gn_silu_batched(x, w, gamma, beta, num_groups=GROUPS,
+                                                      images=k)
+                    torch.cuda.synchronize()
+                    err4[k] = check_close(f"{name} images {k}", got4, want, "conv")
+                    if not torch.equal(got4, got):
+                        d = float((got4.float() - got.float()).abs().max())
+                        raise AssertionError(f"{name} images {k}: differs from K3 by up to {d:.3g}")
+                # timed with the weights in the activation dtype, as the model
+                # holds them and the library call gets them; "cast" is the time
+                # with float32 weights, which the wrapper casts in every call
+                wx = w.to(dtype)
                 xl = x.permute(0, 3, 1, 2)
                 wl = w.permute(3, 2, 0, 1).to(dtype).contiguous(memory_format=torch.channels_last)
                 gl, bl = gamma.to(dtype), beta.to(dtype)
-                lib_ms = time_ms(lambda: F.silu(F.group_norm(
-                    F.conv2d(xl, wl, padding=1), GROUPS, gl, bl, 1e-5)))
+                fns = {
+                    "k3": lambda: fk.conv3x3_gn_silu(x, wx, gamma, beta, num_groups=GROUPS),
+                    "cast": lambda: fk.conv3x3_gn_silu(x, w, gamma, beta, num_groups=GROUPS),
+                    "plain": lambda: fk.conv3x3_gn_silu_plain(x, w, gamma, beta,
+                                                              num_groups=GROUPS),
+                    "library": lambda: F.silu(F.group_norm(F.conv2d(xl, wl, padding=1), GROUPS,
+                                                           gl, bl, 1e-5)),
+                }
+                for k in K4_IMAGES:
+                    fns[k] = functools.partial(fk.conv3x3_gn_silu_batched, x, wx, gamma, beta,
+                                               num_groups=GROUPS, images=k)
+                t = time_many(fns, iters=40, rounds=9)
+            ms, plain_ms, lib_ms = t["k3"], t["plain"], t["library"]
             n, h, wd, _ = shape
             out_elems = n * h * wd * cout
             nbytes = (x.numel() + 9 * cin * cout + out_elems) * x.element_size() + 8 * cout
@@ -231,29 +307,24 @@ def check_kernels() -> list[dict]:
             b = bound(nbytes, flops, dtype)
             tol = f"(atol {TOL[('conv', dtype)][0]}, rtol {TOL[('conv', dtype)][1]})"
             print(f"conv3x3_gn_silu {shape}->{cout} {str(dtype)[6:]} path {path}: "
-                  f"max_abs_err {err:.3g} {tol} ms {ms:.5f} plain_ms {plain_ms:.5f} "
-                  f"library_ms {lib_ms:.5f} bound_ms {b[0]:.3g} ({b[1]})", flush=True)
+                  f"max_abs_err {err:.3g} {tol} ms {ms:.5f} (cast {t['cast']:.5f}) plain_ms "
+                  f"{plain_ms:.5f} library_ms {lib_ms:.5f} bound_ms {b[0]:.3g} ({b[1]})",
+                  flush=True)
             if dtype == torch.bfloat16:
                 record("conv3x3_gn_silu", path is not None, err, ms, plain_ms, lib_ms, b)
-            # K4: the same function, K images per conv block, equal to K3
+                if path == "512":  # device time by kernel: conv pass, finalize, apply pass
+                    profile(fns["k3"], f"conv3x3_gn_silu {shape}->{cout} bf16", reps=10)
+                    dev = {k: device_ms(fns[k]) for k in ("k3", *K4_IMAGES, "library")}
+                    print(f"  device ms per call: K3 {dev['k3']:.5f}, " + ", ".join(
+                        f"K4 K={k} {dev[k]:.5f} ({dev[k] / dev['k3']:.3f}x K3)"
+                        for k in K4_IMAGES) + f", library {dev['library']:.5f}", flush=True)
             for k in K4_IMAGES:
-                name = f"conv3x3_gn_silu_batched{shape}->{cout} images {k} {dtype}"
-                with highest_precision():
-                    got4 = fk.conv3x3_gn_silu_batched(x, w, gamma, beta, num_groups=GROUPS,
-                                                      images=k)
-                    torch.cuda.synchronize()
-                    err4 = check_close(name, got4, want, "conv")
-                    if not torch.equal(got4, got):
-                        d = float((got4.float() - got.float()).abs().max())
-                        raise AssertionError(f"{name}: differs from K3 by up to {d:.3g}")
-                    ms4 = time_ms(lambda: fk.conv3x3_gn_silu_batched(
-                        x, w, gamma, beta, num_groups=GROUPS, images=k))
                 print(f"conv3x3_gn_silu_batched {shape}->{cout} images {k} {str(dtype)[6:]} "
-                      f"path {path}: max_abs_err {err4:.3g} {tol}, equal to K3 bit for bit; "
-                      f"ms {ms4:.5f} plain_ms {plain_ms:.5f} library_ms {lib_ms:.5f} "
-                      f"bound_ms {b[0]:.3g} ({b[1]})", flush=True)
+                      f"path {path}: max_abs_err {err4[k]:.3g} {tol}, equal to K3 bit for bit; "
+                      f"ms {t[k]:.5f} ({t[k] / ms:.3f}x K3) plain_ms {plain_ms:.5f} library_ms "
+                      f"{lib_ms:.5f} bound_ms {b[0]:.3g} ({b[1]})", flush=True)
                 if dtype == torch.bfloat16:
-                    record("conv3x3_gn_silu_batched", path is not None, err4, ms4, plain_ms,
+                    record("conv3x3_gn_silu_batched", path is not None, err4[k], t[k], plain_ms,
                            lib_ms, b)
 
     # a batch that K does not divide is refused on the card too, before a launch
@@ -274,8 +345,80 @@ def check_kernels() -> list[dict]:
     if fk.LAUNCHES["conv3x3_gn_silu_batched"] != before:
         raise AssertionError("a refused K4 call launched the kernel")
 
+    check_conv_cases(randn)
     check_dec1(randn, record)
     return rows
+
+
+def check_conv_case(name: str, x, w, gamma, beta) -> float:
+    """K3 against its plain version under TOL[("conv", dtype)], and K4 at
+    every K in (2, batch) that divides the batch equal to K3 bit for bit."""
+    from image_enhancement_deglaring_tpu_torch.ops import fused_kernels as fk
+    from image_enhancement_deglaring_tpu_torch.ops.conv_blocks import highest_precision
+
+    with highest_precision():
+        got = fk.conv3x3_gn_silu(x, w, gamma, beta, num_groups=GROUPS)
+        want = fk.conv3x3_gn_silu_plain(x, w, gamma, beta, num_groups=GROUPS)
+        torch.cuda.synchronize()
+        err = check_close(name, got, want, "conv")
+        n = x.shape[0]
+        for k in sorted({2, n}):
+            if n % k == 0:
+                got4 = fk.conv3x3_gn_silu_batched(x, w, gamma, beta, num_groups=GROUPS,
+                                                  images=k)
+                torch.cuda.synchronize()
+                if not torch.equal(got4, got):
+                    d = float((got4.float() - got.float()).abs().max())
+                    raise AssertionError(f"{name}: K4 with images {k} differs from K3 by {d:.3g}")
+    return err
+
+
+def check_conv_cases(randn) -> None:
+    """Phase 3, conv shapes on no model path: CONV_RAGGED, and a conv
+    output with group means far above their standard deviations (the
+    centred statistics must hold there), in bf16 and float32."""
+    from image_enhancement_deglaring_tpu_torch.ops.conv_blocks import conv2d, highest_precision
+
+    for dtype in (torch.bfloat16, torch.float32):
+        worst = 0.0
+        for shape, cout in CONV_RAGGED:
+            cin = shape[-1]
+            x = randn(*shape, dtype=dtype)
+            w = randn(3, 3, cin, cout, scale=1.0 / math.sqrt(9 * cin))
+            worst = max(worst, check_conv_case(f"conv3x3_gn_silu{shape}->{cout} {dtype}", x, w,
+                                               randn(cout), randn(cout)))
+        print(f"conv3x3_gn_silu ragged {str(dtype)[6:]}: {len(CONV_RAGGED)} cases (Cin 1/8/24, "
+              f"Cout 8/16/96, 6x6 and 36x20; 16x16x256->64) within {TOL[('conv', dtype)]}, "
+              f"max_abs_err {worst:.3g}; K4 equal to K3 bit for bit", flush=True)
+
+        # x near 1 in steps of 1/128, a centre tap of 1/Cin = 2^-6 and other
+        # taps of 0 or +-2^-12: every output is near 1 and varies by about a
+        # hundredth of that. Every product and partial sum is then a multiple
+        # of 2^-19 below 2, exact in float32, so both sides have the same
+        # pre-norm bits whatever their summation order, and only the
+        # statistics can differ (a mean 100x the std would otherwise scale
+        # the convs' f32 rounding by 100 as well)
+        shape, cout = CONV_OFFSET_SHAPE
+        cin = shape[-1]
+        x = (1.0 + randn(*shape, scale=4.0).round().clamp(-8, 8) / 128).to(dtype)
+        w = randn(3, 3, cin, cout, scale=0.6).round().clamp(-1, 1) * 2.0 ** -12
+        w[1, 1] += 1.0 / cin
+        with highest_precision():
+            y = conv2d(x.float(), w.to(dtype).float(), padding=1)
+        yg = y.reshape(shape[0], -1, GROUPS, cout // GROUPS).transpose(1, 2).reshape(
+            shape[0], GROUPS, -1)
+        mean, var = yg.mean(-1), yg.var(-1, unbiased=False)
+        ratio = float((mean.abs() / var.sqrt()).min())
+        single = float(((yg.square().mean(-1) - mean.square()) - var).abs().div(var).max())
+        if ratio < CONV_OFFSET_MIN_RATIO:
+            raise AssertionError(f"offset case: group mean / std {ratio:.3g} < "
+                                 f"{CONV_OFFSET_MIN_RATIO}")
+        err = check_conv_case(f"conv3x3_gn_silu offset {shape}->{cout} {dtype}", x, w,
+                              randn(cout), randn(cout))
+        print(f"conv3x3_gn_silu offset {shape}->{cout} {str(dtype)[6:]}: group mean / std >= "
+              f"{ratio:.4g} (need >= {CONV_OFFSET_MIN_RATIO}; a single-pass float32 variance "
+              f"there is off by up to {single:.3g} of the variance); max_abs_err {err:.3g} "
+              f"within {TOL[('conv', dtype)]}; K4 equal to K3 bit for bit", flush=True)
 
 
 def dec1_weights(randn) -> tuple:
@@ -737,7 +880,7 @@ def throughput(card: str) -> None:
 
 def _kernel_kind(name: str) -> str:
     low = name.lower()
-    if "gnk::" in name or "conv3x3_partials" in name or "dec1_" in name:
+    if "gnk::" in name or "conv3x3_" in name or "conv_gn_" in name or "dec1_" in name:
         return "port CUDA kernels"
     if any(k in low for k in ("conv", "fprop", "implicit", "cudnn")):
         return "cuDNN convolution"
@@ -791,8 +934,12 @@ def profile(fn, label: str, reps: int = 3) -> None:
           f"of {wall * 1e3 / reps:.3f} ms host wall per batch (profiler on)")
     for kind, us in sorted(by_kind.items(), key=lambda kv: -kv[1]):
         print(f"  {kind}: {us / 1e3 / reps:.3f} ms per batch ({us / busy:.1%})")
-    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
+    for name, us in ranked[:8]:
         print(f"    {us / 1e3 / reps:.3f} ms  {name[:100]}")
+    for name, us in ranked[8:]:  # and every port kernel below the top 8
+        if _kernel_kind(name) == "port CUDA kernels":
+            print(f"    {us / 1e3 / reps:.3f} ms  {name[:100]}")
 
 
 def main() -> int:

@@ -33,8 +33,8 @@ _GN_ARGS = [_P] * 6 + [_I] * 7 + [_F, _I, _P]
 #: C entry points of each library and their argument types
 SIGNATURES = {
     "gn_silu": {"gn_silu_flat": _GN_ARGS, "gn_silu_nhwc": _GN_ARGS},
-    "conv_gn_silu": {"conv3x3_gn_silu": [_P] * 8 + [_I] * 9 + [_F, _I, _P],
-                     "conv3x3_gn_silu_batched": [_P] * 8 + [_I] * 10 + [_F, _I, _P]},
+    "conv_gn_silu": {"conv3x3_gn_silu_bf16": [_P] * 7 + [_I] * 10 + [_F, _P],
+                     "conv3x3_gn_silu_f32": [_P] * 8 + [_I] * 10 + [_F, _P]},
     "dec1_output": {"dec1_output": [_P] * 9 + [_I] * 4 + [_F, _I, _P]},
 }
 

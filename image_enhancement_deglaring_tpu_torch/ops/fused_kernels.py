@@ -16,13 +16,18 @@ conv3x3_gn_silu_batched   _conv_gn_silu_batched_kernel (K4)    csrc/conv_gn_silu
 Every wrapper takes and returns NHWC tensors. On a CPU tensor it computes
 its plain PyTorch version (``gn_silu_plain``, ``conv3x3_gn_silu_plain``);
 on a CUDA tensor it launches its kernel on the current stream or raises.
-Each launch adds one to ``LAUNCHES[<wrapper name>]``.
+Each launch adds one to ``LAUNCHES[<wrapper name>]``. In bfloat16 the conv
+wrappers run the tensor-core kernel under the launch plan ``_conv_plan``
+(three launches); in float32 the CUDA-core one (five launches).
 
 The dispatchers ``fused_group_norm_silu`` and ``fused_conv3x3_gn_silu``
 choose a kernel by the same shape rules as the JAX dispatchers.
 """
 
 from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
 
 import torch
 
@@ -106,6 +111,13 @@ def _check_groups(name: str, c: int, num_groups: int) -> None:
         raise ValueError(f"{name}: {c} channels do not split into {num_groups} groups")
 
 
+def _stream(device: torch.device) -> int:
+    """The raw handle of ``device``'s current stream: the value of
+    ``torch.cuda.current_stream(device).cuda_stream`` without building a
+    Stream object, a host cost paid at every launch."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
 def _raise_on_error(name: str, err: int) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
@@ -126,8 +138,7 @@ def _gn_silu_launch(name: str, x, scale, bias, num_groups: int, eps: float):
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), g.data_ptr(), b.data_ptr(), y.data_ptr(),
                  part.data_ptr(), stats.data_ptr(), n, h * w, c, num_groups,
-                 chunk_pix, chunks, threads, eps, _DTYPE_CODE[x.dtype],
-                 torch.cuda.current_stream(x.device).cuda_stream)
+                 chunk_pix, chunks, threads, eps, _DTYPE_CODE[x.dtype], _stream(x.device))
     _raise_on_error(name, err)
     LAUNCHES[name] += 1
     return y
@@ -151,10 +162,87 @@ def gn_silu_nhwc(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *,
     return _gn_silu_launch("gn_silu_nhwc", x, scale, bias, num_groups, eps)
 
 
-def _conv_launch(name: str, x, w, scale, bias, num_groups: int, eps: float,
-                 images: int | None):
-    """Launch the C entry ``name`` of conv_gn_silu.cu: K3's, or K4's with
-    ``images`` images per conv block."""
+# The bf16 conv kernel's geometry (csrc/conv_gn_silu.cu, namespace tc) and
+# the H100's shared memory (CUDA's occupancy rules for sm_90).
+_TILE = 8                   # output tile 8x8 pixels: the wgmma M of 64
+_CO_TILE = 64               # output channels per item: the wgmma N
+_MAX_KC = 8                 # 16-channel steps per weight window (128 inputs)
+_MAX_BLOCKS_PER_SM = 4      # __launch_bounds__(128, 4): 128 registers a thread
+_SM_SHARED = 233_472        # shared memory of one SM
+_BLOCK_RESERVED = 1_024     # shared memory the runtime keeps per block
+BLOCK_SHARED_MAX = 232_448  # dynamic shared memory one block may ask for
+
+
+@dataclass(frozen=True)
+class ConvPlan:
+    """Launch plan of the bf16 conv kernel for one call.
+
+    An item is one 8x8 output tile of one image for one 64-channel tile of
+    the output. Block ``b`` of ``grid`` walks the items ``block_range(b)``
+    in item order (``decode``): output-channel tile, then groups of
+    ``images`` images, then tile, then the image within the group, so the
+    K images of one tile come in a row. ``kc`` is the number of 16-channel
+    steps per weight window and ``windows`` the windows that cover Cin (1
+    up to 128 input channels: the weight slice stays resident)."""
+
+    n: int
+    images: int
+    tiles: int
+    co_tiles: int
+    kc: int
+    windows: int
+    smem: int
+    blocks_per_sm: int
+    grid: int
+
+    @property
+    def items(self) -> int:
+        return self.n * self.tiles * self.co_tiles
+
+    def block_range(self, b: int) -> range:
+        return range(b * self.items // self.grid, (b + 1) * self.items // self.grid)
+
+    def decode(self, i):
+        """(image, tile, output-channel tile) of item ``i`` (an int or an
+        integer array), with the kernel's arithmetic."""
+        per_ct, per_group = self.n * self.tiles, self.tiles * self.images
+        r = i % per_ct
+        r2 = r % per_group
+        return (r // per_group) * self.images + r2 % self.images, r2 // self.images, i // per_ct
+
+
+@functools.lru_cache(maxsize=256)
+def _conv_plan(n: int, h: int, w: int, cin: int, cout: int, images: int,
+               sms: int) -> ConvPlan:
+    """The bf16 conv kernel's launch plan on a card with ``sms`` SMs: the
+    dynamic shared memory (weight window, two halo buffers, epilogue
+    scratch, staged output tile: ``tc::smem_bytes``), the blocks per SM it
+    leaves, and the grid, ``min(items, sms * blocks per SM)`` whatever
+    ``images`` is."""
+    if images < 1 or n % images != 0:
+        raise ValueError(f"batch {n} not divisible by images {images}")
+    kc = 1
+    while kc < _MAX_KC and 16 * kc < cin:
+        kc *= 2
+    smem = (9 * kc * _CO_TILE * 32 + 2 * (2 * kc * (_TILE + 2) ** 2 * 16) + 7 * _CO_TILE * 4
+            + _TILE * _TILE * (2 * _CO_TILE + 16))
+    blocks = min(_MAX_BLOCKS_PER_SM, _SM_SHARED // (smem + _BLOCK_RESERVED))
+    tiles = -(-w // _TILE) * -(-h // _TILE)
+    co_tiles = -(-cout // _CO_TILE)
+    return ConvPlan(n=n, images=images, tiles=tiles, co_tiles=co_tiles,
+                    kc=kc, windows=-(-cin // (16 * kc)), smem=smem, blocks_per_sm=blocks,
+                    grid=min(n * tiles * co_tiles, sms * blocks))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _conv_launch(name: str, x, w, scale, bias, num_groups: int, eps: float, images: int):
+    """Launch conv_gn_silu.cu for K3 (``images`` 1) or K4: in bf16 the
+    tensor-core kernel under ``_conv_plan``, in float32 the CUDA-core one
+    with ``images`` images per conv block."""
     if x.device.type != "cuda":
         raise ValueError(f"{name}: tensor on {x.device}, want cpu or cuda")
     _check_activation(name, x)
@@ -165,20 +253,31 @@ def _conv_launch(name: str, x, w, scale, bias, num_groups: int, eps: float,
     _check_groups(name, cout, num_groups)
     wk = w.to(device=x.device, dtype=x.dtype).contiguous()
     g, b = _affine(name, x, scale, cout), _affine(name, x, bias, cout)
-    threads, chunk_pix, chunks = _launch_layout(h * wd, cout)
-    tiles = -(-h // 8) * -(-wd // 8)  # the conv's 8x8 output tiles
     out = torch.empty((n, h, wd, cout), dtype=x.dtype, device=x.device)
-    yscr = torch.empty((n, h, wd, cout), dtype=torch.float32, device=x.device)
-    part = torch.empty((n * max(tiles, chunks) * cout * 2,), dtype=torch.float32,
-                       device=x.device)
-    stats = torch.empty((n, num_groups, 2), dtype=torch.float32, device=x.device)
-    fn = getattr(_build.load("conv_gn_silu"), name)
-    per_block = () if images is None else (images,)
-    with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), wk.data_ptr(), g.data_ptr(), b.data_ptr(), out.data_ptr(),
-                 yscr.data_ptr(), part.data_ptr(), stats.data_ptr(),
-                 n, h, wd, cin, cout, num_groups, chunk_pix, chunks, threads, *per_block,
-                 eps, _DTYPE_CODE[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
+    lib = _build.load("conv_gn_silu")
+    stream = _stream(x.device)
+    if x.dtype == torch.bfloat16:
+        plan = _conv_plan(n, h, wd, cin, cout, images, _sm_count(x.device))
+        n_part = n * plan.tiles * cout * 2
+        scratch = torch.empty((n_part + n * num_groups * 2,), dtype=torch.float32,
+                              device=x.device)
+        with torch.cuda.device(x.device):
+            err = lib.conv3x3_gn_silu_bf16(
+                x.data_ptr(), wk.data_ptr(), g.data_ptr(), b.data_ptr(), out.data_ptr(),
+                scratch.data_ptr(), scratch.data_ptr() + 4 * n_part, n, h, wd, cin, cout,
+                num_groups, plan.kc, images, plan.grid, plan.smem, eps, stream)
+    else:
+        threads, chunk_pix, chunks = _launch_layout(h * wd, cout)
+        tiles = -(-h // 8) * -(-wd // 8)  # the conv's 8x8 output tiles
+        yscr = torch.empty((n, h, wd, cout), dtype=torch.float32, device=x.device)
+        part = torch.empty((n * max(tiles, chunks) * cout * 2,), dtype=torch.float32,
+                           device=x.device)
+        stats = torch.empty((n, num_groups, 2), dtype=torch.float32, device=x.device)
+        with torch.cuda.device(x.device):
+            err = lib.conv3x3_gn_silu_f32(
+                x.data_ptr(), wk.data_ptr(), g.data_ptr(), b.data_ptr(), out.data_ptr(),
+                yscr.data_ptr(), part.data_ptr(), stats.data_ptr(), n, h, wd, cin, cout,
+                num_groups, chunk_pix, chunks, threads, images, eps, stream)
     _raise_on_error(name, err)
     LAUNCHES[name] += 1
     return out
@@ -192,16 +291,18 @@ def conv3x3_gn_silu(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     HWIO -> (N, H, W, Cout) in x's dtype."""
     if x.device.type == "cpu":
         return conv3x3_gn_silu_plain(x, w, scale, bias, num_groups=num_groups, eps=eps)
-    return _conv_launch("conv3x3_gn_silu", x, w, scale, bias, num_groups, eps, None)
+    return _conv_launch("conv3x3_gn_silu", x, w, scale, bias, num_groups, eps, 1)
 
 
 def conv3x3_gn_silu_batched(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
                             bias: torch.Tensor, *, num_groups: int, images: int,
                             eps: float = 1e-5) -> torch.Tensor:
-    """K4: K3's function with one conv block owning its output tile across
-    ``images`` images, which stages each weight chunk once for all of them
-    (replaces ``_fused_conv_gn_silu_batched``). The output equals K3's bit
-    for bit. Raises ValueError unless ``images`` divides the batch."""
+    """K4: K3's function with ``images`` images per step (replaces
+    ``_fused_conv_gn_silu_batched``). In bf16 the images only order each
+    block's walk (the K images of one tile in a row, see ``ConvPlan``); in
+    float32 one conv block owns its output tile across them. The output
+    equals K3's bit for bit. Raises ValueError unless ``images`` divides
+    the batch."""
     n = x.shape[0]
     if images < 1 or n % images != 0:
         raise ValueError(f"conv3x3_gn_silu_batched: batch {n} not divisible by "
