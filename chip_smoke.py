@@ -21,7 +21,11 @@ Phases, each fatal on failure:
    also at ragged channel counts and image sizes and on an output whose
    group means are >= 30x their standard deviations; K5 in bf16 also
    with its largest error traced to its source and two rounding faults
-   that its gate must reject;
+   that its gate must reject; K1/K2 also twice, bit for bit, with their
+   launch plan and bytes read, at 512x512 as one device kernel per call
+   with device times beside the library call's, on slabs larger than one
+   wave, at C % 8 != 0, on an unaligned input, and on a side stream while
+   the current stream runs long matrix products;
 4. serve 16 seeded 512x512 frames through ``InferenceEngine.submit`` on the
    bf16 LightweightUNet with ``pallas_gn=True, fused_blocks="auto"`` and the
    production weights (``deploy/models/best_model.onnx``); check the launch
@@ -107,6 +111,16 @@ K1_SHAPES = [((8, 512, 512, 8), "512"), ((8, 256, 256, 16), "512"),
              ((8, 32, 32, 8), "32"), ((8, 16, 16, 16), "32"), ((8, 8, 8, 32), "32")]
 K2_SHAPES = [((8, 4, 4, 64), "32"),  # dec4 of a 32x32 image
              ((8, 4, 4, 128), None), ((8, 6, 6, 64), None)]
+# K1/K2 on no model path (wrapper, shape, groups, dtype, offset): slabs
+# larger than one wave's shared memory, which read what it cannot hold
+# twice; C % 8 != 0 (16-byte vectors span pixels); and a view whose slab
+# starts 3300 bytes into its buffer, so neither it nor its rows are
+# 16-byte aligned (one element at a time)
+GN_CASES = [("gn_silu_flat", (1, 2048, 2048, 8), 8, torch.bfloat16, 0),
+            ("gn_silu_flat", (2, 1024, 1024, 8), 8, torch.float32, 0),
+            ("gn_silu_flat", (1, 8, 32, 4), 4, torch.bfloat16, 0),
+            ("gn_silu_flat", (1, 8, 32, 4), 4, torch.float32, 0),
+            ("gn_silu_nhwc", (2, 5, 5, 66), 2, torch.bfloat16, 1)]
 # (input shape, Cout): enc4 and bottleneck; at 32x32 the images are smaller
 # than the conv's 8x8 output tile
 K3_SHAPES = [(((8, 64, 64, 32), 64), "512"), (((8, 64, 64, 64), 64), "512"),
@@ -171,9 +185,11 @@ def time_ms(fn, iters: int = 20, warmup: int = 3, rounds: int = 5) -> float:
 
 
 def device_ms(fn, reps: int = 10) -> float:
-    """Device time of one call: the durations of its kernels and copies in
-    a torch.profiler trace of ``reps`` calls, summed, over ``reps``. The
-    host's cost, which sets CUDA-event times below ~0.1 ms, does not enter."""
+    """Device time of one call: for each kernel or copy of a torch.profiler
+    trace of ``reps`` calls, its mean duration times its runs per call
+    (count / reps, rounded: a trace taken after an earlier profiler session
+    can miss an event). The host's cost, which sets CUDA-event times below
+    ~0.1 ms, does not enter."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     fn()
@@ -182,7 +198,8 @@ def device_ms(fn, reps: int = 10) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return sum(e.device_time_total for e in prof.key_averages()) / reps / 1e3
+    return sum(e.device_time_total / e.count * round(e.count / reps)
+               for e in prof.key_averages() if e.count) / 1e3
 
 
 def bound(nbytes: float, flops: float, dtype) -> tuple[float, str]:
@@ -205,6 +222,103 @@ def check_close(name: str, got: torch.Tensor, want: torch.Tensor, kind: str,
         raise AssertionError(f"{name}: max |kernel - plain| {worst:.3g} exceeds "
                              f"atol {atol} + rtol {rtol} * |plain|")
     return worst
+
+
+def gn_plan_line(x: torch.Tensor) -> str:
+    """The GroupNorm kernel's launch plan for ``x`` on this card, and the
+    bytes of activation the call reads."""
+    from image_enhancement_deglaring_tpu_torch.ops import fused_kernels as fk
+
+    n, h, w, c = x.shape
+    p = fk._gn_plan(n, h, w, c, x.dtype, fk._sm_count(x.device), x.data_ptr() % 16 == 0)
+    share = p.bytes_read / (x.numel() * x.element_size())
+    return (f"plan: vec {p.vec}, {p.threads} threads, {p.chunks} chunks of {p.chunk_pix} px, "
+            f"{p.images} images x {p.waves} waves, grid {p.grid}, smem {p.smem}, read twice "
+            f"{p.reread_pix} px/chunk; reads {p.bytes_read} B ({share:.3f}x the input)")
+
+
+def check_gn_case(name: str, fn, x, gamma, beta, groups: int) -> float:
+    """K1/K2 against its plain version under TOL[("gn", dtype)], and a
+    second call equal to the first bit for bit."""
+    from image_enhancement_deglaring_tpu_torch.ops import fused_kernels as fk
+
+    got = fn(x, gamma, beta, num_groups=groups)
+    again = fn(x, gamma, beta, num_groups=groups)
+    want = fk.gn_silu_plain(x, gamma, beta, num_groups=groups)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        d = float((got.float() - again.float()).abs().max())
+        raise AssertionError(f"{name}: two calls differ by up to {d:.3g}")
+    return check_close(name, got, want, "gn")
+
+
+def gn_library(xl, gamma, beta):
+    """One PyTorch call computing K1/K2's function on NCHW ``xl``."""
+    import torch.nn.functional as F
+
+    return F.silu(F.group_norm(xl, GROUPS, gamma, beta, 1e-5))
+
+
+def check_one_launch(fn, label: str, reps: int = 5) -> None:
+    """Fails unless each call of ``fn`` makes one kernel launch and no copy
+    or memset (counted from the CUDA runtime calls in the trace, which a
+    profiler session after an earlier one records in full where it may
+    drop a device event), all of one kernel."""
+    fn()
+    events, _ = trace_events(fn, reps)
+    api = [e["name"] for e in events if e.get("cat") in ("cuda_runtime", "cuda_driver")
+           and any(k in e["name"] for k in ("Launch", "Memcpy", "Memset"))]
+    kernels = {e["name"] for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")}
+    if len(api) != reps or any("Launch" not in a for a in api) or len(kernels) != 1:
+        raise AssertionError(f"{label}: want one kernel launch per call; {reps} calls made "
+                             f"{api}, running {sorted(kernels)}")
+    print(f"  {label}: one launch per call ({api[0]}: {next(iter(kernels))[:80]})", flush=True)
+
+
+def check_gn_cases(randn) -> None:
+    """Phase 3, K1/K2 cases on no model path, each against its plain
+    version and twice, bit for bit: slabs larger than one wave (the
+    re-read route), channels that do not fill 16-byte vectors, an input
+    that is not 16-byte aligned; then a K1 call on a side stream while the
+    current stream runs long matrix products."""
+    from image_enhancement_deglaring_tpu_torch.ops import fused_kernels as fk
+    from image_enhancement_deglaring_tpu_torch.ops.conv_blocks import highest_precision
+
+    for name, shape, groups, dtype, offset in GN_CASES:
+        fn = getattr(fk, name)
+        c = shape[-1]
+        x = randn(shape[0] + offset, *shape[1:], scale=2.0, shift=0.5, dtype=dtype)[offset:]
+        gamma, beta = randn(c), randn(c)
+        label = f"{name}{shape} groups {groups} {str(dtype)[6:]}" + (" unaligned" if offset else "")
+        with highest_precision():
+            err = check_gn_case(label, fn, x, gamma, beta, groups)
+            ms = time_ms(lambda: fn(x, gamma, beta, num_groups=groups), iters=5, rounds=3)
+        print(f"{label}: max_abs_err {err:.3g} within {TOL[('gn', dtype)]}, two calls equal bit "
+              f"for bit; ms {ms:.5f}; {gn_plan_line(x)}", flush=True)
+
+    # side stream: the current stream runs 8 chained 8192^3 bf16 products
+    # (~10 ms of work on every SM); K1 at 8x512x512x8 (33 chunks per image,
+    # a cooperative grid on every SM) goes to another stream meanwhile
+    x = randn(8, 512, 512, 8, scale=2.0, shift=0.5, dtype=torch.bfloat16)
+    gamma, beta = randn(8), randn(8)
+    want = fk.gn_silu_plain(x, gamma, beta, num_groups=GROUPS)
+    a = randn(8192, 8192, scale=0.01, dtype=torch.bfloat16)
+    side = torch.cuda.Stream()
+    ev = {k: torch.cuda.Event(enable_timing=True) for k in ("start", "main", "side")}
+    torch.cuda.synchronize()
+    ev["start"].record()
+    y = a
+    for _ in range(8):
+        y = y @ a
+    ev["main"].record()
+    with torch.cuda.stream(side):
+        got = fk.gn_silu_flat(x, gamma, beta, num_groups=GROUPS)
+        ev["side"].record()
+    torch.cuda.synchronize()
+    err = check_close("gn_silu_flat on a side stream", got, want, "gn")
+    print(f"gn_silu_flat (8, 512, 512, 8) bf16 on a side stream beside 8 bf16 8192^3 products: "
+          f"max_abs_err {err:.3g}; done {ev['start'].elapsed_time(ev['side']):.3f} ms after the "
+          f"products began, which took {ev['start'].elapsed_time(ev['main']):.3f} ms", flush=True)
 
 
 def check_kernels() -> list[dict]:
@@ -233,6 +347,7 @@ def check_kernels() -> list[dict]:
             r["bound_ms"] += b[0]
             r["by"][b[1]] = r["by"].get(b[1], 0.0) + b[0]
 
+    gn_device = []  # K1 at the 512x512 shapes, profiled at the end of the phase
     gn_cases = [("gn_silu_flat", fk.gn_silu_flat, s, p) for s, p in K1_SHAPES]
     gn_cases += [("gn_silu_nhwc", fk.gn_silu_nhwc, s, p) for s, p in K2_SHAPES]
     for dtype in (torch.bfloat16, torch.float32):
@@ -240,23 +355,25 @@ def check_kernels() -> list[dict]:
             c = shape[-1]
             x = randn(*shape, scale=2.0, shift=0.5, dtype=dtype)
             gamma, beta = randn(c), randn(c)
+            k1 = functools.partial(fn, x, gamma, beta, num_groups=GROUPS)
+            plain = functools.partial(fk.gn_silu_plain, x, gamma, beta, num_groups=GROUPS)
+            lib = functools.partial(gn_library, x.permute(0, 3, 1, 2), gamma.to(dtype),
+                                    beta.to(dtype))
             with highest_precision():
-                got = fn(x, gamma, beta, num_groups=GROUPS)
-                want = fk.gn_silu_plain(x, gamma, beta, num_groups=GROUPS)
-                torch.cuda.synchronize()
-                err = check_close(f"{name}{shape} {dtype}", got, want, "gn")
-                ms = time_ms(lambda: fn(x, gamma, beta, num_groups=GROUPS))
-                plain_ms = time_ms(lambda: fk.gn_silu_plain(x, gamma, beta, num_groups=GROUPS))
-                xl, gl, bl = x.permute(0, 3, 1, 2), gamma.to(dtype), beta.to(dtype)
-                lib_ms = time_ms(lambda: F.silu(F.group_norm(xl, GROUPS, gl, bl, 1e-5)))
+                err = check_gn_case(f"{name}{shape} {dtype}", fn, x, gamma, beta, GROUPS)
+                t = time_many({"k1": k1, "plain": plain, "library": lib})
+            ms, plain_ms, lib_ms = t["k1"], t["plain"], t["library"]
             b = bound(2 * x.numel() * x.element_size() + 8 * c,
                       GN_OPS_PER_ELEMENT * x.numel(), torch.float32)
             print(f"{name} {shape} {str(dtype)[6:]} path {path}: max_abs_err {err:.3g} "
-                  f"(atol {TOL[('gn', dtype)][0]}, rtol {TOL[('gn', dtype)][1]}) "
-                  f"ms {ms:.5f} plain_ms {plain_ms:.5f} library_ms {lib_ms:.5f} "
-                  f"bound_ms {b[0]:.3g} ({b[1]})", flush=True)
+                  f"(atol {TOL[('gn', dtype)][0]}, rtol {TOL[('gn', dtype)][1]}), two calls "
+                  f"equal bit for bit; ms {ms:.5f} plain_ms {plain_ms:.5f} library_ms "
+                  f"{lib_ms:.5f} bound_ms {b[0]:.3g} ({b[1]}); {gn_plan_line(x)}", flush=True)
             if dtype == torch.bfloat16:
                 record(name, path is not None, err, ms, plain_ms, lib_ms, b)
+                if path == "512":
+                    gn_device.append((f"{name}{shape}", k1, lib, b[0]))
+    check_gn_cases(randn)
 
     for dtype in (torch.bfloat16, torch.float32):
         for (shape, cout), path in K3_SHAPES:
@@ -347,6 +464,14 @@ def check_kernels() -> list[dict]:
 
     check_conv_cases(randn)
     check_dec1(randn, record)
+    # a profiler session slows the host-bound calls made after it (~1.4x at
+    # 32x32 shapes on the H100): K1 is profiled after its event times
+    for label, k1, lib, b in gn_device:
+        check_one_launch(k1, label)
+        dev = {"k1": device_ms(k1), "library": device_ms(lib)}
+        print(f"  {label} bf16 device ms per call: {dev['k1']:.5f}, library {dev['library']:.5f} "
+              f"({dev['k1'] / dev['library']:.3f}x), bound {b:.5f}", flush=True)
+    profile(gn_device[0][1], f"{gn_device[0][0]} bf16", reps=10)
     return rows
 
 
@@ -891,10 +1016,9 @@ def _kernel_kind(name: str) -> str:
     return "other PyTorch kernels"
 
 
-def profile(fn, label: str, reps: int = 3) -> None:
-    """Where the device time of ``fn()`` goes: kernel time by kind and by
-    name from a torch.profiler trace, and the device's busy share of the
-    host wall time over ``reps`` synchronous calls."""
+def trace_events(fn, reps: int) -> tuple[list, float]:
+    """The events of a torch.profiler trace of ``reps`` synchronous calls of
+    ``fn``, and the host wall seconds they took."""
     import tempfile
 
     from torch.profiler import ProfilerActivity, profile as torch_profile
@@ -910,9 +1034,23 @@ def profile(fn, label: str, reps: int = 3) -> None:
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
         with open(path) as f:
-            events = json.load(f)["traceEvents"]
+            return json.load(f)["traceEvents"], wall
+
+
+def device_events(fn, reps: int) -> tuple[list, float]:
+    """The kernels, copies and memsets of ``reps`` synchronous calls of
+    ``fn`` in a torch.profiler trace, and the host wall seconds they took."""
+    events, wall = trace_events(fn, reps)
     dev = [e for e in events
            if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e]
+    return sorted(dev, key=lambda e: float(e["ts"])), wall
+
+
+def profile(fn, label: str, reps: int = 3) -> None:
+    """Where the device time of ``fn()`` goes: kernel time by kind and by
+    name from a torch.profiler trace, and the device's busy share of the
+    host wall time over ``reps`` synchronous calls."""
+    dev, wall = device_events(fn, reps)
     if not dev:
         print(f"profile {label}: no device events in the trace (device time not measured)")
         return
@@ -930,7 +1068,7 @@ def profile(fn, label: str, reps: int = 3) -> None:
             end = t
     per_batch_ms = busy / 1e3 / reps
     print(f"profile {label}: device busy {per_batch_ms:.3f} ms per batch, "
-          f"{len(dev) // reps} device ops per batch, busy share {busy / 1e6 / wall:.3f} "
+          f"{round(len(dev) / reps)} device ops per batch, busy share {busy / 1e6 / wall:.3f} "
           f"of {wall * 1e3 / reps:.3f} ms host wall per batch (profiler on)")
     for kind, us in sorted(by_kind.items(), key=lambda kv: -kv[1]):
         print(f"  {kind}: {us / 1e3 / reps:.3f} ms per batch ({us / busy:.1%})")

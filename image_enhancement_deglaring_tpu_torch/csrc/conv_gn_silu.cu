@@ -687,13 +687,13 @@ cudaError_t launch_f32(const float* x, const float* w, const float* gamma, const
 
   const dim3 grid(chunks, n);
   const size_t smem = 2 * (size_t)threads * sizeof(float);
-  gnk::channel_partials_kernel<float, gnk::kCentred><<<grid, threads, smem, st>>>(
+  gnk::centred_partials_kernel<<<grid, threads, smem, st>>>(
       yscr, stats, part, P, Cout, G, chunk_pix, chunks);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   gnk::gn_finalize_kernel<<<n, fin, 0, st>>>(part, stats, chunks, Cout, G, denom,
                                              eps, gnk::kRstdCentred);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  gnk::gn_apply_silu_kernel<float, float><<<grid, threads, 0, st>>>(
+  gnk::gn_apply_silu_kernel<<<grid, threads, 0, st>>>(
       yscr, stats, gamma, beta, out, P, Cout, G, chunk_pix);
   return cudaGetLastError();
 }

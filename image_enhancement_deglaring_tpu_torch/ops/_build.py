@@ -29,7 +29,7 @@ NVCC_FLAGS = (
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_GN_ARGS = [_P] * 6 + [_I] * 7 + [_F, _I, _P]
+_GN_ARGS = [_P] * 6 + [_I] * 11 + [_F, _I, _P]
 #: C entry points of each library and their argument types
 SIGNATURES = {
     "gn_silu": {"gn_silu_flat": _GN_ARGS, "gn_silu_nhwc": _GN_ARGS},

@@ -16,9 +16,11 @@ conv3x3_gn_silu_batched   _conv_gn_silu_batched_kernel (K4)    csrc/conv_gn_silu
 Every wrapper takes and returns NHWC tensors. On a CPU tensor it computes
 its plain PyTorch version (``gn_silu_plain``, ``conv3x3_gn_silu_plain``);
 on a CUDA tensor it launches its kernel on the current stream or raises.
-Each launch adds one to ``LAUNCHES[<wrapper name>]``. In bfloat16 the conv
-wrappers run the tensor-core kernel under the launch plan ``_conv_plan``
-(three launches); in float32 the CUDA-core one (five launches).
+Each launch adds one to ``LAUNCHES[<wrapper name>]``. The GroupNorm
+wrappers make one launch under the launch plan ``_gn_plan``. In bfloat16
+the conv wrappers run the tensor-core kernel under the launch plan
+``_conv_plan`` (three launches); in float32 the CUDA-core one (five
+launches).
 
 The dispatchers ``fused_group_norm_silu`` and ``fused_conv3x3_gn_silu``
 choose a kernel by the same shape rules as the JAX dispatchers.
@@ -27,6 +29,8 @@ choose a kernel by the same shape rules as the JAX dispatchers.
 from __future__ import annotations
 
 import functools
+import math
+import threading
 from dataclasses import dataclass
 
 import torch
@@ -82,8 +86,8 @@ def conv3x3_gn_silu_plain(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
 
 
 def _launch_layout(p: int, c: int) -> tuple[int, int, int]:
-    """(threads per block, pixels per chunk, chunks per image) of the
-    statistics and apply passes: C * rows threads, 32 pixels per thread."""
+    """(threads per block, pixels per chunk, chunks per image) of the float32
+    conv's GroupNorm passes: C * rows threads, 32 pixels per thread."""
     if c > 1024:
         raise ValueError(f"GroupNorm kernels take at most 1024 channels, got {c}")
     threads = c * max(1, 256 // c)
@@ -121,27 +125,6 @@ def _stream(device: torch.device) -> int:
 def _raise_on_error(name: str, err: int) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
-
-
-def _gn_silu_launch(name: str, x, scale, bias, num_groups: int, eps: float):
-    if x.device.type != "cuda":
-        raise ValueError(f"{name}: tensor on {x.device}, want cpu or cuda")
-    _check_activation(name, x)
-    n, h, w, c = x.shape
-    _check_groups(name, c, num_groups)
-    g, b = _affine(name, x, scale, c), _affine(name, x, bias, c)
-    threads, chunk_pix, chunks = _launch_layout(h * w, c)
-    y = torch.empty_like(x)
-    part = torch.empty((n, chunks, c, 2), dtype=torch.float32, device=x.device)
-    stats = torch.empty((n, num_groups, 2), dtype=torch.float32, device=x.device)
-    fn = getattr(_build.load("gn_silu"), name)
-    with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), g.data_ptr(), b.data_ptr(), y.data_ptr(),
-                 part.data_ptr(), stats.data_ptr(), n, h * w, c, num_groups,
-                 chunk_pix, chunks, threads, eps, _DTYPE_CODE[x.dtype], _stream(x.device))
-    _raise_on_error(name, err)
-    LAUNCHES[name] += 1
-    return y
 
 
 def gn_silu_flat(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *,
@@ -237,6 +220,154 @@ def _conv_plan(n: int, h: int, w: int, cin: int, cout: int, images: int,
 @functools.lru_cache(maxsize=None)
 def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+# The GroupNorm kernel's geometry (csrc/gn_silu.cu, namespace gnk).
+_GN_THREADS = 512         # gnk::kThreadTarget: threads per block, rounded to the channel units
+_GN_MAX_THREADS = 1_024   # gnk::kMaxThreads
+_GN_MIN_CHUNK = 16_384    # bytes: an image below this is one chunk, with no handshake
+_ELEM_BYTES = {torch.float32: 4, torch.bfloat16: 2}
+
+
+@dataclass(frozen=True)
+class GnPlan:
+    """Launch plan of the GroupNorm+SiLU kernel (``csrc/gn_silu.cu``) for one call.
+
+    Block ``b`` of ``grid`` owns chunk ``b % chunks`` (pixels
+    ``chunk_range``) of image ``b // chunks + w * images`` in wave ``w``: a
+    wave holds ``images`` whole images. A chunk keeps its first
+    ``resident_pix`` pixels in shared memory and reads the rest, if any,
+    twice: the route for a slab larger than one wave. ``vec`` is the
+    channels a thread reads at a time, 16 bytes' worth, or 1 where the
+    channels, the slab or the input's address do not allow 16-byte vectors."""
+
+    n: int
+    pixels: int
+    c: int
+    elem: int
+    vec: int
+    threads: int
+    chunk_pix: int
+    chunks: int
+    images: int
+    resident_pix: int
+    smem: int
+
+    @property
+    def grid(self) -> int:
+        return self.images * self.chunks
+
+    @property
+    def waves(self) -> int:
+        return -(-self.n // self.images)
+
+    def chunk_range(self, chunk: int) -> tuple[int, int]:
+        p0 = chunk * self.chunk_pix
+        return p0, min(self.pixels, p0 + self.chunk_pix)
+
+    def work(self, block: int) -> list[tuple[int, int, int]]:
+        """(image, first pixel, end pixel) of each wave of ``block``."""
+        p0, p1 = self.chunk_range(block % self.chunks)
+        return [(img, p0, p1) for img in range(block // self.chunks, self.n, self.images)]
+
+    @property
+    def reread_pix(self) -> int:
+        """Pixels of the largest chunk read twice (0: every chunk resident)."""
+        return max(0, self.chunk_pix - self.resident_pix)
+
+    @property
+    def bytes_read(self) -> int:
+        """Bytes of activation the call reads from device memory: every pixel
+        once, and what a chunk holds beyond its resident pixels once more."""
+        again = sum(max(0, p1 - p0 - self.resident_pix)
+                    for p0, p1 in map(self.chunk_range, range(self.chunks)))
+        return self.n * (self.pixels + again) * self.c * self.elem
+
+
+@functools.lru_cache(maxsize=256)
+def _gn_plan(n: int, h: int, w: int, c: int, dtype: torch.dtype, sms: int,
+             aligned: bool = True) -> GnPlan:
+    """The GroupNorm kernel's launch plan on a card with ``sms`` SMs, at
+    most one block per SM. Vectors of 16 bytes where C fills them with C /
+    vec dividing 32, the slab is a multiple of 16 bytes and the input's
+    address is 16-byte ``aligned``; threads and shared memory as
+    ``gnk::block_threads`` and ``gnk::smem_bytes`` give them. Then the
+    fewest waves whose images are resident whole, the batch spread evenly
+    over them and each wave's chunks over the SMs, no chunk below
+    ``_GN_MIN_CHUNK`` bytes unless it is the whole image; where one image
+    does not fit all the SMs' shared memory, one image per wave on every SM,
+    each chunk reading what its shared memory does not hold twice. Chunks
+    start on 16-byte boundaries of the slab."""
+    if not 1 <= c <= _GN_MAX_THREADS:
+        raise ValueError(f"GroupNorm kernel takes 1 to {_GN_MAX_THREADS} channels, got {c}")
+    elem = _ELEM_BYTES[dtype]
+    p, pix_bytes = h * w, c * elem
+    vec = 16 // elem
+    if not (aligned and c % vec == 0 and 32 % (c // vec) == 0 and p * pix_bytes % 16 == 0):
+        vec = 1
+    unit = c // vec
+    threads = unit * max(1, _GN_THREADS // unit)
+    red_bytes = 8 * (c * (threads // 32) if vec > 1 else threads)
+    align = 16 // math.gcd(16, pix_bytes)  # pixels from one 16-byte boundary to the next
+    cap = (BLOCK_SHARED_MAX - red_bytes) // pix_bytes // align * align  # pixels a block holds
+    need = -(-p // cap)  # chunks that hold one image
+    if need > sms:
+        images, chunks = 1, sms
+    else:
+        waves = -(-n // (sms // need))
+        images = -(-n // waves)
+        chunks = max(need, min(sms // images, -(-p * pix_bytes // _GN_MIN_CHUNK)))
+    chunk_pix = -(-p // chunks)
+    chunk_pix = -(-chunk_pix // align) * align
+    resident = min(chunk_pix, cap)
+    return GnPlan(n=n, pixels=p, c=c, elem=elem, vec=vec, threads=threads, chunk_pix=chunk_pix,
+                  chunks=-(-p // chunk_pix), images=images, resident_pix=resident,
+                  smem=-(-resident * pix_bytes // 16) * 16 + red_bytes)
+
+
+#: (device index, stream) -> the GroupNorm kernel's workspace on that
+#: stream and its number of counter slots
+_GN_WORK: dict = {}
+_GN_WORK_LOCK = threading.Lock()
+
+
+def _gn_workspace(device: torch.device, stream: int, n: int,
+                  part_floats: int) -> tuple[torch.Tensor, int]:
+    """The GroupNorm kernel's float32 workspace on ``stream``: ``slots``
+    (>= n) int32 arrival counters, which every launch leaves at 0, then
+    room for ``part_floats`` chunk sums. Calls on one stream share it in
+    stream order; a call on another stream gets its own. Allocated zeroed,
+    on the stream, when a call needs more. Call with ``_GN_WORK_LOCK``
+    held, and launch before releasing it."""
+    work, slots = _GN_WORK.get((device.index, stream), (None, 0))
+    if work is None or slots < n or work.numel() - slots < part_floats:
+        part_floats = max(part_floats, 0 if work is None else work.numel() - slots)
+        slots = max(slots, -(-n // 4) * 4)  # the sums start 16-byte aligned
+        work = torch.zeros(slots + part_floats, dtype=torch.float32, device=device)
+        _GN_WORK[(device.index, stream)] = (work, slots)
+    return work, slots
+
+
+def _gn_silu_launch(name: str, x, scale, bias, num_groups: int, eps: float):
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: tensor on {x.device}, want cpu or cuda")
+    _check_activation(name, x)
+    n, h, w, c = x.shape
+    _check_groups(name, c, num_groups)
+    g, b = _affine(name, x, scale, c), _affine(name, x, bias, c)
+    plan = _gn_plan(n, h, w, c, x.dtype, _sm_count(x.device), x.data_ptr() % 16 == 0)
+    y = torch.empty_like(x)
+    fn = getattr(_build.load("gn_silu"), name)
+    stream = _stream(x.device)
+    with _GN_WORK_LOCK, torch.cuda.device(x.device):
+        work, slots = _gn_workspace(x.device, stream, n, n * plan.chunks * c * 2)
+        err = fn(x.data_ptr(), g.data_ptr(), b.data_ptr(), y.data_ptr(), work.data_ptr(),
+                 work.data_ptr() + 4 * slots, n, h * w, c, num_groups, plan.vec, plan.threads,
+                 plan.chunk_pix, plan.chunks, plan.images, plan.resident_pix, plan.smem, eps,
+                 _DTYPE_CODE[x.dtype], stream)
+    _raise_on_error(name, err)
+    LAUNCHES[name] += 1
+    return y
 
 
 def _conv_launch(name: str, x, w, scale, bias, num_groups: int, eps: float, images: int):

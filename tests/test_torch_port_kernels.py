@@ -27,6 +27,7 @@ def _t(a):
     ((2, 16, 16, 8), 8),   # enc1 geometry: W*C lane-aligned at low C
     ((1, 8, 8, 64), 8),    # dec4 geometry
     ((2, 8, 16, 8), 4),
+    ((1, 8, 32, 4), 4),    # C % 8 != 0, W*C = 128: the kernel's element-by-element plan
 ])
 def test_gn_silu_flat_matches_pallas_flat(rng, shape, groups):
     x, s, b = _gn_inputs(rng, shape)
