@@ -19,13 +19,16 @@ Phases, each fatal on failure:
    split by kernel;
    K4 also against K3, bit for bit, and its batch check; the conv kernel
    also at ragged channel counts and image sizes and on an output whose
-   group means are >= 30x their standard deviations; K5 in bf16 also
-   with its largest error traced to its source and two rounding faults
-   that its gate must reject; K1/K2 also twice, bit for bit, with their
-   launch plan and bytes read, at 512x512 as one device kernel per call
-   with device times beside the library call's, on slabs larger than one
-   wave, at C % 8 != 0, on an unaligned input, and on a side stream while
-   the current stream runs long matrix products;
+   group means are >= 30x their standard deviations; K5 also twice, bit
+   for bit, in bf16 with its largest error traced to its source and two
+   rounding faults that its gate must reject, and at the 512x512 and
+   32x32 path shapes as three launches per call, with its device time
+   split by launch; K1/K2 also twice, bit for bit, with their launch plan
+   and bytes read, at 512x512 as one device kernel per call with device
+   times beside the library call's, on slabs larger than one wave, at
+   C % 8 != 0, on an unaligned input, on a side stream while the current
+   stream runs long matrix products, and as two calls at once on two
+   streams, each equal to its single-stream result bit for bit;
 4. serve 16 seeded 512x512 frames through ``InferenceEngine.submit`` on the
    bf16 LightweightUNet with ``pallas_gn=True, fused_blocks="auto"`` and the
    production weights (``deploy/models/best_model.onnx``); check the launch
@@ -63,6 +66,7 @@ import subprocess
 import sys
 import threading
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -259,20 +263,21 @@ def gn_library(xl, gamma, beta):
     return F.silu(F.group_norm(xl, GROUPS, gamma, beta, 1e-5))
 
 
-def check_one_launch(fn, label: str, reps: int = 5) -> None:
-    """Fails unless each call of ``fn`` makes one kernel launch and no copy
-    or memset (counted from the CUDA runtime calls in the trace, which a
-    profiler session after an earlier one records in full where it may
-    drop a device event), all of one kernel."""
+def check_launches(fn, label: str, n: int = 1, reps: int = 5) -> None:
+    """Fails unless each call of ``fn`` makes ``n`` kernel launches and no
+    copy or memset (counted from the CUDA runtime calls in the trace, which
+    a profiler session after an earlier one records in full where it may
+    drop a device event), of ``n`` kernels."""
     fn()
     events, _ = trace_events(fn, reps)
     api = [e["name"] for e in events if e.get("cat") in ("cuda_runtime", "cuda_driver")
            and any(k in e["name"] for k in ("Launch", "Memcpy", "Memset"))]
     kernels = {e["name"] for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")}
-    if len(api) != reps or any("Launch" not in a for a in api) or len(kernels) != 1:
-        raise AssertionError(f"{label}: want one kernel launch per call; {reps} calls made "
+    if len(api) != n * reps or any("Launch" not in a for a in api) or len(kernels) != n:
+        raise AssertionError(f"{label}: want {n} kernel launches per call; {reps} calls made "
                              f"{api}, running {sorted(kernels)}")
-    print(f"  {label}: one launch per call ({api[0]}: {next(iter(kernels))[:80]})", flush=True)
+    print(f"  {label}: {n} launches per call ({api[0]}: "
+          + ", ".join(k[:60] for k in sorted(kernels)) + ")", flush=True)
 
 
 def check_gn_cases(randn) -> None:
@@ -319,6 +324,53 @@ def check_gn_cases(randn) -> None:
     print(f"gn_silu_flat (8, 512, 512, 8) bf16 on a side stream beside 8 bf16 8192^3 products: "
           f"max_abs_err {err:.3g}; done {ev['start'].elapsed_time(ev['side']):.3f} ms after the "
           f"products began, which took {ev['start'].elapsed_time(ev['main']):.3f} ms", flush=True)
+    del a, y
+    check_gn_two_streams(randn)
+
+
+def check_gn_two_streams(randn, shape=(64, 512, 512, 8), timeout_s: float = 30.0) -> None:
+    """Two K1 calls at once on two streams, on different inputs, each a
+    cooperative grid over every SM: both must finish (a wait in the kernel
+    traps after 10 s; a host wait beyond ``timeout_s`` fails here too), each
+    equal to its single-stream result bit for bit, each stream with its own
+    workspace."""
+    from image_enhancement_deglaring_tpu_torch.ops import fused_kernels as fk
+
+    xs = [randn(*shape, scale=2.0, shift=0.5 + k, dtype=torch.bfloat16) for k in range(2)]
+    gamma, beta = randn(shape[-1]), randn(shape[-1])
+    single = [fk.gn_silu_flat(x, gamma, beta, num_groups=GROUPS) for x in xs]
+    streams = [torch.cuda.Stream() for _ in xs]
+    for x, st in zip(xs, streams):  # each stream's workspace exists before the pair
+        with torch.cuda.stream(st):
+            fk.gn_silu_flat(x, gamma, beta, num_groups=GROUPS)
+    ev = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+          for _ in xs]
+    torch.cuda.synchronize()
+    got = []
+    for x, st, (e0, e1) in zip(xs, streams, ev):
+        with torch.cuda.stream(st):
+            e0.record()
+            got.append(fk.gn_silu_flat(x, gamma, beta, num_groups=GROUPS))
+            e1.record()
+    deadline = time.perf_counter() + timeout_s
+    while not all(e1.query() for _, e1 in ev):
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"two-stream K1: not done after {timeout_s} s (a hang)")
+        time.sleep(0.001)
+    torch.cuda.synchronize()
+    for k in range(2):
+        if not torch.equal(got[k], single[k]):
+            d = float((got[k].float() - single[k].float()).abs().max())
+            raise AssertionError(f"two-stream K1 call {k}: differs from its single-stream "
+                                 f"result by up to {d:.3g}")
+    work = [fk._GN_WORK.get((torch.cuda.current_device(), st.cuda_stream)) for st in streams]
+    if None in work or work[0][0].data_ptr() == work[1][0].data_ptr():
+        raise AssertionError("two-stream K1: the streams do not have workspaces of their own")
+    spans = [(ev[0][0].elapsed_time(e0), ev[0][0].elapsed_time(e1)) for e0, e1 in ev]
+    print(f"gn_silu_flat {shape} bf16 twice at once on two streams: both done, each equal to "
+          f"its single-stream result bit for bit, a workspace per stream; spans "
+          f"{spans[0][0]:.3f}-{spans[0][1]:.3f} and {spans[1][0]:.3f}-{spans[1][1]:.3f} ms "
+          f"after the first began", flush=True)
 
 
 def check_kernels() -> list[dict]:
@@ -463,11 +515,16 @@ def check_kernels() -> list[dict]:
         raise AssertionError("a refused K4 call launched the kernel")
 
     check_conv_cases(randn)
-    check_dec1(randn, record)
+    dec1_device = []  # K5 at the path shapes, profiled at the end of the phase
+    check_dec1(randn, record, dec1_device)
     # a profiler session slows the host-bound calls made after it (~1.4x at
-    # 32x32 shapes on the H100): K1 is profiled after its event times
+    # 32x32 shapes on the H100): K1 and K5 are profiled after their event times
+    for label, k5, b in dec1_device:
+        check_launches(k5, label, n=3)
+        print(f"  {label} device ms per call: {device_ms(k5):.5f}, bound {b:.5f}", flush=True)
+        profile(k5, label, reps=10)
     for label, k1, lib, b in gn_device:
-        check_one_launch(k1, label)
+        check_launches(k1, label)
         dev = {"k1": device_ms(k1), "library": device_ms(lib)}
         print(f"  {label} bf16 device ms per call: {dev['k1']:.5f}, library {dev['library']:.5f} "
               f"({dev['k1'] / dev['library']:.3f}x), bound {b:.5f}", flush=True)
@@ -680,9 +737,11 @@ def dec1_error_sources(args: tuple, tile_h: int, want: dict) -> str:
             f"{explained:.4g} under the plain affine; {found}")
 
 
-def check_dec1(randn, record) -> None:
-    """Phase 3, K5: the dec1 tail against its plain version at the JAX tests'
-    shapes and tilings and at the model's 512x512 and 32x32 dec1 shapes."""
+def check_dec1(randn, record, dec1_device: list) -> None:
+    """Phase 3, K5: the dec1 tail against its plain version, and twice, bit
+    for bit, at the JAX tests' shapes and tilings and at the model's
+    512x512 and 32x32 dec1 shapes; appends (label, call, bound) of the
+    latter to ``dec1_device`` for their device times."""
     from image_enhancement_deglaring_tpu_torch.ops import dec1
 
     for dtype in (torch.bfloat16, torch.float32):
@@ -691,12 +750,17 @@ def check_dec1(randn, record) -> None:
             args = (xu, xs, *dec1_weights(randn))
             name = f"dec1_output{shape} tile_h {tile_h} {dtype}"
             got = dec1.fused_dec1_output(*args, tile_h=tile_h)
+            again = dec1.fused_dec1_output(*args, tile_h=tile_h)
             want = dec1.dec1_stages_plain(*args)
             torch.cuda.synchronize()
             if got.shape != shape[:3] or got.dtype != torch.float32:
                 raise AssertionError(f"{name}: output {tuple(got.shape)} {got.dtype}")
+            if not torch.equal(got, again):
+                d = float((got - again).abs().max())
+                raise AssertionError(f"{name}: two calls differ by up to {d:.3g}")
             r = check_dec1_close(name, got, want["out"], dtype)
-            ms = time_ms(lambda: dec1.fused_dec1_output(*args, tile_h=tile_h))
+            k5 = functools.partial(dec1.fused_dec1_output, *args, tile_h=tile_h)
+            ms = time_ms(k5)
             plain_ms = time_ms(lambda: dec1.dec1_output_plain(*args))
             comp_ms = time_ms(lambda: dec1.dec1_output_composition(*args))
             pixels = shape[0] * shape[1] * shape[2]
@@ -705,9 +769,11 @@ def check_dec1(randn, record) -> None:
             print(f"dec1_output {shape} tile_h {tile_h} (runs "
                   f"{dec1.effective_tile_h(shape[1], tile_h)}) {str(dtype)[6:]} path {path}: "
                   f"max_abs_err {r['max']:.3g} mean {r['mean']:.3g} share beyond "
-                  f"{DEC1_GATE[dtype]['beyond'][0]} {r['beyond']:.3g} (gate {DEC1_GATE[dtype]}) "
-                  f"ms {ms:.5f} plain_ms {plain_ms:.5f} composition_ms {comp_ms:.5f} "
-                  f"bound_ms {b[0]:.3g} ({b[1]})", flush=True)
+                  f"{DEC1_GATE[dtype]['beyond'][0]} {r['beyond']:.3g} (gate {DEC1_GATE[dtype]}), "
+                  f"two calls equal bit for bit; ms {ms:.5f} plain_ms {plain_ms:.5f} "
+                  f"composition_ms {comp_ms:.5f} bound_ms {b[0]:.3g} ({b[1]})", flush=True)
+            if path is not None:
+                dec1_device.append((f"dec1_output{shape} {str(dtype)[6:]}", k5, b[0]))
             if dtype == torch.bfloat16 and path is not None:
                 print(f"  sources: {dec1_error_sources(args, tile_h, want)}", flush=True)
                 print(f"  controls: {dec1_controls(name, args, want['out'])}", flush=True)
@@ -824,8 +890,11 @@ def serve_slice() -> dict:
     # and read the same two bf16 paths on the CPU, where the kernel path runs
     # the kernels' plain versions
     comp_small = engine(torch.bfloat16, False, 32, max_batch_size=8, warmup=False).infer_batch(small)
-    cpu = {k: engine(torch.bfloat16, k, 32, device="cpu", max_batch_size=8,
-                     warmup=False).infer_batch(small) for k in (True, False)}
+    # on the CPU the dispatchers take the composition unless forced, as the
+    # JAX ones do off the TPU: route that engine's kernel sites as on the card
+    with mock.patch.object(fk, "_routes_to_kernels", lambda x: True):
+        cpu = {k: engine(torch.bfloat16, k, 32, device="cpu", max_batch_size=8,
+                         warmup=False).infer_batch(small) for k in (True, False)}
     p_k, p_c = psnr_u8(out_small, ref_small), psnr_u8(comp_small, ref_small)
     print(f"32x32 vs f32 composition: bf16 kernels {p_k:.2f} dB, bf16 composition "
           f"{p_c:.2f} dB (kernels need >= composition - 3 dB); on the CPU: bf16 plain "

@@ -35,7 +35,7 @@ SIGNATURES = {
     "gn_silu": {"gn_silu_flat": _GN_ARGS, "gn_silu_nhwc": _GN_ARGS},
     "conv_gn_silu": {"conv3x3_gn_silu_bf16": [_P] * 7 + [_I] * 10 + [_F, _P],
                      "conv3x3_gn_silu_f32": [_P] * 8 + [_I] * 10 + [_F, _P]},
-    "dec1_output": {"dec1_output": [_P] * 9 + [_I] * 4 + [_F, _I, _P]},
+    "dec1_output": {"dec1_output": [_P] * 15 + [_I] * 4 + [_F, _I, _P]},
 }
 
 _lock = threading.Lock()

@@ -166,26 +166,25 @@ def _launch(x_up, x_skip, wa, wb, w2, g1_scale, g1_bias, g2_scale, g2_bias, w_ou
     for wt, nm in ((wa, "wa"), (wb, "wb"), (w2, "w2")):
         if tuple(wt.shape) != (3, 3, c, c):
             raise ValueError(f"{name}: {nm} {tuple(wt.shape)} is not (3, 3, {c}, {c})")
-    wts = torch.cat([wt.detach().to(device=dev, dtype=dt).reshape(-1)
-                     for wt in (wa, wb, w2)])
     vecs = (g1_scale, g1_bias, g2_scale, g2_bias, w_out, b_out)
     sizes = [t.numel() for t in vecs]
     if sizes != [c] * 5 + [1]:
         raise ValueError(f"{name}: GN parameters, w_out and b_out have {sizes} "
                          f"elements, want {[c] * 5 + [1]}")
-    prm = torch.cat([t.detach().to(device=dev, dtype=torch.float32).reshape(-1)
-                     for t in vecs])
+    # float32 and contiguous, as the model holds them: then no copy and no
+    # launch besides the kernel's own three (the bf16 kernel rounds the conv
+    # weights itself)
+    prm = [t.detach().to(device=dev, dtype=torch.float32).contiguous()
+           for t in (wa, wb, w2, *vecs)]
     h1, h2 = torch.empty_like(xu), torch.empty_like(xu)
     nblk = (h // th) * -(-w // _STRIP)
-    part = torch.empty((b * nblk * 2 * c,), dtype=torch.float32, device=dev)
-    coef = torch.empty((b * 2 * c,), dtype=torch.float32, device=dev)
+    part = torch.empty((2 * b * nblk * 2 * c,), dtype=torch.float32, device=dev)
     out = torch.empty((b, h, w), dtype=torch.float32, device=dev)
     fn = _build.load("dec1_output").dec1_output
     with torch.cuda.device(dev):
-        err = fn(xu.data_ptr(), xs.data_ptr(), wts.data_ptr(), prm.data_ptr(),
-                 h1.data_ptr(), h2.data_ptr(), part.data_ptr(), coef.data_ptr(),
-                 out.data_ptr(), b, h, w, th, eps, _DTYPE_CODE[dt],
-                 torch.cuda.current_stream(dev).cuda_stream)
+        err = fn(xu.data_ptr(), xs.data_ptr(), *(t.data_ptr() for t in prm), h1.data_ptr(),
+                 h2.data_ptr(), part.data_ptr(), out.data_ptr(), b, h, w, th, eps,
+                 _DTYPE_CODE[dt], torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
     LAUNCHES["dec1_output"] += 1
@@ -201,7 +200,8 @@ def dec1_output_args(model) -> dict:
     blk = model.dec1
     f = blk.conv2.shape[-1]
     return {
-        "wa": blk.conv1[:, :, :f].detach(), "wb": blk.conv1[:, :, f:].detach(),
+        "wa": blk.conv1[:, :, :f].detach().contiguous(),
+        "wb": blk.conv1[:, :, f:].detach().contiguous(),
         "w2": blk.conv2.detach(),
         "g1_scale": blk.gn1_scale.detach(), "g1_bias": blk.gn1_bias.detach(),
         "g2_scale": blk.gn2_scale.detach(), "g2_bias": blk.gn2_bias.detach(),

@@ -23,7 +23,9 @@ the conv wrappers run the tensor-core kernel under the launch plan
 launches).
 
 The dispatchers ``fused_group_norm_silu`` and ``fused_conv3x3_gn_silu``
-choose a kernel by the same shape rules as the JAX dispatchers.
+choose a kernel by the same shape rules as the JAX dispatchers; unless
+forced, they take the composition on a CPU tensor, as the JAX ones take
+XLA's off the TPU.
 """
 
 from __future__ import annotations
@@ -447,6 +449,13 @@ def conv3x3_gn_silu_batched(x: torch.Tensor, w: torch.Tensor, scale: torch.Tenso
 # --------------------------------------------------------------- dispatchers
 
 
+def _routes_to_kernels(x: torch.Tensor) -> bool:
+    """Whether ``use_kernel=None`` may pick a kernel for ``x``: on a device
+    tensor, as the JAX dispatchers do on the TPU; not on a CPU tensor, as
+    theirs do not off the TPU."""
+    return x.device.type != "cpu"
+
+
 def _flat_eligible(x: torch.Tensor, num_groups: int) -> bool:
     n, h, w, c = x.shape
     return c % num_groups == 0 and (w * c) % 128 == 0 and h >= 8
@@ -457,12 +466,16 @@ def fused_group_norm_silu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tens
                           use_kernel: bool | None = None) -> torch.Tensor:
     """GroupNorm followed by SiLU through a fused kernel.
 
-    ``use_kernel=None`` or True picks K1 when the (H, W*C) rows are
-    128-lane aligned and H >= 8, else K2 when C >= 64, else (None only)
-    the composition ``silu(group_norm(...))``; a forced True with no
-    eligible kernel raises. ``use_kernel=False`` is the composition. The
-    rules are the JAX dispatcher's, kept so both packages route a shape the
-    same way."""
+    On a CUDA tensor, ``use_kernel=None`` or True picks K1 when the
+    (H, W*C) rows are 128-lane aligned and H >= 8, else K2 when C >= 64,
+    else (None only) the composition ``silu(group_norm(...))``; a forced
+    True with no eligible kernel raises. ``use_kernel=False`` is the
+    composition. On a CPU tensor ``None`` is the composition, as the JAX
+    dispatcher's ``None`` is XLA's off the TPU, and a forced True is the
+    picked kernel's plain version (JAX runs the kernel in interpret mode
+    there). The shape rules are the JAX dispatcher's."""
+    if use_kernel is None and not _routes_to_kernels(x):
+        use_kernel = False
     if use_kernel is None or use_kernel:
         c = x.shape[-1]
         if _flat_eligible(x, num_groups):
@@ -481,15 +494,18 @@ def fused_conv3x3_gn_silu(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
                           images_per_step: int | None = None) -> torch.Tensor:
     """Conv3x3(same, no bias) -> GroupNorm -> SiLU through K3 or K4.
 
-    ``use_kernel=None`` picks a kernel for ``cout % num_groups == 0 and
-    cout >= 64`` and the composition elsewhere. The JAX dispatcher also
-    required the per-image slab to fit a 6 MB on-chip budget of the TPU;
-    that rule has no meaning on the H100 and is dropped. With a kernel,
-    ``images_per_step=K > 1`` routes to K4 (K images per conv block; the
-    batch must divide by K, else ValueError) and None or <= 1 to K3."""
+    ``use_kernel=None`` picks a kernel on a CUDA tensor for ``cout %
+    num_groups == 0 and cout >= 64`` and the composition elsewhere, and on
+    a CPU tensor the composition, as the JAX dispatcher's ``None`` takes
+    XLA off the TPU; a forced True on a CPU tensor is the kernel's plain
+    version. The JAX dispatcher also required the per-image slab to fit a
+    6 MB on-chip budget of the TPU; that rule has no meaning on the H100
+    and is dropped. With a kernel, ``images_per_step=K > 1`` routes to K4
+    (K images per conv block; the batch must divide by K, else ValueError)
+    and None or <= 1 to K3."""
     cout = w.shape[-1]
     if use_kernel is None:
-        use_kernel = cout % num_groups == 0 and cout >= 64
+        use_kernel = _routes_to_kernels(x) and cout % num_groups == 0 and cout >= 64
     if not use_kernel:
         y = conv2d(x, w, padding=1)
         return silu(group_norm(y, scale, bias, num_groups=num_groups, eps=eps))

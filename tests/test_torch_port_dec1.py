@@ -187,3 +187,39 @@ def test_dec1_slice_bench_runs_on_cpu(capsys):
     assert r["device"] == "cpu" and r["finite"]
     # bf16 composition vs K5's rounding: within the bf16 bound of the tail
     assert 0 < r["max_abs_err"] < 0.1
+
+
+def test_dec1_output_args_are_contiguous_float32():
+    """The weights K5's wrapper hands the kernel as they are: float32 and
+    contiguous (dec1's conv1 halves are copied once here, not in every
+    call), so a call on the card launches the kernel's three kernels and no
+    copy."""
+    import os
+
+    onnx = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "deploy", "models", "best_model.onnx")
+    model = load_lightweight_unet(onnx, dtype=torch.bfloat16, device="cpu")
+    args = dec1.dec1_output_args(model)
+    assert args.pop("num_groups") == C
+    for name, t in args.items():
+        assert t.dtype == torch.float32 and t.is_contiguous(), name
+    np.testing.assert_array_equal(
+        torch.cat([args["wa"], args["wb"]], dim=2).numpy(), model.dec1.conv1.detach().numpy())
+
+
+def test_dec1_output_bench_needs_a_card():
+    """tools/dec1_output_bench.py, run by path, fails without a CUDA device
+    and prints no timing."""
+    import os
+    import subprocess
+    import sys
+
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour on a machine without a CUDA device")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    script = os.path.join(repo, "image_enhancement_deglaring_tpu_torch", "tools",
+                          "dec1_output_bench.py")
+    out = subprocess.run([sys.executable, script], cwd=repo, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 1 and "no CUDA device" in out.stderr
+    assert "device" not in out.stdout

@@ -154,11 +154,16 @@ def test_conv_dispatcher_images_per_step_matches_jax(rng, images_per_step):
     (None, "conv3x3_gn_silu"), (1, "conv3x3_gn_silu"), (0, "conv3x3_gn_silu"),
     (2, "conv3x3_gn_silu_batched"), (4, "conv3x3_gn_silu_batched")])
 def test_conv_dispatcher_images_per_step_routes(monkeypatch, images_per_step, route):
+    """On a device tensor (a meta tensor stands for one) the kernel the
+    dispatcher picks; on a CPU tensor, as JAX off the TPU, no kernel."""
     calls = []
     for name in ("conv3x3_gn_silu", "conv3x3_gn_silu_batched"):
         monkeypatch.setattr(fk, name, lambda *a, _n=name, **k: calls.append((_n, k)))
-    fk.fused_conv3x3_gn_silu(torch.zeros(4, 4, 4, 8), torch.zeros(3, 3, 8, 64), torch.ones(64),
-                             torch.zeros(64), num_groups=8, images_per_step=images_per_step)
+    for device in ("meta", "cpu"):
+        fk.fused_conv3x3_gn_silu(torch.zeros(4, 4, 4, 8, device=device),
+                                 torch.zeros(3, 3, 8, 64, device=device),
+                                 torch.ones(64, device=device), torch.zeros(64, device=device),
+                                 num_groups=8, images_per_step=images_per_step)
     assert [c[0] for c in calls] == [route]
     if route == "conv3x3_gn_silu_batched":
         assert calls[0][1]["images"] == images_per_step
@@ -210,8 +215,9 @@ def test_gn_dispatcher_forced_rejects_ineligible_shape(rng):
     ((1, 4, 4, 16), 8, "composition"),
 ])
 def test_gn_dispatch_routes_like_jax(monkeypatch, shape, groups, route):
-    """Same eligibility rules as the JAX dispatcher on the TPU."""
-    x = torch.zeros(shape)
+    """Same eligibility rules as the JAX dispatcher on the TPU, for a device
+    tensor (a meta tensor stands for one); a CPU tensor takes the
+    composition, as JAX's does off the TPU."""
     jx = jnp.zeros(shape)
     c = shape[-1]
     jax_route = ("gn_silu_flat" if jpk._flat_eligible(jx, groups)
@@ -220,19 +226,25 @@ def test_gn_dispatch_routes_like_jax(monkeypatch, shape, groups, route):
     calls = []
     for name in ("gn_silu_flat", "gn_silu_nhwc"):
         monkeypatch.setattr(fk, name, lambda *a, _n=name, **k: calls.append(_n) or a[0])
-    fk.fused_group_norm_silu(x, torch.ones(c), torch.zeros(c), num_groups=groups)
+    for device in ("meta", "cpu"):
+        fk.fused_group_norm_silu(torch.zeros(shape, device=device), torch.ones(c, device=device),
+                                 torch.zeros(c, device=device), num_groups=groups)
     assert calls == ([] if route == "composition" else [route])
 
 
 @pytest.mark.parametrize("cout,groups,fused", [(64, 8, True), (128, 8, True), (32, 8, False),
                                                 (48, 8, False)])
 def test_conv_dispatch_rule(monkeypatch, cout, groups, fused):
+    """The JAX rule on a device tensor (meta stands for one); a CPU tensor
+    takes the composition whatever Cout is, as JAX's does off the TPU."""
     calls = []
     monkeypatch.setattr(fk, "conv3x3_gn_silu", lambda *a, **k: calls.append(1))
-    x = torch.zeros(1, 4, 4, 8)
-    fk.fused_conv3x3_gn_silu(x, torch.zeros(3, 3, 8, cout), torch.ones(cout),
-                             torch.zeros(cout), num_groups=groups)
-    assert bool(calls) == fused
+    for device in ("meta", "cpu"):
+        fk.fused_conv3x3_gn_silu(torch.zeros(1, 4, 4, 8, device=device),
+                                 torch.zeros(3, 3, 8, cout, device=device),
+                                 torch.ones(cout, device=device),
+                                 torch.zeros(cout, device=device), num_groups=groups)
+    assert calls == ([1] if fused else [])
 
 
 def test_cpu_wrappers_leave_launch_counts_at_zero(rng):

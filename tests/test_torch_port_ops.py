@@ -62,8 +62,8 @@ def _block_params(rng, cin, f):
 
 @pytest.mark.parametrize("pallas_gn", [False, True])
 def test_conv_block_matches(rng, pallas_gn):
-    """The encoder block, with the fused GN+SiLU dispatch (W*C = 128, so on
-    a CPU tensor K1's plain version) or the composition, against JAX's."""
+    """The encoder block, with the fused GN+SiLU dispatch (on a CPU tensor
+    the composition, as JAX's off the TPU) or without it, against JAX's."""
     xj, xt = _both(rng.standard_normal((2, 8, 16, 4)).astype(np.float32))
     pj, pt = _block_params(rng, 4, 8)
     _close(tops.conv_block(xt, pt, num_groups=4, pallas_gn=pallas_gn),
@@ -73,7 +73,7 @@ def test_conv_block_matches(rng, pallas_gn):
 @pytest.mark.parametrize("pallas_gn", [False, True])
 def test_conv_block_dual_matches(rng, pallas_gn):
     """The concat-free decoder block, with the fused GN+SiLU dispatch (on a
-    CPU tensor: the kernels' plain versions) against the JAX composition."""
+    CPU tensor: the composition) or without it, against the JAX composition."""
     uj, ut = _both(rng.standard_normal((2, 8, 16, 8)).astype(np.float32))
     sj, st = _both(rng.standard_normal((2, 8, 16, 8)).astype(np.float32))
     pj, pt = _block_params(rng, 16, 8)
