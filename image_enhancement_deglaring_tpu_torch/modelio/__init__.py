@@ -1,9 +1,13 @@
-"""Weight import for the port (numpy ONNX reader, JAX parameter trees)."""
+"""Weight import for the port (numpy ONNX reader, JAX parameter trees and
+optimizer state)."""
 
 from .onnx_reader import load_onnx
 from .params_import import (
+    arch_from_param_keys,
+    export_jax_opt_state,
     export_jax_params,
     lightweight_unet_params_from_onnx,
+    load_jax_opt_state,
     load_jax_params,
     load_lightweight_unet,
 )

@@ -7,6 +7,10 @@
   of the port's module state. The port's parameter ``enc1.conv1`` is the
   tree's ``["enc1"]["conv1"]`` in the same layout, so one set of weights
   gives both packages the same model.
+- ``load_jax_opt_state`` / ``export_jax_opt_state`` move the JAX trainer's
+  optimizer state (optax ``inject_hyperparams(chain(clip_by_global_norm,
+  adamw))``) into and out of a torch AdamW, so a run continues across the
+  packages, under the leaf mapping written out below.
 - ``load_lightweight_unet`` builds the model from an ``.onnx`` file.
 
 The ONNX export keeps torch parameter names for conv weights and lowers
@@ -150,6 +154,119 @@ def export_jax_params(model: torch.nn.Module) -> dict:
             node = node.setdefault(part, {})
         node[leaf] = p.detach().to("cpu", torch.float32).numpy().copy()
     return tree
+
+
+# The optimizer-state leaf mapping, optax's leaf name (path segments joined
+# with "/") -> the torch AdamW state it becomes, for the JAX trainer's
+# ``inject_hyperparams(chain(clip_by_global_norm, adamw))``:
+#   count                       the number of updates (int32)
+#   hyperparams/learning_rate   param_groups[*]["lr"] (float32)
+#   {adam}/count                state[p]["step"] of every parameter (int32)
+#   {adam}/mu/{param}           state[p]["exp_avg"]
+#   {adam}/nu/{param}           state[p]["exp_avg_sq"]
+# {adam} is inner_state/1/0 with the clip in the chain and inner_state/0/0
+# without it (make_optimizer(clip_grad_norm=0) leaves the clip out);
+# {param} is the parameter's name in the JAX tree ("enc1/conv1" for the
+# port's enc1.conv1).
+
+
+def arch_from_param_keys(keys) -> str:
+    """Model family from a parameter tree's top-level names: EnhancedUNet
+    alone has a 5th level and BatchNorm bottleneck modules, OptimizedUNet
+    alone SE gates, LightweightUNet neither."""
+    keys = set(keys)
+    if keys & {"attention5", "enc5", "bottleneck_bn1"}:
+        return "enhanced"
+    if "attention4" in keys:
+        return "optimized"
+    return "lightweight"
+
+
+def _named_leaves(tree, prefix: str = "") -> dict:
+    """Leaves of a nested state (dicts, lists, tuples, NamedTuples such as
+    optax's own states, or a flat dict already "/"-named) by their
+    "/"-joined path; a NamedTuple's segments are its field names."""
+    if hasattr(tree, "_asdict"):
+        tree = tree._asdict()
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix: tree}
+    out = {}
+    for k, v in items:
+        out.update(_named_leaves(v, f"{prefix}/{k}" if prefix else str(k)))
+    return out
+
+
+def _adam_prefix(flat: dict) -> str:
+    prefixes = {k.rsplit("/mu/", 1)[0] for k in flat if "/mu/" in k}
+    if len(prefixes) != 1:
+        raise ValueError(f"not the optimizer state of inject_hyperparams(chain(clip, adamw)): "
+                         f"adam moments under {sorted(prefixes) or 'no prefix'}")
+    return prefixes.pop()
+
+
+def load_jax_opt_state(optimizer: torch.optim.Optimizer, model: torch.nn.Module,
+                       opt_state_np) -> None:
+    """Set ``optimizer`` (a torch AdamW over ``model``'s parameters) to the
+    JAX trainer's optimizer state, in place: per parameter ``step``,
+    ``exp_avg`` and ``exp_avg_sq`` from optax's ``count``, ``mu`` and
+    ``nu`` (the mapping above), and every group's ``lr`` from the injected
+    ``learning_rate``. ``opt_state_np`` is the optax state with numpy (or
+    jax) leaves, its orbax dict form, or the flat dict that
+    :func:`export_jax_opt_state` returns."""
+    flat = _named_leaves(opt_state_np)
+    adam = _adam_prefix(flat)
+    names = {name.replace(".", "/") for name, _ in model.named_parameters()}
+    for moment in ("mu", "nu"):
+        have = {k[len(f"{adam}/{moment}/"):] for k in flat if k.startswith(f"{adam}/{moment}/")}
+        if have != names:
+            raise ValueError(f"optimizer state {moment} does not match the model: missing "
+                             f"{sorted(names - have)[:8]}, unexpected {sorted(have - names)[:8]}")
+    owned = {id(p) for g in optimizer.param_groups for p in g["params"]}
+    step = float(np.asarray(flat[f"{adam}/count"]))
+    for name, p in model.named_parameters():
+        if id(p) not in owned:
+            raise ValueError(f"{name} is not a parameter of the optimizer")
+        key = name.replace(".", "/")
+        moments = {}
+        for moment, slot in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
+            arr = np.array(flat[f"{adam}/{moment}/{key}"], np.float32)  # a copy: the state owns it
+            if tuple(arr.shape) != tuple(p.shape):
+                raise ValueError(f"{moment}/{key}: shape {arr.shape}, want {tuple(p.shape)}")
+            moments[slot] = torch.from_numpy(arr).to(p.device)
+        optimizer.state[p] = {"step": torch.tensor(step, dtype=torch.float32), **moments}
+    lr = float(np.asarray(flat["hyperparams/learning_rate"]))
+    for group in optimizer.param_groups:
+        group["lr"] = lr
+
+
+def export_jax_opt_state(optimizer: torch.optim.Optimizer, model: torch.nn.Module, *,
+                         clip: bool = True) -> dict:
+    """The optimizer's state as optax's flat leaves, under the names of the
+    mapping above (``clip`` says whether the JAX chain holds the clip). A
+    parameter the optimizer has not stepped yet has zero moments."""
+    adam = "inner_state/1/0" if clip else "inner_state/0/0"
+    out: dict = {}
+    steps = set()
+    for name, p in model.named_parameters():
+        st = optimizer.state.get(p, {})
+        steps.add(int(round(float(st["step"]))) if "step" in st else 0)
+        key = name.replace(".", "/")
+        for moment, slot in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
+            t = st.get(slot)
+            out[f"{adam}/{moment}/{key}"] = (
+                np.zeros(tuple(p.shape), np.float32) if t is None
+                else t.detach().to("cpu", torch.float32).numpy().copy())
+    if len(steps) != 1:
+        raise ValueError(f"parameters stepped unequally often: {sorted(steps)}")
+    count = np.asarray(steps.pop(), np.int32)
+    out["count"] = count
+    out[f"{adam}/count"] = count.copy()
+    out["hyperparams/learning_rate"] = np.asarray(optimizer.param_groups[0]["lr"], np.float32)
+    return out
 
 
 def load_lightweight_unet(path: str, *, dtype: torch.dtype = torch.bfloat16,

@@ -30,6 +30,7 @@ import torch
 
 from . import _build
 from .conv_blocks import conv2d, group_norm, highest_precision, silu
+from .fused_kernels import refuse_autograd
 
 #: K5 launches since the last reset_launch_counts()
 LAUNCHES = {"dec1_output": 0}
@@ -135,7 +136,8 @@ def fused_dec1_output(x_up, x_skip, wa, wb, w2, g1_scale, g1_bias, g2_scale, g2_
     (C,); w_out: (1, 1, C, 1); b_out: (1,). Returns (B, H, W) float32.
     ``tile_h`` is the kernel's row-tile height, with the JAX fallback rule
     (:func:`effective_tile_h`). On a CPU tensor this is
-    :func:`dec1_output_plain`; on a CUDA tensor it launches K5 or raises."""
+    :func:`dec1_output_plain`; on a CUDA tensor it launches K5 or raises,
+    also under autograd (K5 is forward-only, see ``refuse_autograd``)."""
     _check(x_up, x_skip, num_groups)
     args = (x_up, x_skip, wa, wb, w2, g1_scale, g1_bias, g2_scale, g2_bias, w_out, b_out)
     if x_up.device.type == "cpu":
@@ -147,6 +149,8 @@ def _launch(x_up, x_skip, wa, wb, w2, g1_scale, g1_bias, g2_scale, g2_bias, w_ou
             *, eps: float, tile_h: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K5 on CUDA tensors: returns ``out`` and the kernel's stored h1 and h2."""
     name = "fused_dec1_output"
+    refuse_autograd(name, x_up, x_skip, wa, wb, w2, g1_scale, g1_bias, g2_scale, g2_bias,
+                    w_out, b_out)
     if x_up.device.type != "cuda":
         raise ValueError(f"{name}: tensor on {x_up.device}, want cpu or cuda")
     if x_skip.device != x_up.device or x_skip.dtype != x_up.dtype:

@@ -16,6 +16,11 @@ conv3x3_gn_silu_batched   _conv_gn_silu_batched_kernel (K4)    csrc/conv_gn_silu
 Every wrapper takes and returns NHWC tensors. On a CPU tensor it computes
 its plain PyTorch version (``gn_silu_plain``, ``conv3x3_gn_silu_plain``);
 on a CUDA tensor it launches its kernel on the current stream or raises.
+The kernels are forward-only, as the TPU kernels are (none has a
+backward): on a CUDA tensor a wrapper raises under autograd, when grad
+mode is on and an argument requires grad (``refuse_autograd``), rather
+than return a result that carries no gradient. Train with
+``pallas_gn=False, fused_blocks=False``.
 Each launch adds one to ``LAUNCHES[<wrapper name>]``. The GroupNorm
 wrappers make one launch under the launch plan ``_gn_plan``. In bfloat16
 the conv wrappers run the tensor-core kernel under the launch plan
@@ -122,6 +127,20 @@ def _stream(device: torch.device) -> int:
     ``torch.cuda.current_stream(device).cuda_stream`` without building a
     Stream object, a host cost paid at every launch."""
     return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def refuse_autograd(name: str, *tensors) -> None:
+    """Raise RuntimeError when grad mode is on and any of ``tensors``
+    requires grad: a kernel writes its result through a raw pointer, so
+    the result would have no ``grad_fn`` and every weight before it would
+    silently stop learning. Called by every launch before it launches."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel is forward-only (no backward, as the TPU kernel has "
+            f"none), but grad mode is on and an argument requires grad; call it under "
+            f"torch.no_grad() or torch.inference_mode(), and train with "
+            f"pallas_gn=False, fused_blocks=False")
 
 
 def _raise_on_error(name: str, err: int) -> None:
@@ -351,6 +370,7 @@ def _gn_workspace(device: torch.device, stream: int, n: int,
 
 
 def _gn_silu_launch(name: str, x, scale, bias, num_groups: int, eps: float):
+    refuse_autograd(name, x, scale, bias)
     if x.device.type != "cuda":
         raise ValueError(f"{name}: tensor on {x.device}, want cpu or cuda")
     _check_activation(name, x)
@@ -376,6 +396,7 @@ def _conv_launch(name: str, x, w, scale, bias, num_groups: int, eps: float, imag
     """Launch conv_gn_silu.cu for K3 (``images`` 1) or K4: in bf16 the
     tensor-core kernel under ``_conv_plan``, in float32 the CUDA-core one
     with ``images`` images per conv block."""
+    refuse_autograd(name, x, w, scale, bias)
     if x.device.type != "cuda":
         raise ValueError(f"{name}: tensor on {x.device}, want cpu or cuda")
     _check_activation(name, x)

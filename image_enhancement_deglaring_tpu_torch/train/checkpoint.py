@@ -1,0 +1,80 @@
+"""Checkpoints with exact resume.
+
+Counterpart of ``image_enhancement_deglaring_tpu.train.checkpoint``. A
+checkpoint is a directory:
+
+- ``params.npz``: the parameters under the JAX package's flat names
+  ("enc1/conv1", ``export_jax_params`` + ``flatten_tree``);
+- ``opt_state.npz``: the optimizer state under optax's leaf names
+  (the mapping in ``modelio.params_import``), when there is one;
+- ``train_meta.json``: ``epoch``, ``val_loss``, ``model_arch`` and the
+  caller's extras (LR-controller state, step, generator state, early-stop
+  counter, mid-epoch position), the JAX package's keys.
+
+npz holds no pickled objects, so reading a checkpoint runs no code.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import tempfile
+
+import numpy as np
+
+from ..modelio.params_import import arch_from_param_keys
+from ..utils.pytree import flatten_tree, unflatten_tree
+
+
+def save_checkpoint(path: str, *, params: dict, opt_state: dict | None = None,
+                    epoch: int = 0, val_loss: float | None = None,
+                    extra: dict | None = None) -> str:
+    """Write a checkpoint directory at ``path``, replacing any there.
+    ``params``: the JAX-named tree of arrays; ``opt_state``: optax's flat
+    leaves (``export_jax_opt_state``). The directory is written beside
+    ``path`` and renamed into place, so a reader never sees half of it."""
+    path = os.path.abspath(path)
+    parent = os.path.dirname(path)
+    os.makedirs(parent, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix=".ckpt-", dir=parent)
+    try:
+        np.savez(os.path.join(tmp, "params.npz"),
+                 **{k: np.asarray(v) for k, v in flatten_tree(params).items()})
+        if opt_state is not None:
+            np.savez(os.path.join(tmp, "opt_state.npz"),
+                     **{k: np.asarray(v) for k, v in opt_state.items()})
+        meta = {"epoch": epoch, "val_loss": val_loss,
+                "model_arch": arch_from_param_keys(params.keys()), **(extra or {})}
+        with open(os.path.join(tmp, "train_meta.json"), "w") as f:
+            json.dump(meta, f)
+        if os.path.isdir(path):
+            shutil.rmtree(path)
+        os.replace(tmp, path)
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    return path
+
+
+def restore_checkpoint(path: str):
+    """Returns (item, meta): item["params"] the JAX-named tree of numpy
+    arrays, item["opt_state"] optax's flat leaves when saved."""
+    path = os.path.abspath(path)
+    with np.load(os.path.join(path, "params.npz")) as f:
+        item = {"params": unflatten_tree({k: f[k] for k in f.files})}
+    opt_path = os.path.join(path, "opt_state.npz")
+    if os.path.exists(opt_path):
+        with np.load(opt_path) as f:
+            item["opt_state"] = {k: f[k] for k in f.files}
+    meta = {}
+    meta_path = os.path.join(path, "train_meta.json")
+    if os.path.exists(meta_path):
+        with open(meta_path) as f:
+            meta = json.load(f)
+    return item, meta
+
+
+def restore_params(path: str) -> dict:
+    """Params-only restore (for eval and serving)."""
+    return restore_checkpoint(path)[0]["params"]

@@ -1,0 +1,545 @@
+"""The training loop.
+
+Counterpart of ``image_enhancement_deglaring_tpu.train.loop``: L1 loss,
+global-norm gradient clip at 1.0 to optax's rule, AdamW (betas .9/.999,
+eps 1e-8, decoupled weight decay on every parameter), ReduceLROnPlateau,
+validation PSNR/SSIM on the first <= 4 clipped images of each batch,
+early stop, best and periodic checkpoints, best-weights restore, exact
+resume, SIGTERM handling and experiment logging.
+
+On the card:
+- a step is forward, backward, clip and update on the current stream;
+  compute runs in the model's dtype (bf16 by default), parameters and
+  optimizer state in float32; a float32 model trains inside
+  ``highest_precision()`` (no TF32), as its forward runs;
+- the LR lives in the optimizer's ``param_groups``, so a plateau
+  reduction rebuilds nothing;
+- per-step losses stay on the device and are fetched once per epoch;
+- ``DevicePrefetcher`` copies batch N+1 on a side stream during step N.
+
+The CUDA kernels are forward-only, as the TPU kernels are, and their
+wrappers refuse to run under autograd: train a model built with
+``pallas_gn=False, fused_blocks=False``.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+import time
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from .._device import resolve_device
+from ..data.dataset import DevicePrefetcher
+from ..modelio.params_import import (
+    export_jax_opt_state,
+    export_jax_params,
+    load_jax_opt_state,
+    load_jax_params,
+)
+from ..ops.conv_blocks import highest_precision
+from ..ops.metrics import batched_psnr_ssim, l1_loss
+from ..utils.pytree import flatten_tree, unflatten_tree
+from .checkpoint import restore_checkpoint, save_checkpoint
+from .lr_control import ReduceLROnPlateau
+from .preempt import PreemptionGuard, preemption_agreed
+
+
+class ClippedAdamW(torch.optim.AdamW):
+    """optax's ``chain(clip_by_global_norm(clip_grad_norm), adamw(lr, b1=0.9,
+    b2=0.999, eps=1e-8, weight_decay))`` as a torch AdamW over one
+    parameter group: ``step()`` is AdamW's update, and the train step clips
+    the gradients first (:func:`clip_grad_norm_`) when ``clip_grad_norm >
+    0``. optax applies ``p - lr * (adam + wd * p)`` and torch ``p * (1 - lr
+    * wd) - lr * adam``: equal in exact arithmetic, apart in the last bits."""
+
+    def __init__(self, params, lr: float, weight_decay: float, clip_grad_norm: float = 1.0):
+        super().__init__(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                         weight_decay=weight_decay)
+        self.clip_grad_norm = float(clip_grad_norm)
+
+
+@dataclass
+class TrainState:
+    """What a step changes: the model's parameters (in the module), the
+    optimizer and its state, the step count, and a generator for
+    stochastic layers and augmentation (none on the stateless path)."""
+
+    model: torch.nn.Module
+    optimizer: ClippedAdamW
+    step: int = 0
+    generator: torch.Generator = field(default_factory=lambda: torch.Generator().manual_seed(0))
+
+
+def make_optimizer(model: torch.nn.Module, lr: float, weight_decay: float,
+                   clip_grad_norm: float = 1.0) -> ClippedAdamW:
+    """Clip by global norm, then AdamW, over every parameter of ``model``."""
+    return ClippedAdamW(model.parameters(), lr, weight_decay, clip_grad_norm)
+
+
+def set_learning_rate(state: TrainState, lr: float) -> TrainState:
+    """Write ``lr`` into every parameter group."""
+    for group in state.optimizer.param_groups:
+        group["lr"] = float(lr)
+    return state
+
+
+def clip_grad_norm_(params, max_norm: float) -> torch.Tensor:
+    """optax's ``clip_by_global_norm``: with ``norm`` the L2 norm of all
+    gradients together, each gradient becomes ``(g / norm) * max_norm``
+    when ``norm >= max_norm`` and stays as it is otherwise. Returns the
+    norm. (``torch.nn.utils.clip_grad_norm_`` scales by ``max_norm / (norm
+    + 1e-6)`` whenever it is below 1: another function.)"""
+    grads = [p.grad for p in params if p.grad is not None]
+    norm = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in grads))
+    clipping = norm >= max_norm  # stays on the device: no host sync per step
+    for g in grads:
+        g.copy_(torch.where(clipping, (g / norm) * max_norm, g))
+    return norm
+
+
+def make_step_body(*, stateful: bool = False, augment_fn=None):
+    """The (state, x, y) -> (state, loss) step: forward in the model's
+    dtype, float32 L1 on its float32 output, backward, the clip and
+    AdamW's update. ``loss`` stays on the device."""
+    if stateful:
+        raise NotImplementedError("the stateful step (EnhancedUNet's batch statistics and "
+                                  "dropout) comes with the other model families "
+                                  "(ROADMAP Queue 1 item 9)")
+    if augment_fn is not None:
+        raise NotImplementedError("device augmentation is not ported yet "
+                                  "(ROADMAP Queue 1 item 8)")
+
+    def step_body(state: TrainState, x: torch.Tensor, y: torch.Tensor):
+        model, opt = state.model, state.optimizer
+        model.train()
+        opt.zero_grad(set_to_none=True)
+        exact = getattr(model, "dtype", torch.float32) == torch.float32
+        with highest_precision() if exact else contextlib.nullcontext():
+            loss = l1_loss(model(x), y)
+            loss.backward()
+            if opt.clip_grad_norm > 0:
+                with torch.no_grad():
+                    clip_grad_norm_([p for g in opt.param_groups for p in g["params"]],
+                                    opt.clip_grad_norm)
+            opt.step()
+        state.step += 1
+        return state, loss.detach()
+
+    return step_body
+
+
+def make_val_body(metric_subset: int = 4, *, with_metrics: bool = True):
+    """(model, x, y, mask) -> (batch L1, subset PSNR mean, subset SSIM mean,
+    prediction), under ``no_grad``. ``mask`` is (B,) 1.0 for real samples
+    and 0.0 for padding. The metrics are taken on the clipped prediction of
+    the first <= ``metric_subset`` images, the loss on the raw one;
+    ``with_metrics=False`` skips the metrics (they return 0.0)."""
+
+    def val_step(model, x, y, mask):
+        model.eval()
+        with torch.no_grad():
+            out = model(x).float()
+            yf = y.float()
+            m = mask.float()[:, None, None, None]
+            denom = torch.clamp(mask.float().sum() * float(np.prod(x.shape[1:])), min=1.0)
+            loss = torch.sum(torch.abs(out - yf) * m) / denom
+            if not with_metrics:
+                zero = torch.zeros((), dtype=torch.float32, device=out.device)
+                return loss, zero, zero, out
+            k = min(metric_subset, x.shape[0])
+            psnrs, ssims = batched_psnr_ssim(out[:k], yf[:k], clip_pred=True)
+            mk = mask.float()[:k]
+            mk_n = torch.clamp(mk.sum(), min=1.0)
+            # where(), not *mask: a padded all-zero row can give mse = 0 and
+            # psnr = inf, and inf * 0.0 = NaN would poison the sum
+            psnr = torch.sum(torch.where(mk > 0, psnrs, torch.zeros_like(psnrs))) / mk_n
+            ssim = torch.sum(torch.where(mk > 0, ssims, torch.zeros_like(ssims))) / mk_n
+        return loss, psnr, ssim, out
+
+    return val_step
+
+
+# the JAX package jits each body into its step; eager PyTorch runs the body
+make_train_step, make_val_step = make_step_body, make_val_body
+
+
+class _PaddedValLoader:
+    """Pads every (x, y) batch to a fixed batch size and appends a (B,)
+    real-sample mask."""
+
+    def __init__(self, loader, static_b: int):
+        self.loader = loader
+        self.static_b = static_b
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __iter__(self):
+        for x, y in self.loader:
+            b = x.shape[0]
+            if b < self.static_b:
+                pad = self.static_b - b
+                x = np.concatenate([x, np.zeros((pad,) + x.shape[1:], x.dtype)])
+                y = np.concatenate([y, np.zeros((pad,) + y.shape[1:], y.dtype)])
+            mask = np.zeros((self.static_b,), np.float32)
+            mask[:b] = 1.0
+            yield x, y, mask
+
+
+def _not_ported(flag: str, item: int, what: str):
+    raise NotImplementedError(f"{flag}: {what} is not ported yet (ROADMAP Queue 1 item {item})")
+
+
+def train_model(model, train_loader, val_loader, *, epochs: int,
+                lr: float = 0.002362532125818593,
+                weight_decay: float = 6.753784966611083e-05,
+                clip_grad_norm: float = 1.0, patience: int = 10,
+                output_dir: str = "./models_out", save_every: int = 10,
+                plateau_factor: float = 0.5, plateau_patience: int = 5,
+                validation_metrics_every: int = 5, log_images_every: int = 5,
+                mesh=None, seed: int = 42, logger=None, init_params=None,
+                progress: bool = True, start_epoch: int = 0,
+                resume_state: TrainState | None = None,
+                resume_from: str | None = None,
+                lr_controller: ReduceLROnPlateau | None = None,
+                watch_every: int = 0, profile_dir: str | None = None,
+                device_augment: bool = False,
+                resident: bool = False, prefetch: int = 2,
+                preempt_guard=None, handle_preemption: bool = True, device="cuda"):
+    """Train ``model`` (a LightweightUNet, moved to ``device``) in place;
+    returns (best_params, best_model_state, best_val_loss, final_state) as
+    the JAX package does: best_params is the JAX-named tree of numpy
+    arrays from the best epoch, best_model_state ``{}`` (the port's models
+    have no mutable collections yet).
+
+    The model starts from its own parameters, or from ``init_params`` (a
+    JAX-named tree, ``load_jax_params``). ``device`` defaults to CUDA and
+    raises without a card unless "cpu" is passed. ``resume_from``: a
+    checkpoint directory; the run continues where it stopped (params,
+    optimizer state, step, generator, epoch, LR controller, early-stop
+    counter; a mid-epoch checkpoint re-enters its epoch at the next batch).
+    On SIGTERM/SIGINT the running step finishes, ``output_dir/
+    preempt_checkpoint`` is written and the function returns. ``mesh``,
+    ``resident``, ``device_augment`` and ``profile_dir`` belong to later
+    parts of the port and raise."""
+    if mesh is not None:
+        _not_ported("mesh", 13, "data-parallel training over several GPUs")
+    if resident:
+        _not_ported("resident", 8, "device-resident training")
+    if device_augment:
+        _not_ported("device_augment", 8, "augmentation on the device")
+    if profile_dir is not None:
+        _not_ported("profile_dir", 15, "the training profiler")
+    dev = resolve_device(device)
+    os.makedirs(output_dir, exist_ok=True)
+
+    if not (len(val_loader) or len(train_loader)):
+        raise ValueError("train_model: both loaders are empty — no data to train on")
+    model = model.to(dev)
+    if init_params is not None:
+        load_jax_params(model, unflatten_tree(
+            {k: np.asarray(v, np.float32) for k, v in flatten_tree(init_params).items()}))
+
+    if resume_state is not None:
+        state = resume_state
+    else:
+        state = TrainState(model=model,
+                           optimizer=make_optimizer(model, lr, weight_decay, clip_grad_norm),
+                           generator=torch.Generator().manual_seed(seed))
+    clip = state.optimizer.clip_grad_norm > 0
+
+    resumed_stale_epochs = 0
+    resume_mid_epoch, resume_skip_steps = -1, 0
+    if resume_from is not None:
+        item, meta = restore_checkpoint(resume_from)
+        load_jax_params(model, item["params"])
+        load_jax_opt_state(state.optimizer, model, item["opt_state"])
+        if meta.get("step") is not None:
+            state.step = int(meta["step"])
+        if meta.get("rng") is not None:
+            state.generator.set_state(torch.tensor(meta["rng"], dtype=torch.uint8))
+        resumed_stale_epochs = int(meta.get("epochs_without_improvement", 0))
+        if meta.get("mid_epoch"):
+            if meta.get("resident"):
+                raise ValueError("mid-epoch checkpoint was written by a resident run; the "
+                                 "port has no resident mode to resume it in")
+            resume_mid_epoch = int(meta.get("epoch", 0))
+            resume_skip_steps = int(meta.get("epoch_step", 0))
+            start_epoch = max(start_epoch, resume_mid_epoch)
+        else:
+            start_epoch = max(start_epoch, int(meta.get("epoch", -1)) + 1)
+        if lr_controller is None and meta.get("lr_state"):
+            lr_controller = ReduceLROnPlateau(lr, factor=plateau_factor,
+                                              patience=plateau_patience)
+            lr_controller.load_state_dict(meta["lr_state"])
+        print(f"Resumed from {resume_from} at epoch {start_epoch}")
+
+    train_step = make_train_step()
+    val_step_metrics = make_val_step()
+    val_step_plain = make_val_step(with_metrics=False)
+    val_static_b = int(getattr(val_loader, "batch_size", 0) or 0)
+    if not val_static_b:  # a loader without batch_size: its first batch says
+        val_static_b = next(iter(val_loader if len(val_loader) else train_loader))[0].shape[0]
+    padded_val = _PaddedValLoader(val_loader, val_static_b)
+    # the input goes to the device in the model's compute dtype (its first
+    # op is this cast); the target stays float32
+    input_dtype = torch.bfloat16 if getattr(model, "dtype", None) == torch.bfloat16 else None
+
+    scheduler = lr_controller or ReduceLROnPlateau(lr, factor=plateau_factor,
+                                                   patience=plateau_patience)
+    set_learning_rate(state, scheduler.lr)
+
+    best_val_loss = float("inf")
+    best_params = None
+    if resume_from is not None:
+        # the run's existing best_model is the bar: without it the first
+        # epoch after the resume would always "improve" on inf and
+        # overwrite a better checkpoint
+        best_dir = os.path.join(output_dir, "best_model")
+        if os.path.isdir(best_dir):
+            shapes = {k: v.shape for k, v in flatten_tree(export_jax_params(model)).items()}
+            try:
+                prev_item, prev_meta = restore_checkpoint(best_dir)
+                prev_val = prev_meta.get("val_loss")
+                prev_shapes = {k: np.shape(v) for k, v in flatten_tree(prev_item["params"]).items()}
+                if prev_shapes != shapes:
+                    print(f"Resume: existing best_model in {best_dir} has a different "
+                          "parameter structure (different --model?); best-model tracking "
+                          "restarts")
+                elif prev_val is not None and np.isfinite(prev_val):
+                    best_val_loss, best_params = float(prev_val), prev_item["params"]
+                    print(f"Resume: keeping existing best_model (val loss "
+                          f"{best_val_loss:.4f}) as the bar")
+            except (OSError, ValueError, KeyError) as e:  # corrupt best: start afresh
+                print(f"Resume: could not read {best_dir} ({e}); best-model tracking "
+                      "restarts")
+    epochs_without_improvement = resumed_stale_epochs
+    warned_no_val = False
+    history = {"train_loss": [], "val_loss": []}
+
+    def _resume_extra():
+        return {"lr_state": scheduler.state_dict(), "step": int(state.step),
+                "rng": state.generator.get_state().tolist(),
+                "epochs_without_improvement": epochs_without_improvement}
+
+    def _save(name, *, val, extra):
+        return save_checkpoint(os.path.join(output_dir, name),
+                               params=export_jax_params(model),
+                               opt_state=export_jax_opt_state(state.optimizer, model, clip=clip),
+                               epoch=epoch, val_loss=val, extra=extra)
+
+    def _save_preempt(epoch_step=None):
+        extra = _resume_extra()
+        if epoch_step is not None:
+            extra.update(mid_epoch=True, epoch_step=int(epoch_step), resident=False)
+        path = _save("preempt_checkpoint", val=best_val_loss, extra=extra)
+        if guard is not None:
+            guard.preempt_checkpoint = path
+        print(f"Preempted: exact state saved to {path} — continue with --resume {path}",
+              flush=True)
+
+    guard = preempt_guard
+    own_guard = False
+    if guard is None and handle_preemption:
+        guard = PreemptionGuard().__enter__()
+        own_guard = True
+    preempted = False
+    epoch = start_epoch
+    try:
+        for epoch in range(start_epoch, epochs):
+            # ------------------------------------------------------ train
+            t0 = time.time()
+            if hasattr(train_loader, "set_epoch"):
+                train_loader.set_epoch(epoch)
+            # mid-epoch resume: skip the trained batches in the loader's
+            # plan (no decode, no copy), or drop them in the loop for a
+            # loader without the hook
+            skip = resume_skip_steps if epoch == resume_mid_epoch else 0
+            plan_skip = skip if skip and hasattr(train_loader, "set_skip_batches") else 0
+            if plan_skip:
+                train_loader.set_skip_batches(plan_skip)
+            try:
+                planned_steps = len(train_loader) - (0 if plan_skip else skip)
+            except TypeError:
+                planned_steps = None
+            it = DevicePrefetcher(train_loader, device=dev, prefetch=prefetch,
+                                  input_dtype=input_dtype)
+            if progress:
+                try:
+                    from tqdm import tqdm
+
+                    it = tqdm(it, total=len(train_loader),
+                              desc=f"Epoch {epoch + 1}/{epochs} [Train]")
+                except ImportError:
+                    pass
+            step_losses: list = []
+            step_sizes: list[int] = []
+            mid_step = 0
+            for i, (x, y) in enumerate(it):
+                if not plan_skip and skip and i < skip:
+                    continue  # trained before the preemption snapshot
+                state, loss = train_step(state, x, y)
+                step_losses.append(loss)
+                step_sizes.append(x.shape[0])
+                if guard is not None and guard.triggered:
+                    preempted = True
+                    mid_step = plan_skip + i + 1  # counted from the epoch's start
+                    break
+            if plan_skip:  # one-shot: later epochs iterate in full
+                train_loader.set_skip_batches(0)
+            if preempted:
+                _save_preempt(mid_step)
+                break
+            if planned_steps is not None and len(step_sizes) != planned_steps:
+                raise RuntimeError(
+                    f"epoch {epoch}: trained {len(step_sizes)} steps but the loader planned "
+                    f"{planned_steps} (skip={skip}, plan_skip={bool(plan_skip)}) — the "
+                    f"loader's set_skip_batches len/iter contract is violated or batches "
+                    f"were dropped")
+            n_seen = sum(step_sizes)
+            if step_losses:  # one fetch per epoch, not one sync per step
+                losses_np = torch.stack(step_losses).double().cpu().numpy()
+                running = float(losses_np @ np.asarray(step_sizes, np.float64))
+            else:
+                running = 0.0
+            train_loss = running / max(n_seen, 1)
+            history["train_loss"].append(train_loss)
+            train_secs = time.time() - t0
+            train_ips = n_seen / train_secs if train_secs > 0 else 0.0
+
+            # -------------------------------------------------------- val
+            calc_metrics = ((epoch + 1) % validation_metrics_every == 0 or epoch == 0
+                            or epoch == epochs - 1)
+            log_images = logger is not None and (
+                (epoch + 1) % log_images_every == 0 or epoch == 0 or epoch == epochs - 1)
+            val_step = val_step_metrics if calc_metrics else val_step_plain
+            val_stats: list = []
+            for batch_idx, (x, y, mask) in enumerate(
+                    DevicePrefetcher(padded_val, device=dev, prefetch=prefetch,
+                                     input_dtype=input_dtype)):
+                loss, psnr, ssim, out = val_step(model, x, y, mask)
+                val_stats.append(torch.stack([loss, psnr, ssim, mask.float().sum()]))
+                if log_images and batch_idx == 0:
+                    k = min(2, out.shape[0])
+                    out_np = out[:k].cpu().numpy()
+                    x_np = x[:k].float().cpu().numpy()
+                    y_np = y[:k].float().cpu().numpy()
+                    imgs = {}
+                    for j in range(k):
+                        imgs[f"input_{j}"] = x_np[j, ..., 0]
+                        imgs[f"prediction_{j}"] = np.clip(out_np[j, ..., 0], 0, 1)
+                        imgs[f"target_{j}"] = y_np[j, ..., 0]
+                    logger.log_images("val", imgs, step=epoch + 1)
+            if val_stats:
+                vs = torch.stack(val_stats).double().cpu().numpy()
+                val_seen = float(vs[:, 3].sum())
+                val_loss = float(vs[:, 0] @ vs[:, 3]) / max(val_seen, 1.0)
+                val_psnr = float(vs[:, 1].mean())
+                val_ssim = float(vs[:, 2].mean())
+            else:
+                # no validation data: the train loss drives the plateau and
+                # the early stop (a constant 0.0 would stop after patience)
+                val_loss = train_loss
+                val_psnr = val_ssim = 0.0
+                if not warned_no_val:
+                    warned_no_val = True
+                    print("Warning: validation loader is empty — using the train loss for "
+                          "LR scheduling, early stopping, and best-model tracking")
+            history["val_loss"].append(val_loss)
+
+            # ------------------------------------ schedule / log / save
+            new_lr = scheduler.step(val_loss)
+            set_learning_rate(state, new_lr)
+
+            msg = (f"Epoch {epoch + 1}/{epochs}: Train Loss: {train_loss:.4f}, "
+                   f"Val Loss: {val_loss:.4f}")
+            if calc_metrics:
+                msg += f", PSNR: {val_psnr:.2f}, SSIM: {val_ssim:.4f}"
+            msg += f", LR: {new_lr:.6f} ({time.time() - t0:.1f}s)"
+            print(msg, flush=True)
+
+            if logger is not None:
+                rec = {"epoch": epoch + 1, "train_loss": train_loss, "val_loss": val_loss,
+                       "learning_rate": new_lr, "train_images_per_sec": train_ips}
+                if calc_metrics:
+                    rec["val_psnr"] = val_psnr
+                    rec["val_ssim"] = val_ssim
+                logger.log(rec, step=epoch + 1)
+                if watch_every > 0 and (epoch + 1) % watch_every == 0:
+                    logger.log_histograms(export_jax_params(model), step=epoch + 1,
+                                          prefix="params")
+
+            if val_loss < best_val_loss:
+                epochs_without_improvement = 0
+                best_val_loss = val_loss
+                best_params = export_jax_params(model)
+                _save("best_model", val=val_loss, extra=_resume_extra())
+                print(f"New best model with validation loss: {val_loss:.4f}")
+                if logger is not None:
+                    summary = {"best_val_loss": best_val_loss, "best_epoch": epoch + 1}
+                    if calc_metrics:
+                        summary["best_val_psnr"] = val_psnr
+                        summary["best_val_ssim"] = val_ssim
+                    logger.set_summary(**summary)
+                    logger.save(os.path.join(output_dir, "best_model"))
+            else:
+                epochs_without_improvement += 1
+                print(f"No improvement for {epochs_without_improvement} epochs "
+                      f"(best: {best_val_loss:.4f}, current: {val_loss:.4f})")
+                if logger is not None:
+                    logger.log({"epochs_without_improvement": epochs_without_improvement},
+                               step=epoch + 1)
+
+            # after the bookkeeping: the extras carry this epoch's counter
+            if (epoch + 1) % save_every == 0:
+                path = _save(f"checkpoint_epoch_{epoch + 1}", val=val_loss,
+                             extra=_resume_extra())
+                if logger is not None:
+                    logger.save(path)
+
+            if epochs_without_improvement >= patience:
+                print(f"Early stopping triggered after {patience} epochs without improvement")
+                if logger is not None:
+                    logger.set_summary(early_stopped=True, early_stopping_epoch=epoch + 1)
+                break
+
+            # a signal that landed outside the step loop (val, checkpoints)
+            if guard is not None and preemption_agreed(guard.triggered):
+                guard.triggered = True
+                preempted = True
+                _save_preempt()
+                break
+    finally:
+        if own_guard:
+            guard.__exit__(None, None, None)
+    _plot_losses(history, output_dir)
+    if best_params is None:
+        best_params = export_jax_params(model)
+    return best_params, {}, best_val_loss, state
+
+
+def _plot_losses(history: dict, output_dir: str) -> None:
+    """loss_plot.png with the train/val curves, where matplotlib is installed."""
+    if not history["train_loss"]:
+        return
+    try:
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+    except ImportError:
+        return
+    fig = plt.figure(figsize=(10, 5))
+    plt.plot(history["train_loss"], label="Training Loss")
+    plt.plot(history["val_loss"], label="Validation Loss")
+    plt.xlabel("Epoch")
+    plt.ylabel("L1 Loss")
+    plt.title("Training and Validation Losses")
+    plt.legend()
+    plt.grid(True)
+    fig.savefig(os.path.join(output_dir, "loss_plot.png"))
+    plt.close(fig)
