@@ -7,10 +7,12 @@ Phases, each fatal on failure:
 
 1. print the card's name and power limit (nvidia-smi);
 2. build the CUDA kernels from ``image_enhancement_deglaring_tpu_torch/csrc``;
-3. hold every kernel against its plain PyTorch version at the main path's
-   shapes, in bfloat16 and float32 (TF32 off), and time the kernel, the
-   plain version and one PyTorch library call computing the same function
-   (for the dec1 tail, which no one call computes, the composition of ops),
+3. hold every kernel against its plain PyTorch version at the main paths'
+   shapes (K1 and K3 at the 512x512 levels also at batches 1, 2 and 4,
+   the HTTP engine's smaller buckets), in bfloat16 and float32 (TF32 off),
+   and time the kernel, the plain version and one PyTorch library call
+   computing the same function (for the dec1 tail, which no one call
+   computes, the composition of ops),
    each the median of 5 rounds of 20 calls (9 of 40 for the conv kernel),
    the rounds of a shape's functions taking turns in a seeded order; the
    conv kernel with weights in the activation dtype, as the model holds
@@ -58,10 +60,28 @@ Phases, each fatal on failure:
    forward and backward, GroupNorm+SiLU, the optimizer and the rest; (d)
    ``cli.train.main`` on the card over a synthetic dataset from the
    port's generator, 2 epochs, with its artifacts checked, and the train
-   loader's host rate alone.
+   loader's host rate alone;
+8. HTTP serving: first the host work of one request step by step (decode,
+   luma, LANCZOS both ways, encode, base64) on one thread, for PNGs under
+   one filter and under the filters PIL writes, decodes in 8 threads at
+   once, and LANCZOS of a 4032x3024 photo both ways against dense
+   products of the same taps; then ``create_server`` on the production
+   weights in bf16 (kernels on, mode "both", warmed before it binds)
+   answers real requests over 8 keep-alive connections: 512x512 gray and
+   1024x768 RGB PNGs (the launches of K1 and K3 exactly 14 and 4 per
+   ``batches_dispatched``), 1200x900 ``?mode=tile`` requests one at a time
+   (14 and 4 per tile forward), then tile and resize requests at once;
+   every answer against the same frame through the engine or tiler called
+   directly (>= 45 dB), a JPEG upload's explicit 500, ``/stats`` and
+   ``/metrics`` against the requests sent; then
+   ``tools.load_test_api`` in its own process, closed loops at
+   concurrency 8 on "up"-filtered uploads and on uploads under PIL's
+   filters, and open loop on the latter at half its rate for 10 s: req/s
+   and latency percentiles, and the server's host phases.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
+The line before the last is a JSON object with one entry per kernel, its
+launches also by path (each counted from 0 in its own run); the last
+line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 without the package beside it, the script exits non-zero and prints no
 result.
 """
@@ -118,12 +138,18 @@ DEC1_GATE = {
 }
 
 # (shape, path): the forward that gives a kernel this shape, "512" or "32"
-# for the batch-8 512x512 and 32x32 forwards that serve_slice drives, None
-# for a shape checked but on neither. Only path shapes reach the JSON line.
+# for the batch-8 512x512 and 32x32 forwards that serve_slice drives,
+# "http" for the 512x512 forwards of the HTTP server's smaller buckets, None
+# for a shape checked but on no path. Only path shapes reach the JSON line.
 K1_SHAPES = [((8, 512, 512, 8), "512"), ((8, 256, 256, 16), "512"),
              ((8, 128, 128, 32), "512"), ((8, 64, 64, 64), "512"),
              ((8, 32, 32, 128), None),  # the 512x512 bottleneck level, which K3 takes
              ((8, 32, 32, 8), "32"), ((8, 16, 16, 16), "32"), ((8, 8, 8, 32), "32")]
+# the HTTP server's engine (max batch 8) pads to buckets 1, 2, 4 and 8, and
+# mostly runs the small ones (its mean batch fill reads ~1.4): K1's wave
+# plan and K3's persistent grid depend on the batch
+HTTP_BUCKETS = (1, 2, 4)
+K1_SHAPES += [((n, *s[1:]), "http") for s, p in K1_SHAPES if p == "512" for n in HTTP_BUCKETS]
 K2_SHAPES = [((8, 4, 4, 64), "32"),  # dec4 of a 32x32 image
              ((8, 4, 4, 128), None), ((8, 6, 6, 64), None)]
 # K1/K2 on no model path (wrapper, shape, groups, dtype, offset): slabs
@@ -142,6 +168,8 @@ K3_SHAPES = [(((8, 64, 64, 32), 64), "512"), (((8, 64, 64, 64), 64), "512"),
              (((8, 32, 32, 64), 128), "512"), (((8, 32, 32, 128), 128), "512"),
              (((8, 4, 4, 32), 64), "32"), (((8, 4, 4, 64), 64), "32"),
              (((8, 2, 2, 64), 128), "32"), (((8, 2, 2, 128), 128), "32")]
+K3_SHAPES += [(((n, *s[1:]), c), "http") for (s, c), p in K3_SHAPES if p == "512"
+              for n in HTTP_BUCKETS]
 # K4's images per step, at batch 8 (K = 8 at 8x32x32x128->128: a grid cut
 # by K would have 16 tiles x 2 channel tiles = 32 blocks, fewer than the SMs)
 K4_IMAGES = (2, 4, 8)
@@ -466,7 +494,8 @@ def check_kernels() -> list[dict]:
                 err = check_close(name, got, want, "conv")
                 # K4: the same function, K images per step, equal to K3
                 err4 = {}
-                for k in K4_IMAGES:
+                k4 = [k for k in K4_IMAGES if shape[0] % k == 0]
+                for k in k4:
                     got4 = fk.conv3x3_gn_silu_batched(x, w, gamma, beta, num_groups=GROUPS,
                                                       images=k)
                     torch.cuda.synchronize()
@@ -489,7 +518,7 @@ def check_kernels() -> list[dict]:
                     "library": lambda: F.silu(F.group_norm(F.conv2d(xl, wl, padding=1), GROUPS,
                                                            gl, bl, 1e-5)),
                 }
-                for k in K4_IMAGES:
+                for k in k4:
                     fns[k] = functools.partial(fk.conv3x3_gn_silu_batched, x, wx, gamma, beta,
                                                num_groups=GROUPS, images=k)
                 t = time_many(fns, iters=40, rounds=9)
@@ -512,7 +541,7 @@ def check_kernels() -> list[dict]:
                     print(f"  device ms per call: K3 {dev['k3']:.5f}, " + ", ".join(
                         f"K4 K={k} {dev[k]:.5f} ({dev[k] / dev['k3']:.3f}x K3)"
                         for k in K4_IMAGES) + f", library {dev['library']:.5f}", flush=True)
-            for k in K4_IMAGES:
+            for k in k4:
                 print(f"conv3x3_gn_silu_batched {shape}->{cout} images {k} {str(dtype)[6:]} "
                       f"path {path}: max_abs_err {err4[k]:.3g} {tol}, equal to K3 bit for bit; "
                       f"ms {t[k]:.5f} ({t[k] / ms:.3f}x K3) plain_ms {plain_ms:.5f} library_ms "
@@ -806,17 +835,19 @@ def check_dec1(randn, record, dec1_device: list) -> None:
                 record("dec1_output", path is not None, r["max"], ms, plain_ms, comp_ms, b)
 
 
-def make_frames(n: int, s: int, seed: int) -> np.ndarray:
+def make_frames(n: int, s: int, seed: int, w: int | None = None) -> np.ndarray:
     """Seeded grayscale pages: a smooth background, a bright glare spot,
-    sensor noise; uint8 (n, s, s)."""
+    sensor noise; uint8 (n, s, w), w = s by default."""
     rng = np.random.default_rng(seed)
-    yy, xx = np.mgrid[0:s, 0:s] / s
-    out = np.empty((n, s, s), np.uint8)
+    w = s if w is None else w
+    yy, xx = np.mgrid[0:s, 0:w]
+    yy, xx = yy / s, xx / w
+    out = np.empty((n, s, w), np.uint8)
     for i in range(n):
         fx, fy, cx, cy = rng.uniform(0.5, 3.0), rng.uniform(0.5, 3.0), rng.random(), rng.random()
         page = 0.55 + 0.25 * np.sin(2 * np.pi * (fx * xx + fy * yy))
         glare = np.exp(-((xx - cx) ** 2 + (yy - cy) ** 2) / 0.03)
-        img = page + 0.45 * glare + 0.04 * rng.standard_normal((s, s))
+        img = page + 0.45 * glare + 0.04 * rng.standard_normal((s, w))
         out[i] = (np.clip(img, 0.0, 1.0) * 255).astype(np.uint8)
     return out
 
@@ -1501,6 +1532,381 @@ def train_entry_point() -> None:
                              "artifacts and cuda parameters")
 
 
+# phase 8: HTTP serving. Traffic (my prediction and readings: PERF.md):
+# 512x512 gray PNGs, 1024x768 RGB PNGs resized both ways, 1200x900 gray
+# PNGs through ?mode=tile; 8 keep-alive connections. Each answer against
+# the same frame through the engine or tiler called directly, at the bf16
+# gate of two bf16 paths (phase 4's).
+HTTP_SIZE, HTTP_CONNECTIONS = 512, 8
+HTTP_GRAY, HTTP_RGB, HTTP_TILE = 32, 8, 2
+HTTP_RGB_SIZE, HTTP_TILE_SIZE = (768, 1024), (900, 1200)  # (h, w)
+PHONE_SIZE = (3024, 4032)  # (h, w)
+HTTP_PSNR_GATE_DB = 45.0
+# closed-loop requests by the uploads' PNG filters (the load tool's --filter)
+HTTP_LOAD_REQUESTS, HTTP_OPEN_LOOP_S = {"up": 400, "adaptive": 200}, 10.0
+
+
+def rgb_pages(n: int, h: int, w: int, seed: int) -> np.ndarray:
+    """Seeded colour pages: make_frames' page, tinted per channel; uint8
+    (n, h, w, 3)."""
+    gray = make_frames(n, h, seed, w=w).astype(np.float32)
+    tint = np.array([1.0, 0.93, 0.82], np.float32)
+    return np.clip(gray[..., None] * tint + 8.0, 0, 255).astype(np.uint8)
+
+
+def _percentiles_ms(lat: list) -> tuple:
+    lat = sorted(lat)
+    return tuple(lat[min(len(lat) - 1, int(p * len(lat)))] * 1e3 for p in (0.5, 0.95, 0.99))
+
+
+def _post_all(port: int, bodies: list, connections: int) -> tuple[list, list, float]:
+    """POST every (path, body, headers) over ``connections`` keep-alive
+    connections at once; (statuses and JSON answers in order, latencies,
+    wall seconds)."""
+    import http.client
+
+    answers, lat = [None] * len(bodies), [0.0] * len(bodies)
+
+    def client(k):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+        for i in range(k, len(bodies), connections):
+            path, body, headers = bodies[i]
+            t = time.perf_counter()
+            conn.request("POST", path, body=body, headers=headers)
+            resp = conn.getresponse()
+            data = resp.read()
+            lat[i] = time.perf_counter() - t
+            answers[i] = (resp.status, json.loads(data))
+        conn.close()
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(k,)) for k in range(connections)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    return answers, lat, time.perf_counter() - t0
+
+
+def _get_json(port: int, path: str) -> tuple[int, object]:
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    conn.request("GET", path)
+    resp = conn.getresponse()
+    data = resp.read()
+    conn.close()
+    return resp.status, (json.loads(data) if path != "/metrics" else data.decode())
+
+
+def host_split() -> None:
+    """The host work of one /infer request, step by step, each the median
+    of 9 single-thread runs; then 8 threads decoding at once. Printed with
+    the host's core counts: the request path is host-bound (PERF.md)."""
+    import base64
+
+    from image_enhancement_deglaring_tpu_torch.data.png import encode_png
+    from image_enhancement_deglaring_tpu_torch.serve import imaging
+
+    def med(fn, n=9):
+        out = []
+        for _ in range(n):
+            t = time.perf_counter()
+            fn()
+            out.append((time.perf_counter() - t) * 1e3)
+        return sorted(out)[n // 2]
+
+    print(f"8 host: os.cpu_count() {os.cpu_count()}, usable cores "
+          f"{len(os.sched_getaffinity(0))}, torch threads {torch.get_num_threads()}", flush=True)
+    gray = make_frames(1, HTTP_SIZE, seed=21)[0]
+    rgb = rgb_pages(1, *HTTP_RGB_SIZE, seed=22)[0]
+    for label, img, ft in (("gray, up filter", gray, 2), ("gray, paeth filter", gray, 4),
+                           ("gray, PIL's filters", gray, "adaptive"), ("RGB, up filter", rgb, 2),
+                           ("RGB, PIL's filters", rgb, "adaptive")):
+        png = encode_png(img, filter_type=ft)
+        pix = imaging.decode_image(png).pixels
+        luma = imaging.to_luma(pix, "RGB" if pix.ndim == 3 else "L")
+        small = (luma if luma.shape == (HTTP_SIZE, HTTP_SIZE)
+                 else imaging.resize_lanczos(luma, (HTTP_SIZE, HTTP_SIZE)))
+        size = (luma.shape[1], luma.shape[0])
+        out = encode_png(luma, compress_level=1)
+        parts = {
+            "decode": med(lambda: imaging.decode_image(png)),
+            "luma": med(lambda: imaging.to_luma(pix, "RGB" if pix.ndim == 3 else "L")),
+            "resize down": med(lambda: imaging.resize_lanczos(luma, (HTTP_SIZE, HTTP_SIZE)))
+            if small is not luma else 0.0,
+            "resize up": med(lambda: imaging.resize_lanczos(small, size))
+            if small is not luma else 0.0,
+            "encode (zlib 1)": med(lambda: encode_png(luma, compress_level=1)),
+            "base64": med(lambda: base64.b64encode(out)),
+        }
+        print(f"8 host split, {label} {size[0]}x{size[1]} ({len(png)} B): "
+              + ", ".join(f"{k} {v:.3f} ms" for k, v in parts.items())
+              + f"; sum {sum(parts.values()):.3f} ms", flush=True)
+    for label, ft in (("up", 2), ("PIL's", "adaptive")):
+        png = encode_png(gray, filter_type=ft)
+        walls = []
+
+        def decode_many():
+            for _ in range(10):
+                t = time.perf_counter()
+                imaging.decode_image(png)
+                walls.append((time.perf_counter() - t) * 1e3)
+
+        threads = [threading.Thread(target=decode_many) for _ in range(HTTP_CONNECTIONS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        print(f"8 host: {HTTP_CONNECTIONS} threads decoding the gray PNG ({label} filters) 10 "
+              f"times each: {len(walls) / (time.perf_counter() - t0):.1f} decodes/s, wall per "
+              f"decode p50 {sorted(walls)[len(walls) // 2]:.3f} ms", flush=True)
+
+    # a phone photo's luma (the 64 MB body limit takes one), 512x512 and
+    # back: the banded passes against dense float64 matrices of the same
+    # taps, which every partial sum below 2^31 keeps exact
+    photo = make_frames(1, PHONE_SIZE[0], seed=23, w=PHONE_SIZE[1])[0]
+    small = imaging.resize_lanczos(photo, (HTTP_SIZE, HTTP_SIZE))
+    for label, src, size in (("down", photo, (HTTP_SIZE, HTTP_SIZE)),
+                             ("up", small, PHONE_SIZE[::-1])):
+        if not np.array_equal(imaging.resize_lanczos(src, size), dense_lanczos(src, size)):
+            raise AssertionError(f"LANCZOS {label}: banded and dense passes differ")
+        banded = med(lambda: imaging.resize_lanczos(src, size), n=3)
+        dense = med(lambda: dense_lanczos(src, size), n=3)
+        print(f"8 host: LANCZOS {label} {src.shape[1]}x{src.shape[0]} -> {size[0]}x{size[1]}: "
+              f"banded {banded:.3f} ms, dense float64 {dense:.3f} ms (equal)", flush=True)
+
+
+@functools.lru_cache(maxsize=8)
+def _dense_pass(n_in: int, n_out: int) -> np.ndarray:
+    from image_enhancement_deglaring_tpu_torch.serve import imaging
+
+    index, weight = imaging._pass_taps(n_in, n_out)
+    m = np.zeros((n_in, n_out))
+    np.add.at(m, (index, np.arange(n_out)[:, None]), weight)
+    return m
+
+
+def dense_lanczos(img: np.ndarray, size: tuple[int, int]) -> np.ndarray:
+    """``imaging.resize_lanczos`` as dense float64 (in, out) products of
+    its taps: O(in) multiply-adds per output where the banded pass does
+    O(taps)."""
+    def clip8(acc):
+        return np.clip(np.floor((acc + 2.0 ** 21) / 2.0 ** 22), 0, 255).astype(np.uint8)
+
+    w, h = size
+    if img.shape[1] != w:
+        img = clip8(img.astype(np.float64) @ _dense_pass(img.shape[1], w))
+    if img.shape[0] != h:
+        img = clip8(_dense_pass(img.shape[0], h).T @ img.astype(np.float64))
+    return img
+
+
+def http_serving(card: str) -> dict:
+    """Phase 8: ``create_server`` on the production weights in bf16 (the
+    kernels on) answers real HTTP requests; returns the launches of its
+    counted resize and tile traffic, by path."""
+    import base64
+    import logging
+    import shutil
+    import socket
+    import tempfile
+
+    from image_enhancement_deglaring_tpu_torch.data.png import encode_png
+    from image_enhancement_deglaring_tpu_torch.ops import fused_kernels as fk
+    from image_enhancement_deglaring_tpu_torch.serve import imaging
+    from image_enhancement_deglaring_tpu_torch.serve.http_server import create_server
+    from image_enhancement_deglaring_tpu_torch.tools.load_test_api import multipart_body
+
+    host_split()
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    log_dir = tempfile.mkdtemp(prefix="chip_smoke_api_")
+    t0 = time.perf_counter()
+    server = create_server(ONNX, host="127.0.0.1", port=port, compute_dtype=torch.bfloat16,
+                           image_size=HTTP_SIZE, max_batch_size=8, mode="both", warmup=True,
+                           log_dir=log_dir)
+    t_create = time.perf_counter() - t0
+    # the console gets one line per request and a traceback for the JPEG
+    # probe's expected 500; the file handler under log_dir keeps them all
+    for h in server.logger.handlers:
+        if type(h) is logging.StreamHandler:
+            h.setLevel(logging.CRITICAL)
+    thread = threading.Thread(target=server.run, daemon=True)
+    thread.start()
+    deadline = time.time() + 60
+    while True:
+        try:
+            if _get_json(port, "/ping") == (200, {"message": "pong"}):
+                break
+        except OSError:
+            if time.time() > deadline:
+                raise
+            time.sleep(0.05)
+    engine, tiler = server.engine, server.tiler
+    print(f"8 create_server (bf16, {HTTP_SIZE}, buckets warmed) in {t_create:.1f} s; bound "
+          f"127.0.0.1:{port}", flush=True)
+
+    def upload(img):
+        return multipart_body(encode_png(img))
+
+    gray = make_frames(HTTP_GRAY, HTTP_SIZE, seed=11)
+    rgb = rgb_pages(HTTP_RGB, *HTTP_RGB_SIZE, seed=12)
+    tiles = make_frames(HTTP_TILE, HTTP_TILE_SIZE[0], seed=13, w=HTTP_TILE_SIZE[1])
+    resize_bodies = [("/infer", *upload(im)) for im in list(gray) + list(rgb)]
+    tile_bodies = [("/infer?mode=tile", *upload(im)) for im in tiles]
+
+    def served():
+        return _get_json(port, "/stats")[1]["batches_dispatched"]
+
+    # 8a: resize traffic, counted (every launch on the engine's collector)
+    fk.reset_launch_counts()
+    b0 = served()
+    answers, lat, wall = _post_all(port, resize_bodies, HTTP_CONNECTIONS)
+    torch.cuda.synchronize()
+    counts_resize, forwards = dict(fk.LAUNCHES), served() - b0
+    p50, p95, p99 = _percentiles_ms(lat)
+    print(f"8a {len(resize_bodies)} resize requests ({HTTP_GRAY} gray {HTTP_SIZE}^2, {HTTP_RGB} RGB "
+          f"{HTTP_RGB_SIZE[1]}x{HTTP_RGB_SIZE[0]}) over {HTTP_CONNECTIONS} connections: "
+          f"{len(lat) / wall:.1f} req/s, latency p50/p95/p99 {p50:.2f} / {p95:.2f} / "
+          f"{p99:.2f} ms, in {forwards} device batches; launches {counts_resize} on {card}",
+          flush=True)
+    if counts_resize != {"gn_silu_flat": 14 * forwards, "gn_silu_nhwc": 0,
+                         "conv3x3_gn_silu": 4 * forwards, "conv3x3_gn_silu_batched": 0}:
+        raise AssertionError(f"resize traffic: want 14 K1 and 4 K3 launches per each of "
+                             f"{forwards} forwards, got {counts_resize}")
+
+    # 8b: tile traffic, counted: one request at a time, each on its own
+    # connection (the tile pool's threads launch the kernels)
+    fk.reset_launch_counts()
+    b0 = served()
+    tile_answers = [_post_all(port, [b], 1)[0][0] for b in tile_bodies]
+    torch.cuda.synchronize()
+    counts_tile = dict(fk.LAUNCHES)
+    tile_forwards = sum(-(-tiler.num_tiles(*HTTP_TILE_SIZE) // tiler.max_tiles_per_batch)
+                        for _ in tile_bodies)
+    print(f"8b {HTTP_TILE} tile requests {HTTP_TILE_SIZE[1]}x{HTTP_TILE_SIZE[0]} "
+          f"({tiler.num_tiles(*HTTP_TILE_SIZE)} tiles each, {tile_forwards} forwards): "
+          f"launches {counts_tile}", flush=True)
+    if (counts_tile != {"gn_silu_flat": 14 * tile_forwards, "gn_silu_nhwc": 0,
+                        "conv3x3_gn_silu": 4 * tile_forwards, "conv3x3_gn_silu_batched": 0}
+            or served() != b0):
+        raise AssertionError(f"tile traffic: want 14 K1 and 4 K3 launches per each of "
+                             f"{tile_forwards} tile forwards and no engine batch, got "
+                             f"{counts_tile}")
+
+    # 8c: tile and resize requests at once (the tile pool and the engine's
+    # collector launch on one stream together); answers checked, not counted
+    mixed = tile_bodies + resize_bodies[:16]
+    mixed_answers, _, wall_c = _post_all(port, mixed, HTTP_CONNECTIONS)
+    print(f"8c {len(mixed)} mixed tile + resize requests at once in {wall_c:.2f} s", flush=True)
+
+    # the answers against the engine and the tiler called directly
+    def decoded(answer):
+        status, payload = answer
+        if status != 200:
+            raise AssertionError(f"/infer answered {status}: {payload}")
+        img = imaging.decode_image(base64.b64decode(payload["image"]))
+        if img.mode != "L":
+            raise AssertionError(f"/infer answered a {img.mode} PNG")
+        return img.pixels
+
+    ref_gray = np.concatenate([engine.infer_batch(gray[i:i + 8]) for i in range(0, HTTP_GRAY, 8)])
+    ref_rgb = []
+    for im in rgb:
+        small = imaging.resize_lanczos(imaging.to_luma(im, "RGB"), (HTTP_SIZE, HTTP_SIZE))
+        out = engine.infer_batch(small[None])[0]
+        ref_rgb.append(imaging.resize_lanczos(out, (HTTP_RGB_SIZE[1], HTTP_RGB_SIZE[0])))
+    ref_tile = [tiler(im) for im in tiles]
+    checks = ([(decoded(a), r, "gray") for a, r in zip(answers[:HTTP_GRAY], ref_gray)]
+              + [(decoded(a), r, "rgb") for a, r in zip(answers[HTTP_GRAY:], ref_rgb)]
+              + [(decoded(a), r, "tile") for a, r in zip(tile_answers, ref_tile)]
+              + [(decoded(a), r, "mixed tile") for a, r in zip(mixed_answers[:HTTP_TILE], ref_tile)]
+              + [(decoded(a), r, "mixed gray") for a, r in zip(mixed_answers[HTTP_TILE:], ref_gray)])
+    worst: dict = {}
+    for got, want, kind in checks:
+        if got.shape != want.shape:
+            raise AssertionError(f"{kind} answer {got.shape}, want {want.shape}")
+        d = int(np.abs(got.astype(np.int16) - want.astype(np.int16)).max())
+        p = psnr_u8(got, want)
+        lo = worst.setdefault(kind, [math.inf, 0])
+        worst[kind] = [min(lo[0], p), max(lo[1], d)]
+    print("8 answers vs the engine/tiler called directly: " + "; ".join(
+        f"{k} min PSNR {v[0]:.2f} dB, max |delta| {v[1]}" for k, v in worst.items())
+        + f" (need >= {HTTP_PSNR_GATE_DB} dB)", flush=True)
+    if min(v[0] for v in worst.values()) < HTTP_PSNR_GATE_DB:
+        raise AssertionError(f"an /infer answer is below {HTTP_PSNR_GATE_DB} dB: {worst}")
+
+    # the other endpoints
+    jpeg = b"\xff\xd8\xff\xe0\x00\x10JFIF\x00" + bytes(64)
+    (status, payload), = _post_all(port, [("/infer", *multipart_body(jpeg))], 1)[0]
+    if status != 500 or "JPEG" not in payload.get("detail", ""):
+        raise AssertionError(f"JPEG upload: want the explicit 500, got {status} {payload}")
+    sent = len(resize_bodies) + 16  # every request that reached the engine
+    status, stats = _get_json(port, "/stats")
+    status_m, text = _get_json(port, "/metrics")
+    line = [x for x in text.splitlines() if x.startswith("deglaring_requests_served_total ")]
+    if (status != 200 or status_m != 200 or stats["requests_served"] != sent or not line
+            or float(line[0].split()[-1]) != sent
+            or any(stats[f"host_{k}_ms_p50"] is None for k in ("decode", "engine", "encode"))):
+        raise AssertionError(f"/stats or /metrics disagree with the {sent} requests sent: "
+                             f"{stats}, {line}")
+    print(f"8 /stats and /metrics: requests_served {stats['requests_served']} (sent {sent}); "
+          f"host phase p50 over the requests above: decode "
+          f"{stats['host_decode_ms_p50']:.2f} ms, engine {stats['host_engine_ms_p50']:.2f} ms, "
+          f"encode {stats['host_encode_ms_p50']:.2f} ms", flush=True)
+
+    # 8d: the load tool in its own process: closed loops at concurrency 8 on
+    # "up"-filtered uploads (decoded a run of rows at a time) and on the
+    # filters PIL writes (Paeth rows: the wavefront), then open loop on the
+    # latter at half its closed-loop rate
+    def load_tool(*args):
+        out = subprocess.run([sys.executable, "-m",
+                              "image_enhancement_deglaring_tpu_torch.tools.load_test_api",
+                              "--url", f"http://127.0.0.1:{port}", *args], cwd=REPO,
+                             capture_output=True, text=True, timeout=300)
+        if out.returncode != 0:
+            raise AssertionError(f"load_test_api {args} failed: {out.stderr[-2000:]}")
+        return json.loads(out.stdout.strip().splitlines()[-1])
+
+    def host_phases(label):
+        _, st = _get_json(port, "/stats")
+        print(f"8d host phase p50 (last 1024 requests, {label}): decode "
+              f"{st['host_decode_ms_p50']:.2f} ms, engine {st['host_engine_ms_p50']:.2f} ms, "
+              f"encode {st['host_encode_ms_p50']:.2f} ms; engine latency p50/p95/p99 "
+              f"{st['latency_ms_p50']:.2f} / {st['latency_ms_p95']:.2f} / "
+              f"{st['latency_ms_p99']:.2f} ms, mean batch fill {st['mean_batch_fill']:.2f}",
+              flush=True)
+
+    closed = {}
+    for filters, n in HTTP_LOAD_REQUESTS.items():
+        closed[filters] = load_tool("--size", str(HTTP_SIZE), "--requests", str(n),
+                                    "--concurrency", str(HTTP_CONNECTIONS), "--filter", filters)
+        host_phases(f"through the {filters} closed loop")
+    rate = closed["adaptive"]["req_per_s"] / 2
+    opened = load_tool("--size", str(HTTP_SIZE), "--rate", f"{rate:.3f}", "--duration",
+                       str(HTTP_OPEN_LOOP_S), "--connections", "64", "--filter", "adaptive")
+    for r in (*closed.values(), opened):
+        print(f"8d load_test_api {r['mode']} loop, {r['input']}: {r['req_per_s']:.2f} req/s "
+              f"({r['requests_ok']} ok, {r['errors']} errors, {r['wall_s']:.2f} s), latency "
+              f"p50/p95/p99 {r['latency_ms_p50']:.2f} / {r['latency_ms_p95']:.2f} / "
+              f"{r['latency_ms_p99']:.2f} ms"
+              + (f" at {r['rate_per_s']:.2f}/s offered" if r["mode"] == "open" else
+                 f" at concurrency {r['concurrency']}") + f" on {card}", flush=True)
+    host_phases("through the open loop")
+    if any(r["errors"] for r in (*closed.values(), opened)):
+        raise AssertionError(f"load_test_api saw errors: {closed}, {opened}")
+
+    loop = server._server.get_loop()
+    loop.call_soon_threadsafe(server._server.close)
+    thread.join(timeout=30)
+    engine.stop()
+    shutil.rmtree(log_dir, ignore_errors=True)
+    return {"8a HTTP resize": counts_resize, "8b HTTP tile": counts_tile}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -1528,13 +1934,16 @@ def main() -> int:
         return out
 
     rows = phase("3 kernels vs plain", check_kernels)
-    launches = phase("4 serving slice", serve_slice)
-    launches.update(phase("5 kernel entry points on model activations", model_entry_points))
+    # each path's launches, counted from 0 in its own run
+    paths = {"4 serving slice": phase("4 serving slice", serve_slice),
+             "5 entry points": phase("5 kernel entry points on model activations",
+                                     model_entry_points)}
     phase("6 throughput", throughput, card)
     phase("7a kernels refuse autograd", grad_guard)
     phase("7b f32 train step, card vs CPU", train_f32_parity)
     phase("7c bf16 train step throughput", train_throughput, card)
     phase("7d cli.train entry point", train_entry_point)
+    paths.update(phase("8 HTTP serving on the card", http_serving, card))
 
     src = "image_enhancement_deglaring_tpu_torch/csrc/"
     tpu = "image_enhancement_deglaring_tpu/ops/"
@@ -1550,7 +1959,9 @@ def main() -> int:
         r = rows[name]
         row = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "launches": sum(c.get(name, 0) for c in paths.values()),
+            "launches_by_path": {p: c[name] for p, c in paths.items() if c.get(name)},
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": max(r["by"], key=r["by"].get), "library_ms": r["library_ms"],
         }

@@ -1,0 +1,105 @@
+"""Serving CLI: the HTTP API backed by the batched engine on one GPU
+(replaces `uvicorn api.app:app`, reference: api/app.py:221-222).
+
+    python -m image_enhancement_deglaring_tpu_torch.cli.serve \
+        [--model_path deploy/models/best_model.onnx] [--port 4000] \
+        [--mode resize|tile|both] [--device cuda]
+
+The same flags and defaults as the JAX CLI, plus ``--device`` (default
+``cuda``; without a card that raises unless ``--device cpu`` is given).
+Flags whose parts of the port do not exist yet raise NotImplementedError
+naming their ROADMAP.md Queue 1 item, before the model loads.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description="Serve the de-glaring model over HTTP")
+    p.add_argument("--host", type=str, default="0.0.0.0")
+    p.add_argument("--port", type=int, default=4000)
+    # MODEL_PATH env wires the k8s ConfigMap (deploy/k8s/model-configmap.yaml)
+    p.add_argument("--model_path", type=str,
+                   default=os.environ.get("MODEL_PATH",
+                                          "deploy/models/best_model.onnx"))
+    p.add_argument("--mode", type=str, default="resize",
+                   choices=["resize", "tile", "both"],
+                   help="resize = reference-parity 512^2; tile = full-res "
+                        "tiled; both = resize default with per-request "
+                        "?mode=tile override")
+    p.add_argument("--model", type=str, default="auto",
+                   choices=["auto", "lightweight", "optimized", "enhanced"],
+                   help="model family of the checkpoint; auto detects from "
+                        "the artifact (the port serves lightweight)")
+    p.add_argument("--max_batch_size", type=int, default=8)
+    p.add_argument("--batch_timeout_ms", type=float, default=3.0)
+    p.add_argument("--tile_overlap", type=int, default=32)
+    p.add_argument("--compute_dtype", type=str, default="bfloat16",
+                   choices=["bfloat16", "float32"])
+    p.add_argument("--quantize", type=str, default=None, choices=["int8"],
+                   help="serve with int8 weights (not ported yet)")
+    p.add_argument("--image_size", type=int, default=512,
+                   help="model input resolution (resize mode) / tile size")
+    p.add_argument("--workers", type=int, default=1,
+                   help="HTTP worker processes sharing one engine process "
+                        "over IPC (the port serves with 1)")
+    p.add_argument("--allow_reload", action="store_true",
+                   help="expose POST /reload for zero-downtime weight swaps "
+                        "from a same-family checkpoint on this filesystem")
+    p.add_argument("--data_parallel", type=int, nargs="?", const=0,
+                   default=None, metavar="N",
+                   help="shard request batches across N local devices "
+                        "(not ported yet)")
+    p.add_argument("--log_dir", type=str, default=None)
+    p.add_argument("--profile_port", type=int, default=0,
+                   help="live profiler server port (0 = off; not ported yet)")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device to serve on (cuda, or cpu)")
+    return p.parse_args(argv)
+
+
+def _refuse_unported(args) -> None:
+    """Flags whose parts of the port do not exist yet, with their queue item."""
+    todo = [
+        (args.workers > 1, f"--workers {args.workers}", 5),
+        (args.data_parallel is not None, "--data_parallel", 13),
+        (args.quantize is not None, f"--quantize {args.quantize}", 10),
+        (bool(args.profile_port), "--profile_port", 15),
+        (args.model not in ("auto", "lightweight"), f"--model {args.model}", 9),
+    ]
+    for bad, flag, item in todo:
+        if bad:
+            raise NotImplementedError(f"{flag} is not ported yet (ROADMAP.md Queue 1 item {item})")
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    # usage errors fail BEFORE create_server loads the model and builds
+    # the kernels
+    _refuse_unported(args)
+    import torch
+
+    from ..serve import create_server
+
+    dtype = torch.bfloat16 if args.compute_dtype == "bfloat16" else torch.float32
+    server = create_server(
+        args.model_path, host=args.host, port=args.port, mode=args.mode,
+        model_arch=args.model, max_batch_size=args.max_batch_size,
+        batch_timeout_ms=args.batch_timeout_ms, compute_dtype=dtype,
+        tile_overlap=args.tile_overlap, log_dir=args.log_dir,
+        image_size=args.image_size, allow_reload=args.allow_reload,
+        device=args.device,
+    )
+    try:
+        server.run()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.engine.stop()
+
+
+if __name__ == "__main__":
+    main()

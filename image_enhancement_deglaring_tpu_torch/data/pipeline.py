@@ -119,3 +119,37 @@ def decode_triptych(path: str, image_size: int = 512, *, with_mask: bool = False
         mask = _resize_uint8(mask, image_size).astype(np.float32) / 255.0
         return glared, gt, mask
     return glared, gt
+
+
+def decode_inference_image(path_or_array, image_size: int = 512, *,
+                           use_native: bool | None = None) -> np.ndarray:
+    """Single-image inference preprocessing: gray, resize, [0,1] (H, W)
+    (reference: src/preprocess.py:54-90).
+
+    A path is decoded by the port's image path (``serve.imaging``) into
+    the array ``np.asarray(PIL.Image.open(path))`` gives; a JPEG raises
+    until the port has a JPEG decoder. Array inputs may be uint8 [0,255]
+    or float [0,1]; floats are converted to the uint8 path up front, and a
+    float array holding [0,255] values raises rather than saturating every
+    pixel to white. ``use_native=True`` asks for the JAX package's C++
+    route, which the port does not have, and raises."""
+    if use_native:
+        raise NotImplementedError("the native C++ decode route is not ported; "
+                                  "use_native=None or False takes the numpy path")
+    if isinstance(path_or_array, (str, os.PathLike)):
+        from ..serve.imaging import decode_image
+
+        with open(path_or_array, "rb") as f:
+            img = decode_image(f.read()).pixels
+    else:
+        img = np.asarray(path_or_array)
+        if np.issubdtype(img.dtype, np.floating):
+            mx = float(img.max(initial=0.0))
+            if mx > 1.0 + 1e-6:
+                raise ValueError(
+                    "float image values must be normalized to [0,1] "
+                    f"(max={mx:g}); divide by 255 first or pass uint8")
+            img = np.clip(np.rint(img * 255.0), 0, 255).astype(np.uint8)
+    gray = _to_gray_uint8(img) if img.ndim == 3 else img
+    gray = _resize_uint8(gray, image_size)
+    return gray.astype(np.float32) / 255.0

@@ -4,6 +4,7 @@ optimizer state)."""
 from .onnx_reader import load_onnx
 from .params_import import (
     arch_from_param_keys,
+    detect_model_arch,
     export_jax_opt_state,
     export_jax_params,
     lightweight_unet_params_from_onnx,

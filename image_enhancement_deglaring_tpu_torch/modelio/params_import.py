@@ -12,6 +12,7 @@
   adamw))``) into and out of a torch AdamW, so a run continues across the
   packages, under the leaf mapping written out below.
 - ``load_lightweight_unet`` builds the model from an ``.onnx`` file.
+- ``detect_model_arch`` finds an artifact's model family.
 
 The ONNX export keeps torch parameter names for conv weights and lowers
 GroupNorm to InstanceNormalization followed by Mul(scale)/Add(bias) with
@@ -20,6 +21,8 @@ anonymous ``onnx::Mul_N`` initializers, recovered from the node names.
 
 from __future__ import annotations
 
+import json
+import os
 import re
 
 import numpy as np
@@ -180,6 +183,53 @@ def arch_from_param_keys(keys) -> str:
     if "attention4" in keys:
         return "optimized"
     return "lightweight"
+
+
+def detect_model_arch(path: str) -> str:
+    """Model family of a checkpoint, as the JAX package's
+    ``detect_model_arch`` finds it:
+    - .onnx: op census (the port's reader): BatchNormalization appears only
+      in EnhancedUNet, Resize/GlobalAveragePool only in OptimizedUNet;
+    - .npz: flat ``a/b/c`` key census (``arch_from_param_keys``);
+    - a directory: the port's checkpoint, its ``train_meta.json``
+      ``model_arch``, else its parameters' module names.
+    A ``.pth`` state dict raises until the port reads torch state dicts of
+    the JAX package's layouts (ROADMAP.md Queue 1 item 12)."""
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"model artifact not found: {path}")
+    lower = path.lower()
+    if lower.endswith(".onnx"):
+        ops = {n.op_type for n in load_onnx(path).nodes}
+        if "BatchNormalization" in ops:
+            return "enhanced"
+        if "Resize" in ops or "GlobalAveragePool" in ops:
+            return "optimized"
+        return "lightweight"
+    if lower.endswith((".pth", ".pt")):
+        raise NotImplementedError(
+            ".pth/.pt state dicts are not ported yet (ROADMAP.md Queue 1 item 12)")
+    if lower.endswith(".npz"):
+        with np.load(path) as flat:
+            tops = set()
+            for key in flat.files:
+                parts = key.split("/")
+                # extractions of stateful models nest under params/batch_stats
+                tops.add(parts[1] if parts[0] in ("params", "batch_stats")
+                         and len(parts) > 1 else parts[0])
+            return arch_from_param_keys(tops)
+    if os.path.isdir(path):
+        meta_path = os.path.join(path, "train_meta.json")
+        if os.path.exists(meta_path):
+            with open(meta_path) as f:
+                arch = json.load(f).get("model_arch")
+            if arch:
+                return arch
+        from ..train.checkpoint import restore_params
+
+        return arch_from_param_keys(restore_params(path).keys())
+    raise ValueError(
+        f"cannot autodetect a model family from {path!r} — expected .onnx, "
+        ".pth/.pt, .npz, or a checkpoint directory")
 
 
 def _named_leaves(tree, prefix: str = "") -> dict:

@@ -70,15 +70,17 @@ def _image(mode: str, seed: int = 0, h: int = 23, w: int = 37) -> np.ndarray:
     return a
 
 
-def _filter_types(data: bytes) -> set[int]:
+def _scanlines(data: bytes) -> np.ndarray:
+    """The filtered scanlines of a PNG, filter byte first: (H, 1 + row bytes)."""
     ihdr, idat = None, b""
     for kind, body in png._chunks(data):
         ihdr = struct.unpack(">IIBBBBB", body) if kind == b"IHDR" else ihdr
         idat += body if kind == b"IDAT" else b""
-    w, h, _, colour, *_ = ihdr
-    raw = np.frombuffer(zlib.decompress(idat), np.uint8)
-    return set(raw.reshape(h, -1)[:, 0].tolist())
+    return np.frombuffer(zlib.decompress(idat), np.uint8).reshape(ihdr[1], -1)
 
+
+def _filter_types(data: bytes) -> set[int]:
+    return set(_scanlines(data)[:, 0].tolist())
 
 
 @pytest.fixture(autouse=True)
@@ -147,15 +149,52 @@ def test_pil_reads_what_png_writes(mode, filter_type):
     np.testing.assert_array_equal(decode_png(data), a)
 
 
-@pytest.mark.parametrize("name,match", [
-    ("photo_palette_trns.png", "colour type 3"),
-    ("photo_16bit.png", "bit depth 16"),
-    ("photo_1bit.png", "bit depth 1"),
-    ("photo_interlaced.png", "interlaced"),
+@pytest.mark.parametrize("mode", list(MODES))
+def test_adaptive_filters_equal_pil_scanlines(mode):
+    """``filter_type="adaptive"`` picks each row's filter as PIL's save
+    does: the filtered scanlines equal PIL's byte for byte (noise, ramps,
+    flat runs, and a smooth page that ties filters)."""
+    images = [_image(mode, seed, h=40, w=64) for seed in range(3)]
+    page = np.add.outer(np.arange(50), np.arange(70)).astype(np.uint8) * 2
+    if MODES[mode]:
+        page = np.repeat(page[..., None], MODES[mode][0], axis=-1)
+    images.append(page)
+    seen = set()
+    for a in images:
+        buf = io.BytesIO()
+        Image.fromarray(a, mode).save(buf, "PNG")
+        want = _scanlines(buf.getvalue())
+        data = encode_png(a, filter_type="adaptive")
+        np.testing.assert_array_equal(_scanlines(data), want)
+        np.testing.assert_array_equal(decode_png(data), a)
+        seen |= set(want[:, 0].tolist())
+    assert {1, 2, 4} <= seen
+    with pytest.raises(ValueError, match="adaptive"):
+        encode_png(images[0], filter_type="paeth")
+
+
+def _with_header(data: bytes, depth: int, colour: int, interlace: int) -> bytes:
+    """``data`` with its IHDR's depth, colour type and interlace replaced."""
+    w, h = struct.unpack(">II", data[16:24])
+    body = struct.pack(">IIBBBBB", w, h, depth, colour, 0, 0, interlace)
+    return data[:16] + body + struct.pack(">I", zlib.crc32(b"IHDR" + body)) + data[33:]
+
+
+@pytest.mark.parametrize("name,header,match", [
+    ("photo_palette_trns.png", (8, 5, 0), "colour type 5"),
+    ("photo_16bit.png", (16, 3, 0), "bit depth 16 with colour type 3"),
+    ("photo_1bit.png", (3, 0, 0), "bit depth 3"),
+    ("photo_interlaced.png", (8, 0, 2), "interlace method 2"),
 ])
-def test_png_refuses_what_it_does_not_decode(name, match):
+def test_png_refuses_what_it_does_not_decode(name, header, match):
+    """Headers no PNG may have. The four fixtures themselves decode as PIL
+    reads them (every mode is held in tests/test_torch_port_serve.py)."""
+    path = os.path.join(FIXTURES, name)
+    with open(path, "rb") as f:
+        data = f.read()
     with pytest.raises(ValueError, match=match):
-        read_png(os.path.join(FIXTURES, name))
+        decode_png(_with_header(data, *header))
+    np.testing.assert_array_equal(read_png(path), np.asarray(Image.open(path)))
 
 
 def test_png_refuses_corrupt_files(tmp_path):

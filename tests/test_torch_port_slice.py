@@ -238,8 +238,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
         "for n in names: importlib.import_module(n)\n"
         "assert len(names) >= 10, names\n"
+        "for m in ('serve.http_server', 'serve.tiling', 'serve.metrics', 'serve.openapi',\n"
+        "          'serve.imaging', 'eval.harness', 'cli.serve', 'cli.enhance', 'cli.test_api',\n"
+        "          'tools.load_test_api'):\n"
+        "    assert pkg.__name__ + '.' + m in names, m\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in\n"
-        "             ('jax', 'jaxlib', 'flax', 'image_enhancement_deglaring_tpu'))\n"
+        "             ('jax', 'jaxlib', 'flax', 'PIL', 'cv2', 'matplotlib',\n"
+        "              'image_enhancement_deglaring_tpu'))\n"
         "assert not bad, bad\n"
         "print('clean', len(names))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
