@@ -77,7 +77,26 @@ Phases, each fatal on failure:
    ``tools.load_test_api`` in its own process, closed loops at
    concurrency 8 on "up"-filtered uploads and on uploads under PIL's
    filters, and open loop on the latter at half its rate for 10 s: req/s
-   and latency percentiles, and the server's host phases.
+   and latency percentiles, and the server's host phases;
+9. evaluation: ``evaluate`` on the production weights over 20 seeded
+   synthetic SD1 triptychs at 512x512 in batches of 8 (8, 8 and a ragged
+   4): float32 on the card (K1 and K3 launches exactly 14 and 4 per
+   batch, its visualizations written from the step's prediction and
+   decoded back) against the same loader on the CPU (the composition),
+   bfloat16 with the kernels against bfloat16 without them, the
+   ``cli.evaluate`` entry point in its own process against the in-process
+   run (printed metrics and ``evaluation_results.txt``), and images/s at
+   batch 16 end to end with the loader's share, and from batches held in
+   memory;
+10. multi-worker HTTP: ``create_server`` (bf16, 512, max batch 8) with its
+   engine in this process and ``serve_multiprocess`` with 4 worker
+   processes on one port: no worker maps libcuda or libtorch, 32 answers
+   against the engine called directly (>= 45 dB) with K1 and K3 launches
+   exactly 14 and 4 per batch, ``/stats`` through a worker against the
+   engine's, the load tool's three loops beside phase 8's single process,
+   ``stop()`` with 64 requests in flight (every one answered 200, every
+   worker exits 0, the socket file gone), then ``cli.serve --workers 2``
+   in its own process (``/ping``, one ``/infer``, SIGTERM exits 0).
 
 The line before the last is a JSON object with one entry per kernel, its
 launches also by path (each counted from 0 in its own run); the last
@@ -88,6 +107,7 @@ result.
 
 from __future__ import annotations
 
+import base64
 import functools
 import json
 import math
@@ -241,22 +261,28 @@ def time_ms(fn, iters: int = 20, warmup: int = 3, rounds: int = 5) -> float:
     return time_many({0: fn}, iters, warmup, rounds)[0]
 
 
-def device_ms(fn, reps: int = 10) -> float:
+def device_ms(fn, reps: int = 10, traces: int = 3) -> float:
     """Device time of one call: for each kernel or copy of a torch.profiler
     trace of ``reps`` calls, its mean duration times its runs per call
     (count / reps, rounded: a trace taken after an earlier profiler session
     can miss an event). The host's cost, which sets CUDA-event times below
-    ~0.1 ms, does not enter."""
+    ~0.1 ms, does not enter. A trace with no device event at all (the
+    profiler can drop them) is taken again, up to ``traces`` times; then
+    the device time is not measured and this raises."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     fn()
     torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.device_time_total / e.count * round(e.count / reps)
-               for e in prof.key_averages() if e.count) / 1e3
+    for _ in range(traces):
+        with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.device_time_total / e.count * round(e.count / reps)
+                    for e in prof.key_averages() if e.count) / 1e3
+        if total > 0:
+            return total
+    raise AssertionError(f"torch.profiler recorded no device time in {traces} traces")
 
 
 def bound(nbytes: float, flops: float, dtype) -> tuple[float, str]:
@@ -1862,50 +1888,490 @@ def http_serving(card: str) -> dict:
     # "up"-filtered uploads (decoded a run of rows at a time) and on the
     # filters PIL writes (Paeth rows: the wavefront), then open loop on the
     # latter at half its closed-loop rate
-    def load_tool(*args):
-        out = subprocess.run([sys.executable, "-m",
-                              "image_enhancement_deglaring_tpu_torch.tools.load_test_api",
-                              "--url", f"http://127.0.0.1:{port}", *args], cwd=REPO,
-                             capture_output=True, text=True, timeout=300)
-        if out.returncode != 0:
-            raise AssertionError(f"load_test_api {args} failed: {out.stderr[-2000:]}")
-        return json.loads(out.stdout.strip().splitlines()[-1])
-
-    def host_phases(label):
-        _, st = _get_json(port, "/stats")
-        print(f"8d host phase p50 (last 1024 requests, {label}): decode "
-              f"{st['host_decode_ms_p50']:.2f} ms, engine {st['host_engine_ms_p50']:.2f} ms, "
-              f"encode {st['host_encode_ms_p50']:.2f} ms; engine latency p50/p95/p99 "
-              f"{st['latency_ms_p50']:.2f} / {st['latency_ms_p95']:.2f} / "
-              f"{st['latency_ms_p99']:.2f} ms, mean batch fill {st['mean_batch_fill']:.2f}",
-              flush=True)
-
-    closed = {}
-    for filters, n in HTTP_LOAD_REQUESTS.items():
-        closed[filters] = load_tool("--size", str(HTTP_SIZE), "--requests", str(n),
-                                    "--concurrency", str(HTTP_CONNECTIONS), "--filter", filters)
-        host_phases(f"through the {filters} closed loop")
-    rate = closed["adaptive"]["req_per_s"] / 2
-    opened = load_tool("--size", str(HTTP_SIZE), "--rate", f"{rate:.3f}", "--duration",
-                       str(HTTP_OPEN_LOOP_S), "--connections", "64", "--filter", "adaptive")
-    for r in (*closed.values(), opened):
-        print(f"8d load_test_api {r['mode']} loop, {r['input']}: {r['req_per_s']:.2f} req/s "
-              f"({r['requests_ok']} ok, {r['errors']} errors, {r['wall_s']:.2f} s), latency "
-              f"p50/p95/p99 {r['latency_ms_p50']:.2f} / {r['latency_ms_p95']:.2f} / "
-              f"{r['latency_ms_p99']:.2f} ms"
-              + (f" at {r['rate_per_s']:.2f}/s offered" if r["mode"] == "open" else
-                 f" at concurrency {r['concurrency']}") + f" on {card}", flush=True)
-    host_phases("through the open loop")
-    if any(r["errors"] for r in (*closed.values(), opened)):
-        raise AssertionError(f"load_test_api saw errors: {closed}, {opened}")
+    load = load_loops(port, "8d", card)
 
     loop = server._server.get_loop()
     loop.call_soon_threadsafe(server._server.close)
     thread.join(timeout=30)
     engine.stop()
     shutil.rmtree(log_dir, ignore_errors=True)
-    return {"8a HTTP resize": counts_resize, "8b HTTP tile": counts_tile}
+    return {"8a HTTP resize": counts_resize, "8b HTTP tile": counts_tile}, load
 
+
+def load_tool(port: int, *args) -> dict:
+    """One run of ``tools.load_test_api`` in its own process; its JSON line."""
+    out = subprocess.run([sys.executable, "-m",
+                          "image_enhancement_deglaring_tpu_torch.tools.load_test_api",
+                          "--url", f"http://127.0.0.1:{port}", *args], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    if out.returncode != 0:
+        raise AssertionError(f"load_test_api {args} failed: {out.stderr[-2000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def load_loops(port: int, label: str, card: str) -> dict:
+    """The load tool against the server on ``port``: closed loops at
+    concurrency 8 on "up" rows and on PIL's rows, then open loop on PIL's
+    rows at half that closed loop's rate for 10 s; each printed with the
+    server's host phases. Returns the three results by loop."""
+    def host_phases(what):
+        # with worker processes, /stats holds the host phases of the one
+        # worker that answered it
+        _, st = _get_json(port, "/stats")
+        print(f"{label} host phase p50 (the answering process's last 1024 requests, "
+              f"{what}): decode "
+              f"{st['host_decode_ms_p50']:.2f} ms, engine {st['host_engine_ms_p50']:.2f} ms, "
+              f"encode {st['host_encode_ms_p50']:.2f} ms; engine latency p50/p95/p99 "
+              f"{st['latency_ms_p50']:.2f} / {st['latency_ms_p95']:.2f} / "
+              f"{st['latency_ms_p99']:.2f} ms, mean batch fill {st['mean_batch_fill']:.2f}",
+              flush=True)
+
+    results = {}
+    for filters, n in HTTP_LOAD_REQUESTS.items():
+        results[f"closed {filters}"] = load_tool(
+            port, "--size", str(HTTP_SIZE), "--requests", str(n), "--concurrency",
+            str(HTTP_CONNECTIONS), "--filter", filters)
+        host_phases(f"through the {filters} closed loop")
+    rate = results["closed adaptive"]["req_per_s"] / 2
+    results["open adaptive"] = load_tool(
+        port, "--size", str(HTTP_SIZE), "--rate", f"{rate:.3f}", "--duration",
+        str(HTTP_OPEN_LOOP_S), "--connections", "64", "--filter", "adaptive")
+    for r in results.values():
+        print(f"{label} load_test_api {r['mode']} loop, {r['input']}: {r['req_per_s']:.2f} req/s "
+              f"({r['requests_ok']} ok, {r['errors']} errors, {r['wall_s']:.2f} s), latency "
+              f"p50/p95/p99 {r['latency_ms_p50']:.2f} / {r['latency_ms_p95']:.2f} / "
+              f"{r['latency_ms_p99']:.2f} ms"
+              + (f" at {r['rate_per_s']:.2f}/s offered" if r["mode"] == "open" else
+                 f" at concurrency {r['concurrency']}") + f" on {card}", flush=True)
+    host_phases("through the open loop")
+    if any(r["errors"] for r in results.values()):
+        raise AssertionError(f"load_test_api saw errors: {results}")
+    return results
+
+
+
+# phase 9: evaluation on the card (my prediction and readings: PERF.md).
+# A seeded synthetic SD1 val set at 512^2: 20 triptychs, batch 8 gives 8, 8
+# and a ragged 4; the rate at batch 16 on 48 more.
+EVAL_SIZE, EVAL_N, EVAL_BATCH = 512, 20, 8
+EVAL_RATE_N, EVAL_RATE_BATCH, EVAL_WORKERS = 48, 16, 4
+# f32 evaluation, card (K1/K3 f32) against the CPU (the composition)
+EVAL_F32_GATE = {"l1_loss": 1e-5, "psnr": 0.01, "ssim": 1e-4}
+# bf16 with the kernels against bf16 with both knobs off, on the card
+EVAL_BF16_PSNR_GATE_DB = 0.05
+EVAL_PER_FORWARD = {"gn_silu_flat": 14, "gn_silu_nhwc": 0, "conv3x3_gn_silu": 4,
+                    "conv3x3_gn_silu_batched": 0}
+
+
+class TimedLoader:
+    """Wraps a loader; ``wait_s`` adds up the time spent waiting for its
+    batches."""
+
+    def __init__(self, loader):
+        self.loader, self.wait_s = loader, 0.0
+
+    def __iter__(self):
+        it = iter(self.loader)
+        while True:
+            t = time.perf_counter()
+            try:
+                batch = next(it)
+            except StopIteration:
+                return
+            finally:
+                self.wait_s += time.perf_counter() - t
+            yield batch
+
+
+def per_forward(n: int) -> dict:
+    return {k: v * n for k, v in EVAL_PER_FORWARD.items()}
+
+
+def fmt_metrics(m: dict) -> str:
+    return f"L1 {m['l1_loss']:.7f}, PSNR {m['psnr']:.5f} dB, SSIM {m['ssim']:.6f}"
+
+
+def evaluation(card: str) -> dict:
+    """Phase 9: ``evaluate`` on the production weights at 512^2 on the card,
+    f32 (the CLI's default) against the same loader on the CPU, bf16 with
+    the kernels against bf16 without them, the ``cli.evaluate`` subprocess
+    against the in-process run, the visualizations decoded back, and the
+    images/s at batch 16. Returns the launches of the counted runs."""
+    import shutil
+    import tempfile
+
+    from image_enhancement_deglaring_tpu_torch.data import generate_synthetic_sd1, make_eval_loader
+    from image_enhancement_deglaring_tpu_torch.data.png import decode_png_image, png_text
+    from image_enhancement_deglaring_tpu_torch.eval import (
+        evaluate,
+        load_model_for_eval,
+        write_results_file,
+    )
+    from image_enhancement_deglaring_tpu_torch.modelio import load_lightweight_unet
+    from image_enhancement_deglaring_tpu_torch.ops import fused_kernels as fk
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_eval_")
+    try:
+        t0 = time.perf_counter()
+        generate_synthetic_sd1(os.path.join(tmp, "data"), n_train=0, n_val=EVAL_N,
+                               size=EVAL_SIZE, seed=21)
+        generate_synthetic_sd1(os.path.join(tmp, "rate"), n_train=0, n_val=EVAL_RATE_N,
+                               size=EVAL_SIZE, seed=22)
+        val = os.path.join(tmp, "data", "val")
+        # evaluation_results.txt goes beside the model: a copy in tmp
+        onnx = os.path.join(tmp, "best_model.onnx")
+        shutil.copyfile(ONNX, onnx)
+        print(f"9 synthetic SD1 val sets written ({EVAL_N} + {EVAL_RATE_N} triptychs at "
+              f"{EVAL_SIZE}^2) in {time.perf_counter() - t0:.1f} s", flush=True)
+
+        def loader(path=val, batch=EVAL_BATCH):
+            return make_eval_loader(path, batch_size=batch, image_size=EVAL_SIZE,
+                                    num_workers=EVAL_WORKERS)
+
+        batches = -(-EVAL_N // EVAL_BATCH)
+        vis_dir = os.path.join(tmp, "vis")
+        held = list(loader())
+        model32, _ = load_model_for_eval(onnx, compute_dtype=torch.float32)
+        evaluate(model32, held[:1], progress=False)  # cuDNN plans, warm
+        # 9a: f32 on the card, counted, with the visualizations (they reuse
+        # the step's prediction, so the counts show no second forward)
+        fk.reset_launch_counts()
+        t0 = time.perf_counter()
+        m32 = evaluate(model32, loader(), batch_size=EVAL_BATCH, progress=False,
+                       save_visualizations=True, visualizations_dir=vis_dir)
+        torch.cuda.synchronize()
+        wall32 = time.perf_counter() - t0
+        counts32 = dict(fk.LAUNCHES)
+        print(f"9a evaluate f32 on cuda, {m32['num_samples']} images in {batches} batches "
+              f"({wall32:.2f} s): {fmt_metrics(m32)}; launches {counts32}", flush=True)
+        if m32["num_samples"] != EVAL_N or counts32 != per_forward(batches):
+            raise AssertionError(f"f32 evaluation: want {EVAL_N} samples and "
+                                 f"{per_forward(batches)} launches, got {m32['num_samples']}, "
+                                 f"{counts32}")
+        # 9b: the visualizations decoded back against the model's output
+        names = sorted(os.listdir(vis_dir))
+        want_names = sorted(f"sample_{k}.png" for k in range(10))
+        if names != want_names:
+            raise AssertionError(f"visualizations: want {want_names}, got {names}")
+        # the prediction again, in the batches evaluate ran
+        x, y = (np.concatenate([b[i] for b in held[:2]])[:10] for i in (0, 1))
+        with torch.inference_mode():
+            pred = torch.cat([model32(torch.from_numpy(b[0]).cuda())
+                              for b in held[:2]]).cpu().numpy()[:10]
+
+        def u8(a):
+            return (np.clip(a, 0, 1) * 255).astype(np.uint8)
+
+        worst = 0
+        for k in range(10):
+            data = open(os.path.join(vis_dir, f"sample_{k}.png"), "rb").read()
+            img = decode_png_image(data).pixels
+            s = EVAL_SIZE
+            if (img.shape != (s, 3 * s) or not np.array_equal(img[:, :s], u8(x[k, ..., 0]))
+                    or not np.array_equal(img[:, 2 * s:], u8(y[k, ..., 0]))
+                    or list(png_text(data)) != ["Input", "Prediction", "Ground Truth"]):
+                raise AssertionError(f"sample_{k}.png: panels or titles wrong")
+            worst = max(worst, int(np.abs(img[:, s:2 * s].astype(np.int16)
+                                          - u8(pred[k, ..., 0]).astype(np.int16)).max()))
+        print(f"9b 10 visualizations decoded back: input and target panels equal, prediction "
+              f"panel within {worst} uint8 levels of the model's output", flush=True)
+        if worst > 1:
+            raise AssertionError(f"a prediction panel is {worst} levels off the model's output")
+
+        # 9c: the same loader through the same model on the CPU (composition)
+        t0 = time.perf_counter()
+        m_cpu = evaluate(model32, loader(), device="cpu", batch_size=EVAL_BATCH, progress=False)
+        delta = {k: abs(m32[k] - m_cpu[k]) for k in EVAL_F32_GATE}
+        print(f"9c evaluate f32 on the CPU ({time.perf_counter() - t0:.1f} s): "
+              f"{fmt_metrics(m_cpu)}; |delta| card vs CPU: L1 {delta['l1_loss']:.3e}, PSNR "
+              f"{delta['psnr']:.3e} dB, SSIM {delta['ssim']:.3e} (gates {EVAL_F32_GATE})",
+              flush=True)
+        if any(delta[k] > EVAL_F32_GATE[k] for k in EVAL_F32_GATE):
+            raise AssertionError(f"f32 evaluation, card vs CPU: {delta} beyond {EVAL_F32_GATE}")
+        del model32
+
+        # 9d: bf16 with the kernels against bf16 with both knobs off
+        model16, _ = load_model_for_eval(onnx, compute_dtype=torch.bfloat16)
+        plain16 = load_lightweight_unet(onnx, dtype=torch.bfloat16, device="cuda")
+        evaluate(model16, held[:1], progress=False)
+        fk.reset_launch_counts()
+        m16 = evaluate(model16, loader(), batch_size=EVAL_BATCH, progress=False)
+        torch.cuda.synchronize()
+        counts16 = dict(fk.LAUNCHES)
+        m16c = evaluate(plain16, loader(), batch_size=EVAL_BATCH, progress=False)
+        d16 = abs(m16["psnr"] - m16c["psnr"])
+        print(f"9d evaluate bf16 with the kernels: {fmt_metrics(m16)}; launches {counts16}",
+              flush=True)
+        print(f"9d evaluate bf16, both knobs off: {fmt_metrics(m16c)}; |delta PSNR| "
+              f"{d16:.5f} dB (gate {EVAL_BF16_PSNR_GATE_DB})", flush=True)
+        if d16 > EVAL_BF16_PSNR_GATE_DB or counts16 != per_forward(batches):
+            raise AssertionError(f"bf16 evaluation: |delta PSNR| {d16} or launches {counts16}")
+
+        # 9e: the CLI in its own process on the copy: its printed lines and
+        # results file equal the in-process f32 run at the printed precision
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-m",
+                              "image_enhancement_deglaring_tpu_torch.cli.evaluate",
+                              "--data_dir", val, "--model_path", onnx, "--batch_size",
+                              str(EVAL_BATCH)], cwd=REPO, capture_output=True, text=True,
+                             timeout=600)
+        if out.returncode != 0:
+            raise AssertionError(f"cli.evaluate failed: {out.stderr[-2000:]}")
+        printed = [ln for ln in out.stdout.splitlines()
+                   if ln.split(":")[0] in ("L1 Loss", "PSNR", "SSIM")]
+        want = [f"L1 Loss: {m32['l1_loss']:.4f}", f"PSNR: {m32['psnr']:.2f} dB",
+                f"SSIM: {m32['ssim']:.4f}"]
+        written = open(os.path.join(tmp, "evaluation_results.txt")).read()
+        ref_dir = os.path.join(tmp, "ref")
+        os.makedirs(ref_dir)
+        ref = open(write_results_file(m32, onnx, val, "onnx", out_dir=ref_dir)).read()
+        print(f"9e cli.evaluate on cuda in its own process ({time.perf_counter() - t0:.1f} s): "
+              f"{printed}; evaluation_results.txt equal to the in-process run's: "
+              f"{written == ref}", flush=True)
+        if printed != want or written != ref:
+            raise AssertionError(f"cli.evaluate printed {printed} (want {want}) or wrote "
+                                 f"{written!r} (want {ref!r})")
+
+        # 9f: images/s at batch 16, f32 and bf16, with the loader's share of
+        # the wall time; beside it the same batches from memory
+        rate_dir = os.path.join(tmp, "rate", "val")
+        in_memory = list(loader(rate_dir, EVAL_RATE_BATCH))
+        model32, _ = load_model_for_eval(onnx, compute_dtype=torch.float32)
+        for dtype, model in ((torch.float32, model32), (torch.bfloat16, model16)):
+            evaluate(model, in_memory, progress=False)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            evaluate(model, in_memory, progress=False)
+            torch.cuda.synchronize()
+            mem_rate = EVAL_RATE_N / (time.perf_counter() - t0)
+            timed = TimedLoader(loader(rate_dir, EVAL_RATE_BATCH))
+            t0 = time.perf_counter()
+            evaluate(model, timed, batch_size=EVAL_RATE_BATCH, progress=False)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            print(f"9f evaluate {str(dtype).removeprefix('torch.')} at batch {EVAL_RATE_BATCH}, "
+                  f"{EVAL_RATE_N} images at {EVAL_SIZE}^2: {EVAL_RATE_N / wall:.2f} img/s "
+                  f"end to end (loader {EVAL_WORKERS} threads, {timed.wait_s / wall:.3f} of "
+                  f"the wall time waiting for it); {mem_rate:.2f} img/s from batches held in "
+                  f"memory; on {card}", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"9a evaluate f32": counts32, "9d evaluate bf16": counts16}
+
+
+# phase 10: the HTTP server with worker processes (serve.ipc) in front of
+# this process's engine
+HTTP_WORKERS, HTTP_DRAIN_REQUESTS = 4, 64
+
+
+def _maps(pid: int) -> str:
+    with open(f"/proc/{pid}/maps") as f:
+        return f.read()
+
+
+def http_workers(card: str, single_load: dict | None) -> dict:
+    """Phase 10: ``create_server`` (bf16, 512, max batch 8) with its engine
+    in this process and ``serve_multiprocess`` with 4 HTTP worker processes
+    on one port: no worker holds CUDA or torch, 32 answers against the
+    engine called directly, launches per batch, /stats through a worker,
+    the load tool beside phase 8's single process, ``stop()`` with requests
+    in flight, then ``cli.serve --workers 2`` in its own process. Returns
+    the launches of the counted traffic."""
+    import shutil
+    import signal
+    import socket
+    import tempfile
+
+    from image_enhancement_deglaring_tpu_torch.data.png import decode_png, encode_png
+    from image_enhancement_deglaring_tpu_torch.ops import fused_kernels as fk
+    from image_enhancement_deglaring_tpu_torch.serve.http_server import create_server
+    from image_enhancement_deglaring_tpu_torch.serve.ipc import serve_multiprocess
+    from image_enhancement_deglaring_tpu_torch.tools.load_test_api import multipart_body
+
+    def free_port():
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            return sock.getsockname()[1]
+
+    def wait_ping(port, timeout):
+        deadline = time.time() + timeout
+        while True:
+            try:
+                if _get_json(port, "/ping") == (200, {"message": "pong"}):
+                    return
+            except OSError:
+                pass
+            if time.time() > deadline:
+                raise AssertionError(f"nothing answered /ping on port {port} in {timeout} s")
+            time.sleep(0.1)
+
+    port = free_port()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_workers_")
+    t0 = time.perf_counter()
+    server = create_server(ONNX, host="127.0.0.1", port=port, compute_dtype=torch.bfloat16,
+                           image_size=HTTP_SIZE, max_batch_size=8, mode="resize", warmup=True,
+                           log_dir=tmp)
+    engine = server.engine
+    engine.start()
+    # spawn runs the parent's main script again in every worker unless it
+    # has no __file__: this script imports torch, which a worker must not
+    main = sys.modules["__main__"]
+    main_file = main.__dict__.pop("__file__", None)
+    try:
+        mps = serve_multiprocess(engine, host="127.0.0.1", port=port, image_size=HTTP_SIZE,
+                                 n_workers=HTTP_WORKERS, log_dir=tmp,
+                                 address=os.path.join(tmp, "engine.sock"),
+                                 model_info=server.model_info)
+    finally:
+        if main_file is not None:
+            main.__file__ = main_file
+    wait_ping(port, 120)
+    pids = [p.pid for p in mps.procs]
+    # /ping answers once one worker is up: wait for every worker's log line
+    logs = [os.path.join(tmp, f"api.worker{pid}.log") for pid in pids]
+    deadline = time.time() + 120
+    while sum(os.path.exists(p) and "serving on" in open(p).read() for p in logs) < len(pids):
+        if time.time() > deadline or not all(p.is_alive() for p in mps.procs):
+            raise AssertionError(f"a worker never came up: exit codes "
+                                 f"{[p.exitcode for p in mps.procs]}")
+        time.sleep(0.1)
+    print(f"10 create_server + {HTTP_WORKERS} workers up in {time.perf_counter() - t0:.1f} s "
+          f"on 127.0.0.1:{port}", flush=True)
+
+    # 10a: the card's compute processes: one, this one, no worker. In a
+    # container nvidia-smi reports pids of another pid namespace (one app,
+    # pid 1), so each process's own maps say which holds libcuda and
+    # libtorch
+    smi = subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.split()
+    on_card = {int(x) for x in smi if x.isdigit()}
+    mapped = {pid: [lib for lib in ("libcuda.so", "libtorch") if lib in _maps(pid)]
+              for pid in pids}
+    mine = [lib for lib in ("libcuda.so", "libtorch") if lib in _maps(os.getpid())]
+    print(f"10a nvidia-smi compute apps {sorted(on_card)}; this process {os.getpid()} "
+          f"(maps {mine}); workers {pids}, their maps of libcuda/libtorch {mapped}", flush=True)
+    if (len(on_card) != 1 or on_card & set(pids) or any(mapped.values())
+            or mine != ["libcuda.so", "libtorch"]):
+        raise AssertionError("a worker holds CUDA or torch, or the card lists other than one "
+                             "compute process")
+
+    # 10b: 32 gray pages over 8 connections, counted
+    gray = make_frames(HTTP_GRAY, HTTP_SIZE, seed=31)
+    bodies = [("/infer", *multipart_body(encode_png(im))) for im in gray]
+    fk.reset_launch_counts()
+    b0 = engine.stats()["batches_dispatched"]
+    answers, lat, wall = _post_all(port, bodies, HTTP_CONNECTIONS)
+    torch.cuda.synchronize()
+    counts = dict(fk.LAUNCHES)
+    forwards = engine.stats()["batches_dispatched"] - b0
+    ref = np.concatenate([engine.infer_batch(gray[i:i + 8]) for i in range(0, HTTP_GRAY, 8)])
+    worst = math.inf
+    for (status, payload), want in zip(answers, ref):
+        if status != 200:
+            raise AssertionError(f"/infer through a worker answered {status}: {payload}")
+        got = decode_png(base64.b64decode(payload["image"]))
+        worst = min(worst, psnr_u8(got, want) if got.shape == want.shape else -math.inf)
+    p50, p95, p99 = _percentiles_ms(lat)
+    print(f"10b {HTTP_GRAY} gray {HTTP_SIZE}^2 requests over {HTTP_CONNECTIONS} connections "
+          f"through {HTTP_WORKERS} workers: {len(lat) / wall:.1f} req/s, p50/p95/p99 "
+          f"{p50:.2f} / {p95:.2f} / {p99:.2f} ms, {forwards} device batches; min PSNR against "
+          f"the engine called directly {worst:.2f} dB (need >= {HTTP_PSNR_GATE_DB}); "
+          f"launches {counts}", flush=True)
+    if worst < HTTP_PSNR_GATE_DB or counts != per_forward(forwards):
+        raise AssertionError(f"workers: min PSNR {worst}, launches {counts} for {forwards} "
+                             "batches")
+
+    # 10c: /stats through a worker is the engine's
+    status, st = _get_json(port, "/stats")
+    served = engine.stats()["requests_served"]
+    print(f"10c /stats through a worker: requests_served {st['requests_served']}, the "
+          f"engine's {served}; model {st.get('model_path')}", flush=True)
+    if status != 200 or st["requests_served"] != served or st.get("model_path") != ONNX:
+        raise AssertionError(f"/stats through a worker {st} against the engine's {served}")
+
+    # 10d: the load tool, beside phase 8's single process
+    load = load_loops(port, "10d", card)
+    for name, r in load.items():
+        single = single_load.get(name) if single_load else None
+        print(f"10d {name} loop: {HTTP_WORKERS} workers {r['req_per_s']:.2f} req/s, p50/p95/p99 "
+              f"{r['latency_ms_p50']:.2f} / {r['latency_ms_p95']:.2f} / "
+              f"{r['latency_ms_p99']:.2f} ms; 1 process (phase 8d) "
+              + (f"{single['req_per_s']:.2f} req/s, {single['latency_ms_p50']:.2f} / "
+                 f"{single['latency_ms_p95']:.2f} / {single['latency_ms_p99']:.2f} ms"
+                 if single else "not run") + f"; on {card}", flush=True)
+
+    # 10e: stop() with requests in flight: uploads under PIL's row filters
+    # (~50 ms of decode each under a worker's GIL), each on its own
+    # connection, all sent before stop(); every one answered 200
+    pil_rows = [("/infer", *multipart_body(encode_png(im, filter_type="adaptive")))
+                for im in make_frames(HTTP_DRAIN_REQUESTS, HTTP_SIZE, seed=32)]
+    results, done_at = [None] * len(pil_rows), [0.0] * len(pil_rows)
+    sent = threading.Barrier(len(pil_rows) + 1, timeout=60)
+
+    def one(i):
+        import http.client
+
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        try:
+            path, body, headers = pil_rows[i]
+            conn.request("POST", path, body=body, headers=headers)
+            sent.wait()
+            resp = conn.getresponse()
+            results[i] = resp.status
+            resp.read()
+        except Exception as e:  # a dropped connection
+            results[i] = repr(e)
+        finally:
+            done_at[i] = time.perf_counter()
+            conn.close()
+
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(len(pil_rows))]
+    for t in threads:
+        t.start()
+    sent.wait()
+    time.sleep(0.25)  # the bodies read; the decodes still running
+    t_stop = time.perf_counter()
+    mps.stop()
+    t_stopped = time.perf_counter()
+    for t in threads:
+        t.join(120)
+    codes = [p.exitcode for p in mps.procs]
+    after = sum(d > t_stop for d in done_at)
+    print(f"10e stop() with {len(pil_rows)} requests sent: answers {sorted(set(map(str, results)))}"
+          f", {after} finished after stop() began; stop() took {t_stopped - t_stop:.2f} s; "
+          f"worker exit codes {codes}; socket file left: "
+          f"{os.path.exists(os.path.join(tmp, 'engine.sock'))}", flush=True)
+    if (any(r != 200 for r in results) or codes != [0] * HTTP_WORKERS or after == 0
+            or os.path.exists(os.path.join(tmp, "engine.sock"))):
+        raise AssertionError(f"drain: answers {results}, exit codes {codes}, {after} in flight")
+    engine.stop()
+
+    # 10f: cli.serve --workers 2 in its own process
+    port2 = free_port()
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m",
+                             "image_enhancement_deglaring_tpu_torch.cli.serve",
+                             "--model_path", ONNX, "--host", "127.0.0.1", "--port", str(port2),
+                             "--workers", "2", "--log_dir", tmp], cwd=REPO,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        wait_ping(port2, 300)
+        t_up = time.perf_counter() - t0
+        (status, payload), = _post_all(port2, bodies[:1], 1)[0]
+        got = decode_png(base64.b64decode(payload["image"])) if status == 200 else None
+        proc.send_signal(signal.SIGTERM)
+        out = proc.communicate(timeout=600)[0]
+    finally:
+        proc.kill()
+        proc.wait(60)
+    p = psnr_u8(got, ref[0]) if got is not None else -math.inf
+    print(f"10f cli.serve --workers 2: /ping after {t_up:.1f} s, /infer {status} at {p:.2f} dB "
+          f"against the engine; SIGTERM exit code {proc.returncode}", flush=True)
+    if status != 200 or p < HTTP_PSNR_GATE_DB or proc.returncode != 0:
+        raise AssertionError(f"cli.serve --workers 2: {status}, {p} dB, exit "
+                             f"{proc.returncode}: {out[-2000:]}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    return {"10b HTTP 4 workers": counts}
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1943,7 +2409,10 @@ def main() -> int:
     phase("7b f32 train step, card vs CPU", train_f32_parity)
     phase("7c bf16 train step throughput", train_throughput, card)
     phase("7d cli.train entry point", train_entry_point)
-    paths.update(phase("8 HTTP serving on the card", http_serving, card))
+    counts, single_load = phase("8 HTTP serving on the card", http_serving, card)
+    paths.update(counts)
+    paths.update(phase("9 evaluation on the card", evaluation, card))
+    paths.update(phase("10 HTTP worker processes", http_workers, card, single_load))
 
     src = "image_enhancement_deglaring_tpu_torch/csrc/"
     tpu = "image_enhancement_deglaring_tpu/ops/"

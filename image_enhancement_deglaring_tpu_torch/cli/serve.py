@@ -7,8 +7,10 @@
 
 The same flags and defaults as the JAX CLI, plus ``--device`` (default
 ``cuda``; without a card that raises unless ``--device cpu`` is given).
-Flags whose parts of the port do not exist yet raise NotImplementedError
-naming their ROADMAP.md Queue 1 item, before the model loads.
+``--workers N`` runs N HTTP worker processes (``serve.ipc``) in front of
+the engine that this process owns. Usage errors, and flags whose parts of
+the port do not exist yet (NotImplementedError naming their ROADMAP.md
+Queue 1 item), fail before the model loads.
 """
 
 from __future__ import annotations
@@ -44,8 +46,9 @@ def parse_args(argv=None):
     p.add_argument("--image_size", type=int, default=512,
                    help="model input resolution (resize mode) / tile size")
     p.add_argument("--workers", type=int, default=1,
-                   help="HTTP worker processes sharing one engine process "
-                        "over IPC (the port serves with 1)")
+                   help="HTTP worker processes (SO_REUSEPORT) sharing one "
+                        "engine process over IPC; scales the host-bound "
+                        "PNG work across CPUs (resize mode only)")
     p.add_argument("--allow_reload", action="store_true",
                    help="expose POST /reload for zero-downtime weight swaps "
                         "from a same-family checkpoint on this filesystem")
@@ -64,7 +67,6 @@ def parse_args(argv=None):
 def _refuse_unported(args) -> None:
     """Flags whose parts of the port do not exist yet, with their queue item."""
     todo = [
-        (args.workers > 1, f"--workers {args.workers}", 5),
         (args.data_parallel is not None, "--data_parallel", 13),
         (args.quantize is not None, f"--quantize {args.quantize}", 10),
         (bool(args.profile_port), "--profile_port", 15),
@@ -79,6 +81,13 @@ def main(argv=None):
     args = parse_args(argv)
     # usage errors fail BEFORE create_server loads the model and builds
     # the kernels
+    if args.workers > 1:
+        if args.mode != "resize":
+            raise SystemExit("--workers > 1 requires --mode resize")
+        if args.allow_reload:
+            # worker processes proxy frames only; /reload would 404 on them
+            raise SystemExit("--allow_reload requires --workers 1 "
+                             "(the engine process owns the weights)")
     _refuse_unported(args)
     import torch
 
@@ -93,6 +102,31 @@ def main(argv=None):
         image_size=args.image_size, allow_reload=args.allow_reload,
         device=args.device,
     )
+    if args.workers > 1:
+        import signal
+        import threading
+
+        from ..serve.ipc import serve_multiprocess
+
+        server.engine.start()
+        mps = serve_multiprocess(
+            server.engine, host=args.host, port=args.port,
+            image_size=args.image_size, n_workers=args.workers,
+            log_dir=args.log_dir, model_info=server.model_info,
+        )
+        # SIGTERM on the parent (k8s pod shutdown) forwards to the workers,
+        # each of which drains its in-flight requests before exiting
+        stop_evt = threading.Event()
+        signal.signal(signal.SIGTERM, lambda *_: stop_evt.set())
+        try:
+            while not stop_evt.is_set() and mps.any_alive():
+                stop_evt.wait(1.0)
+        except KeyboardInterrupt:
+            pass
+        finally:
+            mps.stop()
+            server.engine.stop()
+        return
     try:
         server.run()
     except KeyboardInterrupt:

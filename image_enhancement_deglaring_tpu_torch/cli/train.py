@@ -83,7 +83,7 @@ def _refuse_unported(args) -> None:
         (args.n_devices > 1, f"--n_devices {args.n_devices}", 13),
         (args.resident_data, "--resident_data", 8),
         (args.augment == "device", "--augment device", 8),
-        (args.augment == "heavy", "--augment heavy", 6),
+        (args.augment == "heavy", "--augment heavy", 17),
         (args.remat, "--remat", 11),
         (args.profile_dir is not None, "--profile_dir", 15),
     ]
@@ -98,6 +98,9 @@ def main(argv=None):
         raise SystemExit("--use_amp requests mixed precision (bf16) but --compute_dtype "
                          "float32 forbids it — drop one")
     _refuse_unported(args)
+    from ..utils.envfile import load_dotenv
+
+    load_dotenv()  # reference parity: .env at train start (optimized_train.py:18-19)
     import numpy as np
     import torch
 

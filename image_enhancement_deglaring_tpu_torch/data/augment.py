@@ -44,4 +44,4 @@ def heavy_augment(image: np.ndarray, target: np.ndarray, rng: np.random.Generato
     CLAHE, which the port does not have yet."""
     raise NotImplementedError(
         "heavy augmentation (cv2 affine warps, blur, CLAHE) is not ported yet "
-        "(ROADMAP Queue 1 item 6); use augment='optimized' or 'none'")
+        "(ROADMAP Queue 1 item 17); use augment='optimized' or 'none'")

@@ -263,3 +263,16 @@ def make_dataloaders(data_dir: str, *, batch_size: int = 32, val_split: float = 
     val_loader = _Loader(val_ds, batch_size, shuffle=False, drop_last=False, seed=seed,
                          num_workers=max(2, num_workers // 2) if num_workers > 0 else 0)
     return train_loader, val_loader
+
+
+def make_eval_loader(data_dir: str, *, batch_size: int = 16, image_size: int = 512,
+                     seed: int | None = 42, num_workers: int = 8, cache_images: bool = False):
+    """Evaluation-only loader over EVERY image under ``data_dir``: no split,
+    no shuffle, no augmentation, the ragged final batch kept."""
+    paths = list_image_paths(data_dir)
+    if not paths:
+        raise ValueError(f"No images found in {data_dir}")
+    ds = GlareRemovalDataset(paths, image_size=image_size, seed=seed, augment="none",
+                             cache_images=cache_images, num_workers=num_workers)
+    return _Loader(ds, batch_size, shuffle=False, drop_last=False, seed=seed,
+                   num_workers=num_workers)

@@ -246,12 +246,13 @@ def _adaptive(img: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
 
 
 def encode_png(img: np.ndarray, *, filter_type: int | str = 2,
-               compress_level: int = -1) -> bytes:
+               compress_level: int = -1, text: dict[str, str] | None = None) -> bytes:
     """uint8 (H, W) or (H, W, C), C in 1..4, -> PNG bytes, every scanline
     under ``filter_type`` (0 none, 1 sub, 2 up, 3 average, 4 paeth), or
     under the filter PIL's encoder picks for it (``"adaptive"``: the
     scanlines equal those of ``Image.save(..., "PNG")``), the data
-    deflated at zlib ``compress_level`` (-1: zlib's default, 6)."""
+    deflated at zlib ``compress_level`` (-1: zlib's default, 6). ``text``
+    adds one Latin-1 ``tEXt`` chunk per keyword (``png_text`` reads them)."""
     img = np.asarray(img)
     if img.dtype != np.uint8:
         raise ValueError(f"PNG encode takes uint8, got {img.dtype}")
@@ -273,8 +274,37 @@ def encode_png(img: np.ndarray, *, filter_type: int | str = 2,
                 + struct.pack(">I", zlib.crc32(kind + body)))
 
     ihdr = struct.pack(">IIBBBBB", w, h, 8, _COLOUR_TYPE[ch], 0, 0, 0)
-    return (_SIGNATURE + chunk(b"IHDR", ihdr)
+    texts = b"".join(chunk(b"tEXt", k.encode("latin-1") + b"\0" + v.encode("latin-1"))
+                     for k, v in (text or {}).items())
+    return (_SIGNATURE + chunk(b"IHDR", ihdr) + texts
             + chunk(b"IDAT", zlib.compress(raw.tobytes(), compress_level)) + chunk(b"IEND", b""))
+
+
+def png_text(data: bytes) -> dict[str, str]:
+    """The ``tEXt`` chunks of PNG bytes, keyword -> text."""
+    out = {}
+    for kind, body in _chunks(data):
+        if kind == b"tEXt":
+            key, _, value = body.partition(b"\0")
+            out[key.decode("latin-1")] = value.decode("latin-1")
+    return out
+
+
+def png_header(data: bytes) -> tuple[int, int, str]:
+    """(width, height, PIL's mode) from the chunks before the image data,
+    as ``PIL.Image.open`` reads them without decoding the pixels: a bad
+    signature, a chunk that runs past the end or fails its CRC before the
+    first IDAT raises, a truncated image data stream does not."""
+    for kind, body in _chunks(data):
+        if kind == b"IHDR":
+            w, h, depth, colour = struct.unpack(">IIBB", body[:10])
+            mode = _MODES.get((depth, colour))
+            if mode is None:
+                raise ValueError(f"PNG bit depth {depth} with colour type {colour} is invalid")
+            return w, h, mode
+        if kind == b"IDAT":
+            break
+    raise ValueError("PNG file has no IHDR chunk")
 
 
 def write_png(path, img: np.ndarray) -> None:

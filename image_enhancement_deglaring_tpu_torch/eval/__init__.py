@@ -1,6 +1,6 @@
-"""Evaluation: model loading for eval and serving (``evaluate`` and
-``write_results_file`` come with ROADMAP.md Queue 1 item 6)."""
+"""Evaluation: L1 / PSNR / SSIM over a validation set, the results file,
+and model loading for evaluation and serving."""
 
-from .harness import load_model_for_eval
+from .harness import evaluate, load_model_for_eval, write_results_file
 
-__all__ = ["load_model_for_eval"]
+__all__ = ["evaluate", "load_model_for_eval", "write_results_file"]

@@ -1,11 +1,22 @@
-"""Model loading for evaluation and serving.
+"""Evaluation harness: L1 / PSNR / SSIM over a validation set, on the
+device; model loading for evaluation and serving.
 
-Counterpart of ``image_enhancement_deglaring_tpu.eval.harness``'s
-``load_model_for_eval`` and ``_infer_width``. The harness itself
-(``evaluate``, ``write_results_file``) is ROADMAP.md Queue 1 item 6.
+Counterpart of ``image_enhancement_deglaring_tpu.eval.harness``, with the
+reference's evaluation semantics exactly (reference: evaluate.py:207-324):
+
+- L1 on the raw model output (NOT clipped), in float32   (evaluate.py:251)
+- PSNR/SSIM on the clipped output, per image             (evaluate.py:259-272)
+- avg L1  = sum of per-batch means / num_batches         (evaluate.py:309)
+- avg PSNR/SSIM = sum over images / num_samples          (evaluate.py:310-311)
+
+Eager PyTorch needs no static batch shape, so a ragged final batch runs at
+its own size instead of padded and masked; each batch's scalars stay on the
+device until one stacked fetch at the end.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -17,7 +28,117 @@ from ..modelio.params_import import (
     load_jax_params,
 )
 from ..models.unet import LightweightUNet
+from ..ops.image import to_uint8
+from ..ops.metrics import batched_psnr_ssim
 from ..utils.pytree import load_npz_tree
+
+
+def _eval_step(model, x, y):
+    """(batch-mean L1, per-image PSNR, per-image SSIM, raw prediction in
+    float32), so that visualizations don't pay a second forward pass."""
+    out = model(x).float()
+    y = y.float()
+    l1 = torch.mean(torch.abs(out - y))
+    psnrs, ssims = batched_psnr_ssim(out, y, clip_pred=True)
+    return l1, psnrs, ssims, out
+
+
+def evaluate(model, val_loader, *, device="cuda", save_visualizations: bool = False,
+             visualizations_dir: str | None = None, max_vis_samples: int = 10,
+             batch_size: int | None = None, progress: bool = True, mesh=None) -> dict:
+    """Evaluate ``model`` (NHWC float in, NHWC float out) over ``val_loader``
+    (yields NHWC float32 numpy batches) on ``device``, under
+    ``inference_mode``; a float32 model runs its convs without TF32
+    (``highest_precision()``, inside its forward).
+
+    Returns {'l1_loss', 'psnr', 'ssim', 'num_samples'} with the reference's
+    averaging. ``device`` defaults to CUDA and raises without a card unless
+    "cpu" is passed; the model is moved there. ``batch_size`` is the
+    largest batch the loader may yield. ``mesh=`` (multi-GPU evaluation)
+    raises until the port has it (ROADMAP.md Queue 1 item 13)."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "multi-device evaluation (mesh=) is not ported yet (ROADMAP.md Queue 1 item 13)")
+    dev = resolve_device(device)
+    model = model.to(dev).eval()
+    num_batches = 0
+    total_samples = 0
+    vis_count = 0
+    # per-batch reduced scalars stay ON DEVICE; one stacked fetch at the
+    # end (a float() per batch would wait for every step in turn)
+    batch_stats: list = []
+
+    iterator = val_loader
+    if progress:
+        try:
+            from tqdm import tqdm
+
+            iterator = tqdm(val_loader, desc="Evaluating")
+        except ImportError:
+            pass
+
+    for x, y in iterator:
+        b = x.shape[0]
+        if batch_size is not None and b > batch_size:
+            # the JAX harness compiles one batch shape; the port keeps its
+            # contract so that a caller's batch_size means the same
+            raise ValueError(
+                f"loader batch ({b}) exceeds the compiled eval batch "
+                f"({batch_size}); pass batch_size >= the loader's batch size")
+        xt = torch.from_numpy(np.ascontiguousarray(x)).to(dev, non_blocking=True)
+        yt = torch.from_numpy(np.ascontiguousarray(y)).to(dev, non_blocking=True)
+        with torch.inference_mode():
+            l1, psnrs, ssims, out = _eval_step(model, xt, yt)
+            batch_stats.append(torch.stack([l1, psnrs.sum(), ssims.sum()]))
+        num_batches += 1
+        total_samples += b
+
+        if save_visualizations and visualizations_dir and vis_count < max_vis_samples:
+            vis_count = _save_visualizations(
+                x, y, out.cpu().numpy(), b, visualizations_dir, vis_count,
+                max_vis_samples, psnrs.cpu().numpy(), ssims.cpu().numpy(),
+            )
+
+    if batch_stats:
+        totals = torch.stack(batch_stats).cpu().numpy().astype(np.float64).sum(axis=0)
+    else:
+        totals = np.zeros(3)
+    return {
+        "l1_loss": float(totals[0]) / max(num_batches, 1),
+        "psnr": float(totals[1]) / max(total_samples, 1),
+        "ssim": float(totals[2]) / max(total_samples, 1),
+        "num_samples": total_samples,
+    }
+
+
+def _save_visualizations(x, y, pred, b, out_dir, vis_count, max_vis, psnrs, ssims) -> int:
+    """``sample_{k}.png``: three 8-bit gray panels side by side, input |
+    prediction clipped to [0, 1] | target (``ops.image.to_uint8``: clipped,
+    truncated), each panel's title (the JAX
+    harness's matplotlib titles, reference: evaluate.py:275-305) in a
+    ``tEXt`` chunk of its name. The machine with the card has no
+    matplotlib; the port's PNG codec writes the figure. ``pred`` is the
+    prediction ``_eval_step`` already computed: no second forward pass."""
+    from ..data.png import encode_png
+
+    os.makedirs(out_dir, exist_ok=True)
+    for i in range(b):
+        if vis_count >= max_vis:
+            break
+        panels = [
+            (x[i, ..., 0], "Input", "Input"),
+            (np.clip(pred[i, ..., 0], 0, 1), "Prediction",
+             f"Prediction\nPSNR: {psnrs[i]:.2f}, SSIM: {ssims[i]:.4f}"),
+            (y[i, ..., 0], "Ground Truth", "Ground Truth"),
+        ]
+        strip = np.concatenate([to_uint8(torch.from_numpy(np.ascontiguousarray(img))).numpy()
+                                for img, _, _ in panels], axis=1)
+        text = {key: f"{title}\nRange: [{img.min():.2f}, {img.max():.2f}]"
+                for img, key, title in panels}
+        with open(os.path.join(out_dir, f"sample_{vis_count}.png"), "wb") as f:
+            f.write(encode_png(strip, text=text))
+        vis_count += 1
+    return vis_count
 
 
 def load_model_for_eval(model_path: str, *, model_arch: str = "auto",
@@ -79,3 +200,18 @@ def _infer_width(params) -> int:
             "enc1/conv1 kernel (every supported family carries one). "
             "Is this a {params, batch_stats} bundle or a non-model "
             f"artifact? ({type(e).__name__}: {e})") from e
+
+
+def write_results_file(metrics: dict, model_path: str, data_dir: str,
+                       model_type: str, out_dir: str | None = None) -> str:
+    """evaluation_results.txt in the reference's format (reference: evaluate.py:372-379)."""
+    out_dir = out_dir if out_dir is not None else (os.path.dirname(model_path) or ".")
+    path = os.path.join(out_dir, "evaluation_results.txt")
+    with open(path, "w") as f:
+        f.write(f"Evaluation results on {data_dir}:\n")
+        f.write(f"Model type: {model_type.upper()}\n")
+        f.write(f"Model path: {model_path}\n")
+        f.write(f"L1 Loss: {metrics['l1_loss']:.4f}\n")
+        f.write(f"PSNR: {metrics['psnr']:.2f} dB\n")
+        f.write(f"SSIM: {metrics['ssim']:.4f}\n")
+    return path

@@ -983,7 +983,6 @@ def test_cli_parsers_defaults_equal_jax():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--workers", "2"], "item 5"),
     (["--data_parallel"], "item 13"),
     (["--quantize", "int8"], "item 10"),
     (["--profile_port", "6006"], "item 15"),

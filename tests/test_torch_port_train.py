@@ -496,7 +496,7 @@ def test_early_stop_after_patience(tmp_path, capsys):
 
 @pytest.mark.parametrize("flags,item", [
     (["--model", "enhanced"], 9), (["--distributed"], 13), (["--n_devices", "2"], 13),
-    (["--resident_data"], 8), (["--augment", "device"], 8), (["--augment", "heavy"], 6),
+    (["--resident_data"], 8), (["--augment", "device"], 8), (["--augment", "heavy"], 17),
     (["--remat"], 11), (["--profile_dir", "p"], 15),
 ])
 def test_cli_refuses_unported_flags_naming_their_queue_item(flags, item):
