@@ -96,7 +96,29 @@ Phases, each fatal on failure:
    engine's, the load tool's three loops beside phase 8's single process,
    ``stop()`` with 64 requests in flight (every one answered 200, every
    worker exits 0, the socket file gone), then ``cli.serve --workers 2``
-   in its own process (``/ping``, one ``/infer``, SIGTERM exits 0).
+   in its own process (``/ping``, one ``/infer``, SIGTERM exits 0);
+11. resident training and the other model families (no kernel runs here):
+   (a) ``cache_on_device`` over 1,536 seeded synthetic pairs at 512x512
+   (SD1's full scale), bf16 inputs and f32 targets: bytes resident, their
+   share of the card, the time to cache; (b) ``make_train_epoch(shuffle=
+   False)`` against the per-step loop over the same 4 batches of 8, the
+   production LightweightUNet in f32 under deterministic algorithms
+   (losses rtol 1e-6, parameters rtol 1e-4 / atol 1e-5); (c) one shuffled
+   resident epoch at SD1 scale, bf16, batch 32, device augmentation, in 8
+   segments: img/s, peak memory, the busy share of one profiled segment,
+   beside phase 7c's step rate and 7d's loader rate from this run; (d)
+   ``train_model(resident=True, device_augment=True)`` preempted at a
+   segment boundary and resumed, against an uninterrupted run: parameters
+   and generator state equal bit for bit under deterministic algorithms;
+   (e) ``device_augment_batch`` over 4,096 samples: its rates within 5
+   binomial sigma, its draws within their bounds; (f) OptimizedUNet and
+   EnhancedUNet at their published width from a seeded init carried over
+   by ``load_jax_params``: the f32 forward card vs CPU, 5 bf16 train steps
+   at batch 8 (EnhancedUNet's stateful), ``load_model_for_eval`` on the
+   saved checkpoint and ``cli.evaluate --model`` in its own process; (g)
+   ``cli.train --resident_data --augment device`` over 128 PNG triptychs:
+   the production model at batch 32 for 2 epochs, EnhancedUNet at batch 8
+   for 1; no kernel launches over the phase.
 
 The line before the last is a JSON object with one entry per kernel, its
 launches also by path (each counted from 0 in its own run); the last
@@ -108,6 +130,7 @@ result.
 from __future__ import annotations
 
 import base64
+import contextlib
 import functools
 import json
 import math
@@ -1423,10 +1446,10 @@ def train_step_split(fn, label: str) -> None:
         print(f"    {us / 1e3:.3f} ms  [{kind}] {name[:90]}")
 
 
-def train_throughput(card: str) -> None:
+def train_throughput(card: str) -> float:
     """Phase 7c: the bf16 train step at full width (production weights,
     batch 32, 512x512, a seeded synthetic batch), 3 warm-up then 20 timed
-    steps."""
+    steps. Returns its img/s."""
     from image_enhancement_deglaring_tpu_torch.modelio import load_lightweight_unet
     from image_enhancement_deglaring_tpu_torch.train import (
         TrainState,
@@ -1477,14 +1500,15 @@ def train_throughput(card: str) -> None:
         raise AssertionError(f"train losses not finite and falling over the timed steps: {lv}")
     train_step_split(lambda: step(state, x, y), f"bf16 train step b{TRAIN_BATCH} "
                      f"{TRAIN_SIZE}x{TRAIN_SIZE}")
+    return TRAIN_BATCH / med * 1e3
 
 
-def train_entry_point() -> None:
+def train_entry_point() -> tuple[float, float]:
     """Phase 7d: ``cli.train.main`` on the card over a synthetic dataset
     from the port's generator (16 train + 4 val at 512), 2 epochs of batch
     8; its artifacts, where its parameters lived, and model_weights.npz
     loaded into a fresh model; then the train loader's host rate alone,
-    decoding every pass and with ``cache_images``."""
+    decoding every pass and with ``cache_images``, which it returns."""
     import contextlib
     import io
     import tempfile
@@ -1556,6 +1580,7 @@ def train_entry_point() -> None:
             or "Training completed" not in text):
         raise AssertionError("cli.train on the card did not give its per-epoch lines, "
                              "artifacts and cuda parameters")
+    return rates[False], rates[True]
 
 
 # phase 8: HTTP serving. Traffic (my prediction and readings: PERF.md):
@@ -2373,10 +2398,536 @@ def http_workers(card: str, single_load: dict | None) -> dict:
     shutil.rmtree(tmp, ignore_errors=True)
     return {"10b HTTP 4 workers": counts}
 
+# phase 11: resident training, device augmentation, the other families.
+# SD1 at full scale is 1,536 pairs at 512^2; as cached (bf16 inputs, f32
+# targets) 2.25 GiB. The resident epoch is checked against the per-step
+# loop and the preemption resume against an uninterrupted run under
+# deterministic algorithms (cuDNN's default backward is not bit-stable),
+# at the JAX resident tests' tolerances: losses rtol 1e-6, parameters rtol
+# 1e-4 / atol 1e-5 (tests/test_resident.py); the families' f32 forwards
+# card vs CPU within FAMILY_F32_GATE (written before the first run).
+SD1_PAIRS, SD1_BASES = 1536, 32
+RES_BATCH, RES_PARITY_BATCH, RES_PARITY_STEPS = 32, 8, 4
+FAMILY_F32_GATE, FAMILY_BATCH, FAMILY_STEPS = 1e-4, 8, 5
+AUG_SAMPLES = 4096
+CLI_PNGS = 128
+
+
+class SyntheticPairs:
+    """An indexable set of ``n`` seeded (glared, clean) pairs at ``size``:
+    pair i is one of ``bases`` seeded SD1 triptychs from the port's
+    generator, rolled by i // bases pixels along both axes (distinct pairs
+    at a cost of a copy each). ``augment`` is "none", as the cache needs."""
+
+    augment = "none"
+
+    def __init__(self, n: int, size: int, seed: int, bases: int = SD1_BASES):
+        self.n = n
+        self.x, self.y = triptych_batch(min(bases, n), size, seed)
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i):
+        j, shift = i % len(self.x), i // len(self.x)
+        return (np.roll(self.x[j], (shift, shift), axis=(0, 1)),
+                np.roll(self.y[j], (shift, shift), axis=(0, 1)))
+
+
+class ArrayBatches:
+    """A loader over fixed NHWC arrays: the train loop's contract
+    (batch_size, num_samples, len, iteration in order); the resident cache
+    drains it once."""
+
+    def __init__(self, x: np.ndarray, y: np.ndarray, batch_size: int):
+        self.x, self.y, self.batch_size = x, y, batch_size
+
+    def __len__(self):
+        return len(self.x) // self.batch_size
+
+    @property
+    def num_samples(self):
+        return len(self.x)
+
+    def __iter__(self):
+        for i in range(len(self)):
+            s = slice(i * self.batch_size, (i + 1) * self.batch_size)
+            yield self.x[s], self.y[s]
+
+
+class GuardAfter:
+    """A preemption guard whose flag turns on at its ``after + 1``-th read."""
+
+    preempt_checkpoint = None
+
+    def __init__(self, after: int):
+        self.reads, self.after, self._set = 0, after, False
+
+    @property
+    def triggered(self):
+        self.reads += 1
+        return self._set or self.reads > self.after
+
+    @triggered.setter
+    def triggered(self, value):
+        self._set = value
+
+
+def busy_share(fn) -> tuple[float, float]:
+    """(device busy ms, busy share of the host wall) of one synchronous
+    ``fn()`` under torch.profiler."""
+    dev, wall = device_events(fn, 1)
+    busy, end = 0.0, -math.inf
+    for s, t in sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in dev):
+        if t > end:
+            busy += t - max(s, end)
+            end = t
+    return busy / 1e3, busy / 1e6 / wall
+
+
+def resident_cache_and_rate(card: str, step_rate: float, loader_rates: tuple) -> None:
+    """Phases 11a-c: the SD1-scale cache, the resident epoch against the
+    per-step loop in f32, and one shuffled bf16 epoch with device
+    augmentation at batch 32."""
+    from image_enhancement_deglaring_tpu_torch.modelio import export_jax_params, load_lightweight_unet
+    from image_enhancement_deglaring_tpu_torch.ops.augment_device import device_augment_batch
+    from image_enhancement_deglaring_tpu_torch.ops.conv_blocks import highest_precision
+    from image_enhancement_deglaring_tpu_torch.train import TrainState, make_optimizer, make_train_step
+    from image_enhancement_deglaring_tpu_torch.train.resident import (
+        cache_on_device,
+        make_train_epoch,
+        make_train_epoch_segmented,
+    )
+    from image_enhancement_deglaring_tpu_torch.utils import flatten_tree
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    pairs = SyntheticPairs(SD1_PAIRS, TRAIN_SIZE, seed=11)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    data = cache_on_device(pairs, dtype=torch.bfloat16, num_workers=8, device="cuda")
+    torch.cuda.synchronize()
+    t_cache = time.perf_counter() - t0
+    held = torch.cuda.memory_allocated() - before
+    print(f"11a cache_on_device: {data.n} pairs at {TRAIN_SIZE}^2 in {t_cache:.1f} s "
+          f"(decode by 8 threads + copy); x {data.x.dtype} {tuple(data.x.shape)}, y "
+          f"{data.y.dtype}; {held / 2**30:.3f} GiB resident, {held / total:.2%} of the "
+          f"card's {total / 2**30:.1f} GiB", flush=True)
+    want = SD1_PAIRS * TRAIN_SIZE ** 2 * 6
+    if (data.n != SD1_PAIRS or data.x.dtype != torch.bfloat16 or data.y.dtype != torch.float32
+            or not want <= held <= want + (2 << 20)):
+        raise AssertionError("the SD1-scale cache has the wrong size or dtypes")
+
+    # 11b: f32, 4 steps of batch 8, resident epoch vs the per-step loop
+    n = RES_PARITY_BATCH * RES_PARITY_STEPS
+    small = cache_on_device(SyntheticPairs(n, TRAIN_SIZE, seed=12), num_workers=8,
+                            device="cuda")
+    runs = {}
+    with deterministic(), highest_precision():
+        for how in ("per-step", "resident"):
+            model = load_lightweight_unet(ONNX, dtype=torch.float32, device="cuda")
+            state = TrainState(model=model, optimizer=make_optimizer(model, TRAIN_LR, TRAIN_WD),
+                               generator=torch.Generator(device="cuda").manual_seed(0))
+            if how == "per-step":
+                step, losses = make_train_step(), []
+                for i in range(RES_PARITY_STEPS):
+                    rows = slice(i * RES_PARITY_BATCH, (i + 1) * RES_PARITY_BATCH)
+                    state, loss = step(state, small.x[rows].clone(), small.y[rows].clone())
+                    losses.append(loss)
+                losses = torch.stack(losses)
+            else:
+                state, losses = make_train_epoch(batch_size=RES_PARITY_BATCH, shuffle=False)(
+                    state, small.x, small.y, 0, 0, small.n)
+            runs[how] = (losses.cpu().numpy(), flatten_tree(export_jax_params(model)))
+    (lr_, pr), (ls, ps) = runs["resident"], runs["per-step"]
+    loss_rel = float(np.max(np.abs(lr_ - ls) / np.abs(ls)))
+    param_excess = max(float(np.max(np.abs(pr[k] - ps[k]) - (1e-5 + 1e-4 * np.abs(ps[k]))))
+                       for k in ps)
+    print(f"11b resident epoch vs per-step loop (production LightweightUNet f32, "
+          f"{RES_PARITY_STEPS} steps of {RES_PARITY_BATCH} at {TRAIN_SIZE}^2, deterministic "
+          f"algorithms): losses {' '.join(f'{v:.7f}' for v in lr_)}, max rel diff "
+          f"{loss_rel:.3g} (gate 1e-6); params max |diff| "
+          f"{max(float(np.abs(pr[k] - ps[k]).max()) for k in ps):.3g} (gate rtol 1e-4, "
+          f"atol 1e-5)", flush=True)
+    if not loss_rel <= 1e-6 or param_excess > 0:
+        raise AssertionError("the resident epoch differs from the per-step loop")
+    del small
+
+    # 11c: one shuffled epoch at SD1 scale, bf16, batch 32, augmentation
+    model = load_lightweight_unet(ONNX, dtype=torch.bfloat16, device="cuda")
+    state = TrainState(model=model, optimizer=make_optimizer(model, TRAIN_LR, TRAIN_WD),
+                       generator=torch.Generator(device="cuda").manual_seed(0))
+    plan, segment = make_train_epoch_segmented(batch_size=RES_BATCH,
+                                               augment_fn=device_augment_batch)
+    warm = plan(0, 99, data.n, "cuda")[:2]  # cuDNN plans for this shape, outside the clock
+    state, _ = segment(state, data.x, data.y, warm)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    idx = plan(0, 0, data.n, "cuda")
+    steps = int(idx.shape[0])
+    seg_len = -(-steps // 8)
+    parts = []
+    for s in range(0, steps, seg_len):  # as train_model runs it: 8 segments, one fetch each
+        state, losses = segment(state, data.x, data.y, idx[s:s + seg_len])
+        parts.append(losses.double().cpu())
+    t_epoch = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    lv = torch.cat(parts).numpy()
+    rate = steps * RES_BATCH / t_epoch
+    prof_idx = plan(0, 1, data.n, "cuda")[:seg_len]
+    busy_ms, share = busy_share(lambda: segment(state, data.x, data.y, prof_idx)[1].cpu())
+    aug_x, aug_y = data.x[:RES_BATCH], data.y[:RES_BATCH]
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    aug_ms = time_ms(lambda: device_augment_batch(gen, aug_x, aug_y))
+    print(f"11c resident epoch at SD1 scale (production LightweightUNet bf16, batch {RES_BATCH}, "
+          f"device augmentation, 8 segments): {steps} steps in {t_epoch:.3f} s, {rate:.1f} img/s; "
+          f"peak memory allocated {peak / 2**30:.3f} GiB (cache included); one profiled segment "
+          f"of {seg_len} steps: device busy {busy_ms:.1f} ms, busy share {share:.3f}; "
+          f"device_augment_batch alone {aug_ms:.3f} ms per batch of {RES_BATCH}; beside it "
+          f"from this run: phase 7c's step {step_rate:.1f} img/s, phase 7d's streaming loader "
+          f"{loader_rates[0]:.1f} img/s ({loader_rates[1]:.1f} with cache_images); losses "
+          f"first/last {lv[0]:.5f}/{lv[-1]:.5f} on {card}", flush=True)
+    if not np.isfinite(lv).all() or steps != SD1_PAIRS // RES_BATCH:
+        raise AssertionError("the resident epoch's losses are not finite or its plan is short")
+    del data
+
+
+@contextlib.contextmanager
+def deterministic():
+    """Deterministic algorithms (cuDNN's and cuBLAS's) for the block; main()
+    sets CUBLAS_WORKSPACE_CONFIG before the first cuBLAS call, which reads
+    it once per process."""
+    bench = torch.backends.cudnn.benchmark
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.benchmark = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.benchmark = bench
+
+
+def resident_resume() -> None:
+    """Phase 11d: train_model(resident=True, device_augment=True) on the
+    card, preempted at the first segment boundary and resumed, against an
+    uninterrupted run: 2 epochs of 32 cached pairs at 512^2, batch 8, the
+    production model in bf16, under deterministic algorithms."""
+    import tempfile
+
+    from image_enhancement_deglaring_tpu_torch.modelio import (
+        export_jax_params,
+        lightweight_unet_params_from_onnx,
+    )
+    from image_enhancement_deglaring_tpu_torch.models import LightweightUNet
+    from image_enhancement_deglaring_tpu_torch.train import train_model
+    from image_enhancement_deglaring_tpu_torch.train.checkpoint import restore_checkpoint
+    from image_enhancement_deglaring_tpu_torch.utils import flatten_tree
+
+    pairs = SyntheticPairs(40, TRAIN_SIZE, seed=13)
+    x = np.stack([pairs[i][0] for i in range(40)])
+    y = np.stack([pairs[i][1] for i in range(40)])
+    init = lightweight_unet_params_from_onnx(ONNX)
+
+    def run(out, **kw):
+        return train_model(LightweightUNet(dtype=torch.bfloat16), ArrayBatches(x[:32], y[:32], 8),
+                           ArrayBatches(x[32:], y[32:], 8), epochs=2, lr=TRAIN_LR,
+                           weight_decay=TRAIN_WD, output_dir=out, progress=False,
+                           resident=True, device_augment=True, resident_segments=2,
+                           validation_metrics_every=100, init_params=init, device="cuda", **kw)
+
+    with tempfile.TemporaryDirectory() as tmp, deterministic():
+        t0 = time.perf_counter()
+        _, _, full_val, full = run(os.path.join(tmp, "full"), handle_preemption=False)
+        guard = GuardAfter(0)
+        run(os.path.join(tmp, "cut"), preempt_guard=guard)
+        meta = restore_checkpoint(guard.preempt_checkpoint)[1]
+        _, _, val, resumed = run(os.path.join(tmp, "cut"), handle_preemption=False,
+                                 resume_from=guard.preempt_checkpoint)
+        secs = time.perf_counter() - t0
+    want = flatten_tree(export_jax_params(full.model))
+    got = flatten_tree(export_jax_params(resumed.model))
+    same = want.keys() == got.keys() and all(np.array_equal(want[k], got[k]) for k in want)
+    gen_same = torch.equal(full.generator.get_state(), resumed.generator.get_state())
+    print(f"11d resident preempt at epoch {meta['epoch']} step {meta['epoch_step']} (resident "
+          f"{meta['resident']}), resumed: {resumed.step} steps like the uninterrupted run's "
+          f"{full.step}; final parameters equal bit for bit {same}; generator state equal "
+          f"{gen_same}; val loss {val:.6f} vs {full_val:.6f} ({secs:.1f} s, deterministic "
+          f"algorithms)",
+          flush=True)
+    if not (same and gen_same and meta["mid_epoch"] and meta["epoch_step"] == 2
+            and resumed.step == full.step == 8 and val == full_val):
+        raise AssertionError("the resumed resident run differs from the uninterrupted one")
+
+
+def augment_statistics(x0, xa, ya, y0) -> dict:
+    """Per-sample draws recovered from one augmented batch of distinct,
+    asymmetric ramps in [0.35, 0.65] (no clipping at any draw): the flip
+    from the target, then the image op from the un-flipped image: none, an
+    exact affine map (brightness/contrast: alpha, beta) or additive noise
+    (its variance, on the 0-255 scale)."""
+    flips = np.array([not np.array_equal(a, b) for a, b in zip(ya, y0)])
+    un = np.where(flips[:, None, None, None], xa[:, :, ::-1], xa)
+    out = {"flip": flips, "pixel": [], "bc": [], "alpha": [], "beta": [], "var": []}
+    for a, b in zip(x0.reshape(len(x0), -1), un.reshape(len(un), -1)):
+        if np.array_equal(a, b):
+            out["pixel"].append(False)
+            continue
+        out["pixel"].append(True)
+        alpha, beta = np.polyfit(a.astype(np.float64), b.astype(np.float64), 1)
+        affine = np.abs(alpha * a + beta - b).max() < 1e-5
+        out["bc"].append(affine)
+        if affine:
+            out["alpha"].append(alpha)
+            out["beta"].append(beta)
+        else:
+            out["var"].append(np.mean((b.astype(np.float64) - a) ** 2) * 255.0 ** 2)
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
+def device_augmentation() -> None:
+    """Phase 11e: device_augment_batch on the card over 4,096 samples of
+    16x16 ramps: its rates within 5 binomial sigma, its draws within their
+    bounds, the target flipped with its image."""
+    from image_enhancement_deglaring_tpu_torch.ops.augment_device import device_augment_batch
+
+    rng = np.random.default_rng(9)
+    ramp = np.linspace(0.35, 0.65, 256, dtype=np.float32).reshape(16, 16)
+    x0 = (ramp[None] + rng.uniform(-0.001, 0.001, (AUG_SAMPLES, 1, 1)).astype(np.float32))
+    x0 = x0[..., None]
+    y0 = x0 * 0.5
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    xa, ya = device_augment_batch(gen, torch.from_numpy(x0).cuda(), torch.from_numpy(y0).cuda())
+    xa, ya = xa.cpu().numpy(), ya.cpu().numpy()
+    st = augment_statistics(x0, xa, ya, y0)
+    target_ok = np.array_equal(ya, np.where(st["flip"][:, None, None, None], y0[:, :, ::-1], y0))
+
+    def sigmas(hits, p):
+        return abs(hits.mean() - p) / np.sqrt(p * (1 - p) / len(hits))
+
+    z = {"flip": sigmas(st["flip"], 0.5), "pixel op": sigmas(st["pixel"], 0.5),
+         "brightness/contrast share": sigmas(st["bc"], 0.8)}
+    var_z = abs(st["var"].mean() - 30.0) / ((40 / np.sqrt(12)) / np.sqrt(len(st["var"])))
+    print(f"11e device_augment_batch on the card, {AUG_SAMPLES} samples: flip rate "
+          f"{st['flip'].mean():.4f}, pixel-op rate {st['pixel'].mean():.4f}, brightness/contrast "
+          f"share {st['bc'].mean():.4f} of {len(st['bc'])} ({', '.join(f'{k} {v:.2f} sigma' for k, v in z.items())}); "
+          f"alpha [{st['alpha'].min():.4f}, {st['alpha'].max():.4f}] (bounds [0.8, 1.2]), beta "
+          f"[{st['beta'].min():.4f}, {st['beta'].max():.4f}] ([-0.2, 0.2]), noise variance "
+          f"estimates [{st['var'].min():.2f}, {st['var'].max():.2f}] /255^2, mean "
+          f"{st['var'].mean():.2f} (U(10, 50): 30, {var_z:.2f} sigma); target flipped with its "
+          f"image {target_ok}", flush=True)
+    if (max(z.values()) > 5 or var_z > 5 or not target_ok
+            or st["alpha"].min() < 0.8 - 1e-4 or st["alpha"].max() > 1.2 + 1e-4
+            or st["beta"].min() < -0.2 - 1e-4 or st["beta"].max() > 0.2 + 1e-4
+            or st["var"].min() < 6 or st["var"].max() > 70):
+        raise AssertionError("device augmentation's distributions are off")
+
+
+def other_families(card: str) -> None:
+    """Phase 11f: OptimizedUNet and EnhancedUNet at their published width
+    (init_features 16) at 512^2: a seeded init carried over through
+    load_jax_params, the f32 forward card vs CPU, 5 bf16 train steps at
+    batch 8 (EnhancedUNet's the stateful step), load_model_for_eval on the
+    saved checkpoint, and cli.evaluate --model in its own process on 8
+    synthetic triptychs."""
+    import tempfile
+
+    from image_enhancement_deglaring_tpu_torch.data import generate_synthetic_sd1
+    from image_enhancement_deglaring_tpu_torch.eval import load_model_for_eval
+    from image_enhancement_deglaring_tpu_torch.modelio import (
+        export_jax_batch_stats,
+        export_jax_params,
+        load_jax_params,
+    )
+    from image_enhancement_deglaring_tpu_torch.models import EnhancedUNet, OptimizedUNet
+    from image_enhancement_deglaring_tpu_torch.ops.conv_blocks import highest_precision
+    from image_enhancement_deglaring_tpu_torch.train import (
+        TrainState,
+        make_optimizer,
+        make_train_step,
+    )
+    from image_enhancement_deglaring_tpu_torch.train.checkpoint import save_checkpoint
+    from image_enhancement_deglaring_tpu_torch.utils import flatten_tree
+
+    xf, _ = triptych_batch(2, TRAIN_SIZE, seed=14)
+    xs, ys = triptych_batch(FAMILY_BATCH, TRAIN_SIZE, seed=15)
+    with tempfile.TemporaryDirectory() as tmp:
+        generate_synthetic_sd1(os.path.join(tmp, "sd"), n_train=0, n_val=8, size=TRAIN_SIZE,
+                               seed=3)
+        procs = {}
+        for family, cls in (("optimized", OptimizedUNet), ("enhanced", EnhancedUNet)):
+            init = cls(generator=torch.Generator().manual_seed(0))
+            params, stats = export_jax_params(init), export_jax_batch_stats(init) or None
+            outs = {}
+            for device in ("cuda", "cpu"):
+                m = cls().to(device)
+                load_jax_params(m, params, stats)
+                with torch.no_grad(), highest_precision():
+                    outs[device] = m.eval()(torch.from_numpy(xf).to(device)).cpu().numpy()
+            err = float(np.abs(outs["cuda"] - outs["cpu"]).max())
+
+            model = cls(dtype=torch.bfloat16).cuda()
+            load_jax_params(model, params, stats)
+            stateful = stats is not None
+            state = TrainState(model=model, optimizer=make_optimizer(model, TRAIN_LR, TRAIN_WD),
+                               generator=torch.Generator(device="cuda").manual_seed(0))
+            step = make_train_step(stateful=stateful)
+            x = torch.from_numpy(xs).to("cuda", torch.bfloat16)
+            y = torch.from_numpy(ys).cuda()
+            state, _ = step(state, x, y)  # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            marks = [torch.cuda.Event(enable_timing=True) for _ in range(FAMILY_STEPS + 1)]
+            marks[0].record()
+            losses = []
+            for i in range(FAMILY_STEPS):
+                state, loss = step(state, x, y)
+                losses.append(loss)
+                marks[i + 1].record()
+            torch.cuda.synchronize()
+            per = sorted(marks[i].elapsed_time(marks[i + 1]) for i in range(FAMILY_STEPS))
+            med, peak = per[len(per) // 2], torch.cuda.max_memory_allocated()
+            lv = torch.stack(losses).float().cpu().numpy()
+            moved = finite = True
+            if stateful:
+                a, b = flatten_tree(export_jax_batch_stats(model)), flatten_tree(stats)
+                moved = all(not np.array_equal(a[k], b[k]) for k in a)
+                finite = all(np.isfinite(v).all() for v in a.values())
+            ckpt = save_checkpoint(os.path.join(tmp, family), params=export_jax_params(model),
+                                   model_state={"batch_stats": export_jax_batch_stats(model)}
+                                   if stateful else None)
+            loaded, _ = load_model_for_eval(ckpt, compute_dtype=torch.bfloat16, device="cuda")
+            with torch.no_grad():
+                reload_err = float((loaded(x) - model.eval()(x)).abs().max())
+            print(f"11f {family} (init_features 16, {sum(p.numel() for p in model.parameters()):,}"
+                  f" parameters) at {TRAIN_SIZE}^2: f32 forward card vs CPU max |diff| {err:.3g} "
+                  f"(gate {FAMILY_F32_GATE}); bf16 {'stateful ' if stateful else ''}train step at "
+                  f"batch {FAMILY_BATCH}: median {med:.3f} ms/step over {FAMILY_STEPS}, "
+                  f"{FAMILY_BATCH / med * 1e3:.1f} img/s, peak memory allocated "
+                  f"{peak / 2**30:.3f} GiB, losses {' '.join(f'{v:.5f}' for v in lv)}"
+                  + (f"; BatchNorm buffers moved {moved} and finite {finite}" if stateful else "")
+                  + f"; load_model_for_eval(checkpoint) forward max |diff| {reload_err:.3g} "
+                  f"on {card}",
+                  flush=True)
+            if not (err <= FAMILY_F32_GATE and np.isfinite(lv).all() and moved and finite
+                    and reload_err <= 1e-3):
+                raise AssertionError(f"{family}: card checks failed")
+            procs[family] = subprocess.Popen(
+                [sys.executable, "-m", "image_enhancement_deglaring_tpu_torch.cli.evaluate",
+                 "--data_dir", os.path.join(tmp, "sd", "val"), "--model_path", ckpt,
+                 "--model", family, "--image_size", str(TRAIN_SIZE), "--batch_size", "8",
+                 "--num_workers", "4"], cwd=REPO, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)
+            del model, state, loaded
+        for family, p in procs.items():
+            out, _ = p.communicate(timeout=300)
+            lines = [ln for ln in out.splitlines() if ln.split(":")[0] in
+                     ("L1 Loss", "PSNR", "SSIM", "Evaluation on 8 samples")]
+            print(f"11f cli.evaluate --model {family} (own process, 8 triptychs): exit "
+                  f"{p.returncode}; {'; '.join(lines)}", flush=True)
+            if p.returncode != 0 or len(lines) != 4:
+                raise AssertionError(f"cli.evaluate --model {family} failed:\n{out[-2000:]}")
+
+
+def write_triptychs(root: str, n: int, size: int, seed: int, threads: int = 8) -> None:
+    """``n`` seeded SD1 triptych PNGs in ``root``, written by ``threads``
+    threads (zlib runs outside the interpreter lock)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from image_enhancement_deglaring_tpu_torch.data.png import encode_png
+    from image_enhancement_deglaring_tpu_torch.data.synthetic import make_triptych
+
+    os.makedirs(root, exist_ok=True)
+
+    def one(i):
+        trip = make_triptych(np.random.default_rng([seed, i]), size)
+        with open(os.path.join(root, f"synthetic_{i:04d}.png"), "wb") as f:
+            f.write(encode_png(trip))
+
+    with ThreadPoolExecutor(threads) as pool:
+        list(pool.map(one, range(n)))
+
+
+def resident_cli() -> None:
+    """Phase 11g: cli.train --resident_data --augment device on the
+    production model (bf16, batch 32, 512^2, 2 epochs) over 128 synthetic
+    PNG triptychs, its artifacts checked as phase 7d checks them; then
+    --model enhanced --resident_data --augment device, 1 epoch at batch 8."""
+    import contextlib as ctx
+    import io
+    import tempfile
+
+    from image_enhancement_deglaring_tpu_torch.cli import train as cli_train
+    from image_enhancement_deglaring_tpu_torch.eval import load_model_for_eval
+
+    class Tee(io.StringIO):
+        def write(self, text):
+            sys.__stdout__.write(text)
+            return super().write(text)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        write_triptychs(os.path.join(tmp, "data"), CLI_PNGS, TRAIN_SIZE, seed=21)
+        t_data = time.perf_counter() - t0
+        for label, extra, epochs in (("basic", ["--batch_size", "32"], 2),
+                                     ("enhanced", ["--batch_size", "8"], 1)):
+            out_dir = os.path.join(tmp, label)
+            log = Tee()
+            t0 = time.perf_counter()
+            with ctx.redirect_stdout(log):
+                cli_train.main(["--data_dir", os.path.join(tmp, "data"), "--output_dir", out_dir,
+                                "--epochs", str(epochs), "--resident_data", "--augment", "device",
+                                "--compute_dtype", "bfloat16", "--image_size", str(TRAIN_SIZE),
+                                "--validation_metrics_every", "1", "--model", label, *extra])
+            t_run = time.perf_counter() - t0
+            text = log.getvalue()
+            missing = [f for f in ("best_model", "final_model", "model_weights.npz",
+                                   "logs/metrics.jsonl")
+                       if not os.path.exists(os.path.join(out_dir, f))]
+            epoch_lines = [ln for ln in text.splitlines() if ln.startswith("Epoch ")]
+            with open(os.path.join(out_dir, "logs", "metrics.jsonl")) as f:
+                ips = [json.loads(ln).get("train_images_per_sec") for ln in f]
+            model, _ = load_model_for_eval(os.path.join(out_dir, "final_model"), device="cuda")
+            devices = {str(p.device) for p in model.parameters()}
+            print(f"11g cli.train --model {label} --resident_data --augment device "
+                  f"{' '.join(extra)}: {epochs} epochs in {t_run:.1f} s ({CLI_PNGS} PNGs written in "
+                  f"{t_data:.1f} s); epoch lines {len(epoch_lines)}; train img/s per epoch "
+                  f"{[round(v, 1) for v in ips if v]}; missing artifacts {missing}; final_model "
+                  f"loads as {type(model).__name__} on {sorted(devices)}", flush=True)
+            if (len(epoch_lines) != epochs or missing or "Training completed" not in text
+                    or devices != {"cuda:0"}):
+                raise AssertionError(f"cli.train --resident_data ({label}) on the card failed")
+
+
+def resident_training(card: str, step_rate: float, loader_rates: tuple) -> dict:
+    """Phase 11: resident training and the other families on the card.
+    Returns its kernel launches (none: the kernels are forward-only and the
+    other families have none)."""
+    from image_enhancement_deglaring_tpu_torch.ops import dec1
+    from image_enhancement_deglaring_tpu_torch.ops import fused_kernels as fk
+
+    fk.reset_launch_counts()
+    dec1.reset_launch_counts()
+    for label, fn, *args in (("11a-c", resident_cache_and_rate, card, step_rate, loader_rates),
+                             ("11d", resident_resume), ("11e", device_augmentation),
+                             ("11f", other_families, card), ("11g", resident_cli)):
+        t = time.perf_counter()
+        fn(*args)
+        print(f"phase {label}: {time.perf_counter() - t:.1f} s", flush=True)
+    counts = {**fk.LAUNCHES, **dec1.LAUNCHES}
+    print(f"11 kernel launches over the phase: {counts}", flush=True)
+    if any(counts.values()):
+        raise AssertionError(f"phase 11 launched kernels: {counts}")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 1
+    # cuBLAS under deterministic algorithms (phase 11) needs a fixed
+    # workspace; 8 x 4 MiB is also PyTorch's default size on Hopper
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     from image_enhancement_deglaring_tpu_torch.ops import _build
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2407,12 +2958,14 @@ def main() -> int:
     phase("6 throughput", throughput, card)
     phase("7a kernels refuse autograd", grad_guard)
     phase("7b f32 train step, card vs CPU", train_f32_parity)
-    phase("7c bf16 train step throughput", train_throughput, card)
-    phase("7d cli.train entry point", train_entry_point)
+    step_rate = phase("7c bf16 train step throughput", train_throughput, card)
+    loader_rates = phase("7d cli.train entry point", train_entry_point)
     counts, single_load = phase("8 HTTP serving on the card", http_serving, card)
     paths.update(counts)
     paths.update(phase("9 evaluation on the card", evaluation, card))
     paths.update(phase("10 HTTP worker processes", http_workers, card, single_load))
+    phase("11 resident training and the other families", resident_training, card, step_rate,
+          loader_rates)
 
     src = "image_enhancement_deglaring_tpu_torch/csrc/"
     tpu = "image_enhancement_deglaring_tpu/ops/"

@@ -5,10 +5,9 @@
 
 The same flags, defaults, printed lines and ``evaluation_results.txt`` as
 the JAX CLI, plus ``--device`` (default ``cuda``; without a card that
-raises unless ``--device cpu`` is given). ``--n_devices > 1`` (ROADMAP.md
-Queue 1 item 13) and ``--model optimized|enhanced`` (item 9) exit before
-the model loads; a ``.pth`` artifact raises in ``load_model_for_eval``
-(item 12).
+raises unless ``--device cpu`` is given). ``--model`` takes every family.
+``--n_devices > 1`` (ROADMAP.md Queue 1 item 13) exits before the model
+loads; a ``.pth`` artifact raises in ``load_model_for_eval`` (item 12).
 """
 
 from __future__ import annotations
@@ -54,8 +53,6 @@ def main(argv=None):
     if args.n_devices > 1:
         raise SystemExit(f"--n_devices {args.n_devices} is not ported yet "
                          "(ROADMAP Queue 1 item 13)")
-    if args.model in ("optimized", "enhanced"):
-        raise SystemExit(f"--model {args.model} is not ported yet (ROADMAP Queue 1 item 9)")
     import torch
 
     from ..data import GlareRemovalDataset, list_image_paths

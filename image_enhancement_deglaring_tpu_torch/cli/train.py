@@ -7,9 +7,12 @@ The same flags and defaults as the JAX CLI, plus ``--device`` (default
 ``cuda``; without a card that raises unless ``--device cpu`` is given).
 It writes ``best_model/`` and ``checkpoint_epoch_N/`` during the run, then
 ``final_model/`` and ``model_weights.npz`` (the best parameters under the
-JAX package's flat names), and ``logs/metrics.jsonl``. Flags of parts the
-port does not have yet raise and name the ROADMAP Queue 1 item that brings
-them.
+JAX package's flat names, nested under ``params/`` and ``batch_stats/``
+for EnhancedUNet), and ``logs/metrics.jsonl``. ``--resident_data`` caches
+the decoded set on the device and augments there (``--augment optimized``
+becomes ``device``); ``--augment device`` alone augments streamed batches
+on the device. Flags of parts the port does not have yet raise and name
+the ROADMAP Queue 1 item that brings them.
 """
 
 from __future__ import annotations
@@ -76,15 +79,11 @@ def parse_args(argv=None):
 def _refuse_unported(args) -> None:
     """Flags whose parts of the port do not exist yet, with their queue item."""
     todo = [
-        (args.model != "basic", f"--model {args.model}", 9),
         (args.distributed or any(a is not None for a in (
             args.coordinator_address, args.num_processes, args.process_id)),
          "--distributed (and its coordinator flags)", 13),
         (args.n_devices > 1, f"--n_devices {args.n_devices}", 13),
-        (args.resident_data, "--resident_data", 8),
-        (args.augment == "device", "--augment device", 8),
-        (args.augment == "heavy", "--augment heavy", 17),
-        (args.remat, "--remat", 11),
+        (args.augment == "heavy" and not args.resident_data, "--augment heavy", 17),
         (args.profile_dir is not None, "--profile_dir", 15),
     ]
     for bad, flag, item in todo:
@@ -97,6 +96,10 @@ def main(argv=None):
     if args.use_amp and args.compute_dtype == "float32":
         raise SystemExit("--use_amp requests mixed precision (bf16) but --compute_dtype "
                          "float32 forbids it — drop one")
+    if args.model != "basic" and args.remat:
+        # only LightweightUNet has block rematerialization: checked before
+        # any decode, not silently dropped
+        raise SystemExit("--remat is supported only for --model basic")
     _refuse_unported(args)
     from ..utils.envfile import load_dotenv
 
@@ -106,7 +109,8 @@ def main(argv=None):
 
     from .._device import resolve_device
     from ..data import make_dataloaders
-    from ..models import LightweightUNet
+    from ..models import (EnhancedUNet, LightweightUNet, OptimizedUNet, count_parameters,
+                          get_model_size_mb)
     from ..train import PreemptionGuard, save_checkpoint, train_model
     from ..utils import ExperimentLogger, flatten_tree, set_seed
 
@@ -114,30 +118,50 @@ def main(argv=None):
     generator = set_seed(args.seed)
     os.makedirs(args.output_dir, exist_ok=True)
 
+    # --augment device: the loaders only decode; the optimized stack runs
+    # on the device inside the step
+    augment = args.augment
+    if args.resident_data:
+        if augment == "heavy":
+            raise SystemExit("--resident_data caches raw pixels on the device; the heavy "
+                             "stack is host-only (cv2 warps/CLAHE). Use --augment "
+                             "optimized|device|none.")
+        if augment == "optimized":
+            print("--resident_data: running the optimized augmentation stack on the "
+                  "device (same distributions, the device generator's stream)")
+            augment = "device"
+    device_augment = augment == "device"
     train_loader, val_loader = make_dataloaders(
         args.data_dir, batch_size=args.batch_size, val_split=args.val_split, seed=args.seed,
         image_size=args.image_size, num_workers=args.num_workers,
-        cache_images=args.cache_images, augment=args.augment)
+        cache_images=args.cache_images, augment="none" if device_augment else augment)
     print(f"Training samples: {train_loader.num_samples}, "
           f"Validation samples: {val_loader.num_samples}")
 
     dtype = torch.bfloat16 if args.compute_dtype == "bfloat16" else torch.float32
     # the kernels are forward-only: training runs the composition
-    model = LightweightUNet(dtype=dtype, generator=generator)
+    if args.model == "enhanced":
+        model = EnhancedUNet(dtype=dtype, generator=generator)
+    elif args.model == "optimized":
+        model = OptimizedUNet(dtype=dtype, generator=generator)
+    else:
+        model = LightweightUNet(dtype=dtype, remat=args.remat, generator=generator)
 
     logger = ExperimentLogger(os.path.join(args.output_dir, "logs"), use_wandb=args.use_wandb,
                               project=args.wandb_project, entity=args.wandb_entity,
                               config=vars(args))
     guard = PreemptionGuard()
     with guard:
-        best_params, _best_state, best_val, _state = train_model(
+        best_params, best_model_state, best_val, _state = train_model(
             model, train_loader, val_loader, epochs=args.epochs, lr=args.lr,
             weight_decay=args.weight_decay, clip_grad_norm=args.clip_grad_norm,
             patience=args.patience, output_dir=args.output_dir, save_every=args.save_every,
             validation_metrics_every=args.validation_metrics_every,
             log_images_every=args.log_images_every, seed=args.seed, logger=logger,
             resume_from=args.resume, watch_every=args.watch_every,
-            prefetch=args.prefetch_factor, preempt_guard=guard, device=device)
+            device_augment=device_augment, resident=args.resident_data,
+            prefetch=args.prefetch_factor, preempt_guard=guard,
+            resident_segments=args.resident_segments, device=device)
     if guard.preempt_checkpoint is not None:
         # the exact-resume checkpoint is on disk; skip the final artifacts
         # (the grace window may not cover them) and exit 0
@@ -146,14 +170,16 @@ def main(argv=None):
               flush=True)
         return
 
+    # best_model_state holds EnhancedUNet's BatchNorm statistics of the
+    # same epoch: final_model must stay loadable
     save_checkpoint(os.path.join(args.output_dir, "final_model"), params=best_params,
-                    val_loss=best_val)
-    np.savez(os.path.join(args.output_dir, "model_weights.npz"), **flatten_tree(best_params))
-    leaves = flatten_tree(best_params).values()
-    n_params = sum(int(np.prod(a.shape)) for a in leaves)
-    size_mb = sum(a.nbytes for a in leaves) / (1024 * 1024)
+                    model_state=best_model_state, val_loss=best_val)
+    weights_tree = ({"params": best_params, "batch_stats": best_model_state["batch_stats"]}
+                    if "batch_stats" in best_model_state else best_params)
+    np.savez(os.path.join(args.output_dir, "model_weights.npz"), **flatten_tree(weights_tree))
     print(f"Training completed. Best validation loss: {best_val:.4f}")
-    print(f"Final model size: {size_mb:.2f} MB ({n_params:,} parameters)")
+    print(f"Final model size: {get_model_size_mb(best_params):.2f} MB "
+          f"({count_parameters(best_params):,} parameters)")
     logger.finish()
 
 

@@ -24,10 +24,12 @@ import torch
 from .._device import resolve_device
 from ..modelio.params_import import (
     detect_model_arch,
+    enhanced_unet_params_from_onnx,
     lightweight_unet_params_from_onnx,
     load_jax_params,
+    optimized_unet_params_from_onnx,
 )
-from ..models.unet import LightweightUNet
+from ..models import EnhancedUNet, LightweightUNet, OptimizedUNet
 from ..ops.image import to_uint8
 from ..ops.metrics import batched_psnr_ssim
 from ..utils.pytree import load_npz_tree
@@ -144,46 +146,66 @@ def _save_visualizations(x, y, pred, b, out_dir, vis_count, max_vis, psnrs, ssim
 def load_model_for_eval(model_path: str, *, model_arch: str = "auto",
                         compute_dtype: torch.dtype = torch.float32, device="cuda"):
     """(model, params) from an ``.onnx`` file, a flat ``a/b/c`` ``.npz`` or
-    the port's checkpoint directory: a LightweightUNet in eval mode on
+    the port's checkpoint directory: the family's model in eval mode on
     ``device``, its width taken from the artifact, and the JAX package's
-    parameter tree (float32 numpy) it was loaded from.
+    parameter tree (float32 numpy) it was loaded from. For EnhancedUNet
+    ``params`` is the bundle ``{"params": ..., "batch_stats": ...}``: its
+    BatchNorm running statistics travel with the weights, and a source
+    without them raises, as in the JAX package.
 
-    The model is the H100 serving configuration: ``pallas_gn=True,
+    A LightweightUNet is the H100 serving configuration: ``pallas_gn=True,
     fused_blocks="auto"`` (K1 at the GroupNorm sites, K3 at the blocks of
     64 channels and more). On a CPU tensor the dispatchers take the
     composition, so on the CPU the model computes what the JAX model does
-    with both knobs off. ``model_arch="auto"`` finds the family in the
-    artifact (``detect_model_arch``); OptimizedUNet and EnhancedUNet raise
-    until the port has them (ROADMAP.md Queue 1 item 9), ``.pth`` files
-    until it reads torch state dicts (item 12). ``device`` defaults to
+    with both knobs off. The other families have no kernel, as in the JAX
+    package. ``model_arch="auto"`` finds the family in the artifact
+    (``detect_model_arch``); ``.pth`` files raise until the port reads
+    torch state dicts (ROADMAP.md Queue 1 item 12). ``device`` defaults to
     CUDA and raises without a card unless "cpu" is passed."""
     dev = resolve_device(device)
     lower = model_path.lower()
+    if lower.endswith((".pth", ".pt")):
+        raise NotImplementedError(
+            ".pth/.pt state dicts are not ported yet (ROADMAP.md Queue 1 item 12)")
     if model_arch == "auto":
         model_arch = detect_model_arch(model_path)
-    if model_arch != "lightweight":
-        raise NotImplementedError(
-            f"model family {model_arch!r} is not ported yet (ROADMAP.md Queue 1 item 9)")
+    gen = torch.Generator().manual_seed(0)
+    stats = None
     if lower.endswith(".onnx"):
-        params = lightweight_unet_params_from_onnx(model_path)
+        if model_arch == "enhanced":
+            params, stats = enhanced_unet_params_from_onnx(model_path)
+        elif model_arch == "optimized":
+            params = optimized_unet_params_from_onnx(model_path)
+        else:
+            params = lightweight_unet_params_from_onnx(model_path)
     elif lower.endswith(".npz"):
         params = load_npz_tree(model_path)
         # extractions of stateful models nest the collections; stateless
         # families may still arrive wrapped the same way
         if set(params.keys()) <= {"params", "batch_stats"}:
-            params = params["params"]
-    elif lower.endswith((".pth", ".pt")):
-        raise NotImplementedError(
-            ".pth/.pt state dicts are not ported yet (ROADMAP.md Queue 1 item 12)")
-    else:  # the port's checkpoint directory
-        from ..train.checkpoint import restore_params
+            params, stats = params["params"], params.get("batch_stats")
+    elif os.path.isdir(model_path):  # the port's checkpoint directory
+        from ..train.checkpoint import restore_checkpoint
 
-        params = restore_params(model_path)
+        item, _ = restore_checkpoint(model_path)
+        params, stats = item["params"], item.get("model_state", {}).get("batch_stats")
+    else:
+        raise ValueError(f"cannot load {model_path!r}: expected .onnx, .npz or a checkpoint "
+                         "directory")
     # module widths come from the ARTIFACT, not hard-coded defaults:
     # narrow exports (features_start=4) would otherwise fail to load
-    model = LightweightUNet(features_start=_infer_width(params), dtype=compute_dtype,
-                            pallas_gn=True, fused_blocks="auto",
-                            generator=torch.Generator().manual_seed(0))
+    width = _infer_width(params)
+    if model_arch == "enhanced":
+        if stats is None:
+            raise ValueError(f"{model_path} holds no batch_stats; EnhancedUNet needs the "
+                             "BatchNorm running statistics saved with the weights")
+        model = EnhancedUNet(init_features=width, dtype=compute_dtype, generator=gen)
+        params = {"params": params, "batch_stats": stats}
+    elif model_arch == "optimized":
+        model = OptimizedUNet(init_features=width, dtype=compute_dtype, generator=gen)
+    else:
+        model = LightweightUNet(features_start=width, dtype=compute_dtype, pallas_gn=True,
+                                fused_blocks="auto", generator=gen)
     load_jax_params(model, params)
     return model.to(dev).eval(), params
 

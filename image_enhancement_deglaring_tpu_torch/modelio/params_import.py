@@ -1,12 +1,17 @@
-"""Weights for the port's LightweightUNet.
+"""Weights for the port's models.
 
 - ``lightweight_unet_params_from_onnx`` reads the reference ``.onnx`` into
   the JAX package's parameter tree ({"enc1": {"conv1": HWIO, ...}, ...},
   float32 numpy arrays); a copy of the JAX package's importer, numpy only.
-- ``load_jax_params`` / ``export_jax_params`` move that tree into and out
-  of the port's module state. The port's parameter ``enc1.conv1`` is the
-  tree's ``["enc1"]["conv1"]`` in the same layout, so one set of weights
-  gives both packages the same model.
+  ``optimized_unet_params_from_*`` and ``enhanced_unet_params_from_*`` do
+  the same for the other families from a torch state dict of numpy arrays
+  or an ``.onnx`` of the JAX package's writer; EnhancedUNet's come with
+  its BatchNorm running statistics (the JAX ``batch_stats`` tree).
+- ``load_jax_params`` / ``export_jax_params`` / ``export_jax_batch_stats``
+  move those trees into and out of the port's module state. The port's
+  parameter ``enc1.conv1`` is the tree's ``["enc1"]["conv1"]`` in the same
+  layout, and the buffer ``enc1.bn1.mean`` is ``batch_stats["enc1"]["bn1"]
+  ["mean"]``, so one set of weights gives both packages the same model.
 - ``load_jax_opt_state`` / ``export_jax_opt_state`` move the JAX trainer's
   optimizer state (optax ``inject_hyperparams(chain(clip_by_global_norm,
   adamw))``) into and out of a torch AdamW, so a run continues across the
@@ -61,19 +66,22 @@ def _require_all_consumed(sd: _TrackedDict) -> None:
         raise ValueError(f"checkpoint keys not consumed by the importer ({len(extra)}): {shown}")
 
 
+def _gn_block_from_sd(sd, blk: str) -> dict:
+    """A [Conv -> GN -> SiLU] x 2 Sequential (Conv 0, GN 1, Conv 3, GN 4)."""
+    return {
+        "conv1": _conv_to_hwio(sd[f"{blk}.0.weight"]),
+        "gn1_scale": sd[f"{blk}.1.weight"].astype(np.float32).reshape(-1),
+        "gn1_bias": sd[f"{blk}.1.bias"].astype(np.float32).reshape(-1),
+        "conv2": _conv_to_hwio(sd[f"{blk}.3.weight"]),
+        "gn2_scale": sd[f"{blk}.4.weight"].astype(np.float32).reshape(-1),
+        "gn2_bias": sd[f"{blk}.4.bias"].astype(np.float32).reshape(-1),
+    }
+
+
 def lightweight_unet_params_from_state_dict(sd: dict[str, np.ndarray]) -> dict:
     """Torch state dict (LightweightUNet names) -> the parameter tree."""
     sd = _TrackedDict(sd)
-    params: dict = {}
-    for blk in _BLOCKS:
-        params[blk] = {
-            "conv1": _conv_to_hwio(sd[f"{blk}.0.weight"]),
-            "gn1_scale": sd[f"{blk}.1.weight"].astype(np.float32).reshape(-1),
-            "gn1_bias": sd[f"{blk}.1.bias"].astype(np.float32).reshape(-1),
-            "conv2": _conv_to_hwio(sd[f"{blk}.3.weight"]),
-            "gn2_scale": sd[f"{blk}.4.weight"].astype(np.float32).reshape(-1),
-            "gn2_bias": sd[f"{blk}.4.bias"].astype(np.float32).reshape(-1),
-        }
+    params: dict = {blk: _gn_block_from_sd(sd, blk) for blk in _BLOCKS}
     for up in _UPCONVS:
         params[up] = {"weight": sd[f"{up}.weight"].astype(np.float32),
                       "bias": sd[f"{up}.bias"].astype(np.float32)}
@@ -109,6 +117,108 @@ def lightweight_unet_params_from_onnx(path: str) -> dict:
     return lightweight_unet_params_from_state_dict(sd)
 
 
+def optimized_unet_params_from_state_dict(sd: dict[str, np.ndarray]) -> dict:
+    """Torch state dict (OptimizedUNet names) -> the parameter tree.
+
+    Blocks index Conv 0 / GN 1 / Conv 3 / GN 4; the up blocks Upsample 0 /
+    Conv 1 / GN 2; the SE gates hold Linear ``fc.0`` / ``fc.2`` (out, in),
+    which become 1x1 kernels (1, 1, in, out); the output conv has a bias."""
+    sd = _TrackedDict(sd)
+    params: dict = {blk: _gn_block_from_sd(sd, blk) for blk in _BLOCKS}
+    for up in _UPCONVS:
+        params[up] = {
+            "conv": _conv_to_hwio(sd[f"{up}.1.weight"]),
+            "gn_scale": sd[f"{up}.2.weight"].astype(np.float32).reshape(-1),
+            "gn_bias": sd[f"{up}.2.bias"].astype(np.float32).reshape(-1),
+        }
+    for att in ("attention4", "attention3", "attention2", "attention1"):
+        params[att] = {
+            name: np.ascontiguousarray(sd[f"{att}.fc.{i}.weight"].astype(np.float32).T)[None, None]
+            for name, i in (("fc1", 0), ("fc2", 2))
+        }
+    params["output_weight"] = _conv_to_hwio(sd["output.weight"])
+    params["output_bias"] = sd["output.bias"].astype(np.float32)
+    _require_all_consumed(sd)
+    return params
+
+
+def enhanced_unet_params_from_state_dict(sd: dict[str, np.ndarray]) -> tuple[dict, dict]:
+    """Torch state dict (EnhancedUNet names) -> (params, batch_stats).
+
+    A residual block's ``conv_block`` indexes Conv 0 / BN 1 / ReLU 2 /
+    Dropout 3 / Conv 4 / BN 5, its optional ``shortcut`` Conv 0 / BN 1; the
+    bottleneck Sequential the same as a block; an attention gate holds
+    ``W_g`` / ``W_x`` / ``psi`` Conv+BN pairs; the output Sequential is
+    Conv 0 + Sigmoid."""
+    sd = _TrackedDict(sd)
+    params: dict = {}
+    stats: dict = {}
+
+    def bn(prefix: str):
+        return ({"scale": sd[f"{prefix}.weight"].astype(np.float32),
+                 "bias": sd[f"{prefix}.bias"].astype(np.float32)},
+                {"mean": sd[f"{prefix}.running_mean"].astype(np.float32),
+                 "var": sd[f"{prefix}.running_var"].astype(np.float32)})
+
+    for blk in ("enc1", "enc2", "enc3", "enc4", "enc5", "dec5", "dec4", "dec3", "dec2", "dec1"):
+        p = {"conv1": _conv_to_hwio(sd[f"{blk}.conv_block.0.weight"]),
+             "conv2": _conv_to_hwio(sd[f"{blk}.conv_block.4.weight"])}
+        s: dict = {}
+        p["bn1"], s["bn1"] = bn(f"{blk}.conv_block.1")
+        p["bn2"], s["bn2"] = bn(f"{blk}.conv_block.5")
+        if f"{blk}.shortcut.0.weight" in sd:
+            p["shortcut_conv"] = _conv_to_hwio(sd[f"{blk}.shortcut.0.weight"])
+            p["shortcut_bn"], s["shortcut_bn"] = bn(f"{blk}.shortcut.1")
+        params[blk], stats[blk] = p, s
+    params["bottleneck_conv1"] = _conv_to_hwio(sd["bottleneck.0.weight"])
+    params["bottleneck_conv2"] = _conv_to_hwio(sd["bottleneck.4.weight"])
+    params["bottleneck_bn1"], stats["bottleneck_bn1"] = bn("bottleneck.1")
+    params["bottleneck_bn2"], stats["bottleneck_bn2"] = bn("bottleneck.5")
+    for att in ("attention5", "attention4", "attention3", "attention2", "attention1"):
+        p = {"w_g": _conv_to_hwio(sd[f"{att}.W_g.0.weight"]),
+             "w_g_bias": sd[f"{att}.W_g.0.bias"].astype(np.float32),
+             "w_x": _conv_to_hwio(sd[f"{att}.W_x.0.weight"]),
+             "w_x_bias": sd[f"{att}.W_x.0.bias"].astype(np.float32),
+             "psi": _conv_to_hwio(sd[f"{att}.psi.0.weight"]),
+             "psi_bias": sd[f"{att}.psi.0.bias"].astype(np.float32)}
+        s = {}
+        p["bn_g"], s["bn_g"] = bn(f"{att}.W_g.1")
+        p["bn_x"], s["bn_x"] = bn(f"{att}.W_x.1")
+        p["bn_psi"], s["bn_psi"] = bn(f"{att}.psi.1")
+        params[att], stats[att] = p, s
+    for up in ("upconv5",) + tuple(_UPCONVS):
+        params[up] = {"weight": sd[f"{up}.weight"].astype(np.float32),
+                      "bias": sd[f"{up}.bias"].astype(np.float32)}
+    params["output_weight"] = _conv_to_hwio(sd["output.0.weight"])
+    params["output_bias"] = sd["output.0.bias"].astype(np.float32)
+    _require_all_consumed(sd)
+    return params, stats
+
+
+def _named_initializers(path: str) -> dict[str, np.ndarray]:
+    """An .onnx file's initializers that carry torch parameter names (a
+    module dot); generated graph constants have none."""
+    return {name: np.asarray(arr, dtype=np.float32)
+            for name, arr in load_onnx(path).initializers.items() if "." in name}
+
+
+def optimized_unet_params_from_onnx(path: str) -> dict:
+    """An OptimizedUNet .onnx of the JAX package's writer -> the parameter
+    tree. Its SE gate weights are 1x1 conv kernels (O, I, 1, 1) and go back
+    to the state dict's Linear (O, I) layout first."""
+    sd = _named_initializers(path)
+    for name, arr in sd.items():
+        if ".fc." in name and arr.ndim == 4:
+            sd[name] = arr.reshape(arr.shape[0], arr.shape[1])
+    return optimized_unet_params_from_state_dict(sd)
+
+
+def enhanced_unet_params_from_onnx(path: str) -> tuple[dict, dict]:
+    """An EnhancedUNet .onnx of the JAX package's writer -> (params,
+    batch_stats); its initializers carry the state dict's names."""
+    return enhanced_unet_params_from_state_dict(_named_initializers(path))
+
+
 def _tree_get(tree: dict, dotted: str):
     node = tree
     for part in dotted.split("."):
@@ -116,47 +226,71 @@ def _tree_get(tree: dict, dotted: str):
     return node
 
 
-def load_jax_params(model: torch.nn.Module, params_np: dict) -> None:
+def _tree_leaf_names(tree: dict, prefix: str = "") -> set[str]:
+    names = set()
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            names |= _tree_leaf_names(v, f"{prefix}{k}.")
+        else:
+            names.add(f"{prefix}{k}")
+    return names
+
+
+def _copy_tree_into(tensors: dict, tree: dict, what: str) -> None:
+    """Copy ``tree``'s float32 leaves into the same-named ``tensors``."""
+    leaves = _tree_leaf_names(tree)
+    if leaves != set(tensors):
+        raise ValueError(f"{what} tree does not match the model: missing "
+                         f"{sorted(set(tensors) - leaves)[:8]}, unexpected "
+                         f"{sorted(leaves - set(tensors))[:8]}")
+    with torch.no_grad():
+        for name, t in tensors.items():
+            arr = np.asarray(_tree_get(tree, name))
+            if arr.dtype != np.float32:
+                raise ValueError(f"{name}: dtype {arr.dtype}, want float32")
+            if tuple(arr.shape) != tuple(t.shape):
+                raise ValueError(f"{name}: shape {arr.shape}, want {tuple(t.shape)}")
+            t.copy_(torch.from_numpy(np.ascontiguousarray(arr)))
+
+
+def load_jax_params(model: torch.nn.Module, params_np: dict,
+                    batch_stats: dict | None = None) -> None:
     """Copy the JAX package's parameter tree into ``model`` in place.
 
     Every parameter ``a.b`` of the model takes ``params_np["a"]["b"]``; the
     arrays must be float32 of the parameter's shape, and the tree must hold
-    no leaf the model lacks."""
-    names = {name for name, _ in model.named_parameters()}
-    leaves = set()
-
-    def walk(node, prefix):
-        for k, v in node.items():
-            key = f"{prefix}{k}"
-            if isinstance(v, dict):
-                walk(v, key + ".")
-            else:
-                leaves.add(key)
-
-    walk(params_np, "")
-    if leaves != names:
-        raise ValueError(f"parameter tree does not match the model: missing "
-                         f"{sorted(names - leaves)[:8]}, unexpected {sorted(leaves - names)[:8]}")
-    with torch.no_grad():
-        for name, p in model.named_parameters():
-            arr = np.asarray(_tree_get(params_np, name))
-            if arr.dtype != np.float32:
-                raise ValueError(f"{name}: dtype {arr.dtype}, want float32")
-            if tuple(arr.shape) != tuple(p.shape):
-                raise ValueError(f"{name}: shape {arr.shape}, want {tuple(p.shape)}")
-            p.copy_(torch.from_numpy(np.ascontiguousarray(arr)))
+    no leaf the model lacks. ``batch_stats`` (EnhancedUNet's BatchNorm
+    running statistics) fills the model's buffers the same way; without it
+    the buffers stay as they are. A ``{"params": ..., "batch_stats": ...}``
+    bundle (what ``load_model_for_eval`` returns for EnhancedUNet) is taken
+    apart into the two."""
+    if batch_stats is None and set(params_np) == {"params", "batch_stats"}:
+        params_np, batch_stats = params_np["params"], params_np["batch_stats"]
+    _copy_tree_into(dict(model.named_parameters()), params_np, "parameter")
+    if batch_stats is not None:
+        _copy_tree_into(dict(model.named_buffers()), batch_stats, "batch_stats")
 
 
-def export_jax_params(model: torch.nn.Module) -> dict:
-    """The model's parameters as the JAX package's tree of float32 arrays."""
+def _export_tree(named) -> dict:
     tree: dict = {}
-    for name, p in model.named_parameters():
+    for name, t in named:
         *path, leaf = name.split(".")
         node = tree
         for part in path:
             node = node.setdefault(part, {})
-        node[leaf] = p.detach().to("cpu", torch.float32).numpy().copy()
+        node[leaf] = t.detach().to("cpu", torch.float32).numpy().copy()
     return tree
+
+
+def export_jax_params(model: torch.nn.Module) -> dict:
+    """The model's parameters as the JAX package's tree of float32 arrays."""
+    return _export_tree(model.named_parameters())
+
+
+def export_jax_batch_stats(model: torch.nn.Module) -> dict:
+    """The model's BatchNorm running statistics as the JAX ``batch_stats``
+    tree of float32 arrays; ``{}`` for a model without them."""
+    return _export_tree(model.named_buffers())
 
 
 # The optimizer-state leaf mapping, optax's leaf name (path segments joined

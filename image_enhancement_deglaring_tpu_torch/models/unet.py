@@ -19,6 +19,7 @@ import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.conv_blocks import (
     avg_pool_2x2,
@@ -110,8 +111,10 @@ class LightweightUNet(nn.Module):
     ``fused_blocks``: False = composition everywhere, True = K3 at every
     encoder/bottleneck block, "auto" = only where features >= 64.
     ``pallas_gn``: fuse the other GroupNorm+SiLU pairs (K1/K2).
-    ``remat`` and ``act_scales`` belong to later parts of the port and
-    raise if set.
+    ``remat``: recompute each block's activations in the backward pass
+    (``torch.utils.checkpoint`` per block, as the JAX model wraps each
+    block in ``nn.remat``) instead of storing them. ``act_scales`` belongs
+    to a later part of the port and raises if set.
     """
 
     def __init__(self, in_channels: int = 1, out_channels: int = 1, num_groups: int = 8,
@@ -119,11 +122,10 @@ class LightweightUNet(nn.Module):
                  remat: bool = False, fused_blocks=False, pallas_gn: bool = False, *,
                  generator: torch.Generator | None = None, device=None):
         super().__init__()
-        if remat:
-            raise NotImplementedError("remat is not ported yet")
         if fused_blocks not in (False, True, "auto"):
             raise ValueError(f"fused_blocks must be False, True or 'auto', got {fused_blocks!r}")
         self.dtype = dtype
+        self.remat = remat
         self.fused_blocks, self.pallas_gn = fused_blocks, pallas_gn
         f0 = features_start
         f = [f0, f0 * 2, f0 * 4, f0 * 8, f0 * 16]
@@ -149,20 +151,29 @@ class LightweightUNet(nn.Module):
         self.output_conv_weight = _uniform((1, 1, f[0], out_channels), f[0], generator, device)
         self.output_conv_bias = _uniform((out_channels,), f[0], generator, device)
 
+    def _block(self, block: nn.Module, *args: torch.Tensor) -> torch.Tensor:
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(block, *args, use_reentrant=False)
+        return block(*args)
+
     def forward(self, x: torch.Tensor, act_scales=None) -> torch.Tensor:
         if act_scales is not None:
+            if self.remat:
+                raise ValueError("remat=True cannot be combined with act_scales; rebuild "
+                                 "the model with remat=False for calibration/int8 serving")
             raise NotImplementedError("int8 activation sites are not ported yet")
+        run = self._block
         exact = self.dtype == torch.float32
         with highest_precision() if exact else contextlib.nullcontext():
             x = x.to(self.dtype)
-            enc1 = self.enc1(x)
-            enc2 = self.enc2(avg_pool_2x2(enc1))
-            enc3 = self.enc3(avg_pool_2x2(enc2))
-            enc4 = self.enc4(avg_pool_2x2(enc3))
-            bottleneck = self.bottleneck(avg_pool_2x2(enc4))
-            d4 = self.dec4(self.upconv4(bottleneck), enc4)
-            d3 = self.dec3(self.upconv3(d4), enc3)
-            d2 = self.dec2(self.upconv2(d3), enc2)
-            d1 = self.dec1(self.upconv1(d2), enc1)
+            enc1 = run(self.enc1, x)
+            enc2 = run(self.enc2, avg_pool_2x2(enc1))
+            enc3 = run(self.enc3, avg_pool_2x2(enc2))
+            enc4 = run(self.enc4, avg_pool_2x2(enc3))
+            bottleneck = run(self.bottleneck, avg_pool_2x2(enc4))
+            d4 = run(self.dec4, self.upconv4(bottleneck), enc4)
+            d3 = run(self.dec3, self.upconv3(d4), enc3)
+            d2 = run(self.dec2, self.upconv2(d3), enc2)
+            d1 = run(self.dec1, self.upconv1(d2), enc1)
             out = conv2d(d1, self.output_conv_weight, self.output_conv_bias)
         return out.float()

@@ -7,9 +7,11 @@ from .conv_blocks import (
     conv_block_dual,
     group_norm,
     highest_precision,
+    max_pool_2x2,
     resolve_group_count,
     silu,
     upsample2x_matmul,
+    upsample_nearest_2x,
 )
 from .dec1 import (
     dec1_output_args,

@@ -86,15 +86,26 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None, *,
     return y
 
 
+def stat_mean(t: torch.Tensor, dims) -> torch.Tensor:
+    """The float32 mean of ``t`` over ``dims`` (kept), for normalization
+    statistics. On the CPU it accumulates in float64: torch's CPU reduction
+    over strided dims sums in sequence and loses ~5e-6 relative over a
+    256^2 x 8 group (an H100 reading against float64; CUDA's tree stays
+    within 1e-7), enough to move a normalized output by 3e-4."""
+    if t.device.type == "cpu":
+        return t.mean(dim=dims, keepdim=True, dtype=torch.float64).float()
+    return t.mean(dim=dims, keepdim=True)
+
+
 def group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *,
                num_groups: int, eps: float = 1e-5) -> torch.Tensor:
     """GroupNorm over NHWC: per (batch, group) across (H, W, channels in the
-    group), float32 statistics, biased variance from the centred second
-    moment. Output in the input dtype."""
+    group), float32 statistics (``stat_mean``), biased variance from the
+    centred second moment. Output in the input dtype."""
     n, h, w, c = x.shape
     xf = x.float().reshape(n, h, w, num_groups, c // num_groups)
-    mean = xf.mean(dim=(1, 2, 4), keepdim=True)
-    var = (xf - mean).square().mean(dim=(1, 2, 4), keepdim=True)
+    mean = stat_mean(xf, (1, 2, 4))
+    var = stat_mean((xf - mean).square(), (1, 2, 4))
     y = ((xf - mean) * torch.rsqrt(var + eps)).reshape(n, h, w, c)
     y = y * scale.float() + bias.float()
     return y.to(x.dtype)
@@ -172,3 +183,17 @@ def upsample2x_matmul(x: torch.Tensor, w: torch.Tensor,
     if b is not None:
         y = y + b.to(y.dtype)
     return y
+
+
+def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
+    """MaxPool2d(kernel=2, stride=2) on NHWC; an odd trailing row or column
+    is dropped (VALID windows)."""
+    n, h, w, c = x.shape
+    h2, w2 = h // 2, w // 2
+    return x[:, : 2 * h2, : 2 * w2].reshape(n, h2, 2, w2, 2, c).amax(dim=(2, 4))
+
+
+def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
+    """Nearest-neighbour 2x upsample on NHWC."""
+    n, h, w, c = x.shape
+    return x[:, :, None, :, None, :].expand(n, h, 2, w, 2, c).reshape(n, 2 * h, 2 * w, c)

@@ -7,6 +7,9 @@ checkpoint is a directory:
   ("enc1/conv1", ``export_jax_params`` + ``flatten_tree``);
 - ``opt_state.npz``: the optimizer state under optax's leaf names
   (the mapping in ``modelio.params_import``), when there is one;
+- ``model_state.npz``: the model's mutable collections under their JAX
+  names ("batch_stats/enc1/bn1/mean", EnhancedUNet's BatchNorm running
+  statistics), when it has any;
 - ``train_meta.json``: ``epoch``, ``val_loss``, ``model_arch`` and the
   caller's extras (LR-controller state, step, generator state, early-stop
   counter, mid-epoch position), the JAX package's keys.
@@ -28,11 +31,12 @@ from ..utils.pytree import flatten_tree, unflatten_tree
 
 
 def save_checkpoint(path: str, *, params: dict, opt_state: dict | None = None,
-                    epoch: int = 0, val_loss: float | None = None,
-                    extra: dict | None = None) -> str:
+                    model_state: dict | None = None, epoch: int = 0,
+                    val_loss: float | None = None, extra: dict | None = None) -> str:
     """Write a checkpoint directory at ``path``, replacing any there.
     ``params``: the JAX-named tree of arrays; ``opt_state``: optax's flat
-    leaves (``export_jax_opt_state``). The directory is written beside
+    leaves (``export_jax_opt_state``); ``model_state``: the mutable
+    collections ({"batch_stats": tree}), written when not empty. The directory is written beside
     ``path`` and renamed into place, so a reader never sees half of it."""
     path = os.path.abspath(path)
     parent = os.path.dirname(path)
@@ -44,6 +48,9 @@ def save_checkpoint(path: str, *, params: dict, opt_state: dict | None = None,
         if opt_state is not None:
             np.savez(os.path.join(tmp, "opt_state.npz"),
                      **{k: np.asarray(v) for k, v in opt_state.items()})
+        if model_state:
+            np.savez(os.path.join(tmp, "model_state.npz"),
+                     **{k: np.asarray(v) for k, v in flatten_tree(model_state).items()})
         meta = {"epoch": epoch, "val_loss": val_loss,
                 "model_arch": arch_from_param_keys(params.keys()), **(extra or {})}
         with open(os.path.join(tmp, "train_meta.json"), "w") as f:
@@ -59,7 +66,8 @@ def save_checkpoint(path: str, *, params: dict, opt_state: dict | None = None,
 
 def restore_checkpoint(path: str):
     """Returns (item, meta): item["params"] the JAX-named tree of numpy
-    arrays, item["opt_state"] optax's flat leaves when saved."""
+    arrays, item["opt_state"] optax's flat leaves and item["model_state"]
+    the mutable collections' tree when saved."""
     path = os.path.abspath(path)
     with np.load(os.path.join(path, "params.npz")) as f:
         item = {"params": unflatten_tree({k: f[k] for k in f.files})}
@@ -67,6 +75,10 @@ def restore_checkpoint(path: str):
     if os.path.exists(opt_path):
         with np.load(opt_path) as f:
             item["opt_state"] = {k: f[k] for k in f.files}
+    state_path = os.path.join(path, "model_state.npz")
+    if os.path.exists(state_path):
+        with np.load(state_path) as f:
+            item["model_state"] = unflatten_tree({k: f[k] for k in f.files})
     meta = {}
     meta_path = os.path.join(path, "train_meta.json")
     if os.path.exists(meta_path):

@@ -15,7 +15,13 @@ On the card:
 - the LR lives in the optimizer's ``param_groups``, so a plateau
   reduction rebuilds nothing;
 - per-step losses stay on the device and are fetched once per epoch;
-- ``DevicePrefetcher`` copies batch N+1 on a side stream during step N.
+- ``DevicePrefetcher`` copies batch N+1 on a side stream during step N;
+- ``resident=True`` trains from the decoded set held in device memory
+  (``train.resident``): the host decodes once, before the first epoch;
+  ``device_augment=True`` augments each batch on the device;
+- augmentation and dropout draw from one generator on the device
+  (``TrainState.generator``), saved in every checkpoint, so a resumed run
+  continues the stream.
 
 The CUDA kernels are forward-only, as the TPU kernels are, and their
 wrappers refuse to run under autograd: train a model built with
@@ -35,6 +41,7 @@ import torch
 from .._device import resolve_device
 from ..data.dataset import DevicePrefetcher
 from ..modelio.params_import import (
+    export_jax_batch_stats,
     export_jax_opt_state,
     export_jax_params,
     load_jax_opt_state,
@@ -64,9 +71,10 @@ class ClippedAdamW(torch.optim.AdamW):
 
 @dataclass
 class TrainState:
-    """What a step changes: the model's parameters (in the module), the
-    optimizer and its state, the step count, and a generator for
-    stochastic layers and augmentation (none on the stateless path)."""
+    """What a step changes: the model's parameters and BatchNorm buffers
+    (in the module), the optimizer and its state, the step count, and the
+    generator that device augmentation and dropout draw from. It must lie
+    on the model's device; ``train_model`` seeds one there."""
 
     model: torch.nn.Module
     optimizer: ClippedAdamW
@@ -104,22 +112,25 @@ def clip_grad_norm_(params, max_norm: float) -> torch.Tensor:
 def make_step_body(*, stateful: bool = False, augment_fn=None):
     """The (state, x, y) -> (state, loss) step: forward in the model's
     dtype, float32 L1 on its float32 output, backward, the clip and
-    AdamW's update. ``loss`` stays on the device."""
-    if stateful:
-        raise NotImplementedError("the stateful step (EnhancedUNet's batch statistics and "
-                                  "dropout) comes with the other model families "
-                                  "(ROADMAP Queue 1 item 9)")
-    if augment_fn is not None:
-        raise NotImplementedError("device augmentation is not ported yet "
-                                  "(ROADMAP Queue 1 item 8)")
+    AdamW's update. ``loss`` stays on the device.
+
+    ``augment_fn(generator, x, y) -> (x, y)`` (``ops.augment_device``)
+    augments the batch first, drawing from ``state.generator``.
+    ``stateful=True`` is the step of a model with BatchNorm and dropout
+    (EnhancedUNet): its forward runs with ``train=True``, normalizing with
+    the batch statistics, updating the running ones and drawing its dropout
+    masks from the same generator."""
 
     def step_body(state: TrainState, x: torch.Tensor, y: torch.Tensor):
         model, opt = state.model, state.optimizer
         model.train()
         opt.zero_grad(set_to_none=True)
+        if augment_fn is not None:
+            x, y = augment_fn(state.generator, x, y)
         exact = getattr(model, "dtype", torch.float32) == torch.float32
         with highest_precision() if exact else contextlib.nullcontext():
-            loss = l1_loss(model(x), y)
+            out = model(x, train=True, generator=state.generator) if stateful else model(x)
+            loss = l1_loss(out, y)
             loss.backward()
             if opt.clip_grad_norm > 0:
                 with torch.no_grad():
@@ -194,6 +205,11 @@ def _not_ported(flag: str, item: int, what: str):
     raise NotImplementedError(f"{flag}: {what} is not ported yet (ROADMAP Queue 1 item {item})")
 
 
+def _host_memory_bytes() -> int:
+    """A CPU device's budget for a resident cache: the host's memory."""
+    return os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+
+
 def train_model(model, train_loader, val_loader, *, epochs: int,
                 lr: float = 0.002362532125818593,
                 weight_decay: float = 6.753784966611083e-05,
@@ -209,29 +225,35 @@ def train_model(model, train_loader, val_loader, *, epochs: int,
                 watch_every: int = 0, profile_dir: str | None = None,
                 device_augment: bool = False,
                 resident: bool = False, prefetch: int = 2,
-                preempt_guard=None, handle_preemption: bool = True, device="cuda"):
-    """Train ``model`` (a LightweightUNet, moved to ``device``) in place;
-    returns (best_params, best_model_state, best_val_loss, final_state) as
-    the JAX package does: best_params is the JAX-named tree of numpy
-    arrays from the best epoch, best_model_state ``{}`` (the port's models
-    have no mutable collections yet).
+                preempt_guard=None, handle_preemption: bool = True,
+                resident_segments: int = 8, device="cuda"):
+    """Train ``model`` (any of the port's families, moved to ``device``) in
+    place; returns (best_params, best_model_state, best_val_loss,
+    final_state) as the JAX package does: best_params is the JAX-named tree
+    of numpy arrays from the best epoch, best_model_state the BatchNorm
+    statistics of the same epoch as ``{"batch_stats": tree}`` (``{}`` for a
+    model without them).
 
     The model starts from its own parameters, or from ``init_params`` (a
     JAX-named tree, ``load_jax_params``). ``device`` defaults to CUDA and
     raises without a card unless "cpu" is passed. ``resume_from``: a
     checkpoint directory; the run continues where it stopped (params,
-    optimizer state, step, generator, epoch, LR controller, early-stop
-    counter; a mid-epoch checkpoint re-enters its epoch at the next batch).
-    On SIGTERM/SIGINT the running step finishes, ``output_dir/
-    preempt_checkpoint`` is written and the function returns. ``mesh``,
-    ``resident``, ``device_augment`` and ``profile_dir`` belong to later
+    BatchNorm statistics, optimizer state, step, generator, epoch, LR
+    controller, early-stop counter; a mid-epoch checkpoint re-enters its
+    epoch at the next batch). On SIGTERM/SIGINT the running step finishes,
+    ``output_dir/preempt_checkpoint`` is written and the function returns.
+
+    ``resident``: cache the decoded train and val sets on the device once
+    (``train.resident``; the loaders must not augment on the host) and run
+    each epoch from there, in up to ``resident_segments`` segments with a
+    preemption check between them; the step sequence does not depend on
+    the segment count, and a mid-epoch checkpoint lands on a segment
+    boundary. A mid-epoch checkpoint resumes only in the mode that wrote
+    it. ``device_augment``: augment every batch on the device
+    (``ops.augment_device``). ``mesh`` and ``profile_dir`` belong to later
     parts of the port and raise."""
     if mesh is not None:
         _not_ported("mesh", 13, "data-parallel training over several GPUs")
-    if resident:
-        _not_ported("resident", 8, "device-resident training")
-    if device_augment:
-        _not_ported("device_augment", 8, "augmentation on the device")
     if profile_dir is not None:
         _not_ported("profile_dir", 15, "the training profiler")
     dev = resolve_device(device)
@@ -243,20 +265,24 @@ def train_model(model, train_loader, val_loader, *, epochs: int,
     if init_params is not None:
         load_jax_params(model, unflatten_tree(
             {k: np.asarray(v, np.float32) for k, v in flatten_tree(init_params).items()}))
+    stateful = next(model.buffers(), None) is not None
+
+    def model_state() -> dict:
+        return {"batch_stats": export_jax_batch_stats(model)} if stateful else {}
 
     if resume_state is not None:
         state = resume_state
     else:
         state = TrainState(model=model,
                            optimizer=make_optimizer(model, lr, weight_decay, clip_grad_norm),
-                           generator=torch.Generator().manual_seed(seed))
+                           generator=torch.Generator(device=dev).manual_seed(seed))
     clip = state.optimizer.clip_grad_norm > 0
 
     resumed_stale_epochs = 0
     resume_mid_epoch, resume_skip_steps = -1, 0
     if resume_from is not None:
         item, meta = restore_checkpoint(resume_from)
-        load_jax_params(model, item["params"])
+        load_jax_params(model, item["params"], item.get("model_state", {}).get("batch_stats"))
         load_jax_opt_state(state.optimizer, model, item["opt_state"])
         if meta.get("step") is not None:
             state.step = int(meta["step"])
@@ -264,9 +290,14 @@ def train_model(model, train_loader, val_loader, *, epochs: int,
             state.generator.set_state(torch.tensor(meta["rng"], dtype=torch.uint8))
         resumed_stale_epochs = int(meta.get("epochs_without_improvement", 0))
         if meta.get("mid_epoch"):
-            if meta.get("resident"):
-                raise ValueError("mid-epoch checkpoint was written by a resident run; the "
-                                 "port has no resident mode to resume it in")
+            if "resident" in meta and bool(meta["resident"]) != resident:
+                saved = "resident" if meta["resident"] else "streaming"
+                now = "resident" if resident else "streaming"
+                raise ValueError(
+                    f"mid-epoch checkpoint was written by a {saved} run but this resume is "
+                    f"{now}: the two modes count epoch_step against different batch plans "
+                    "(loader order vs device permutation). Resume with the same "
+                    "--resident_data setting as the preempted run.")
             resume_mid_epoch = int(meta.get("epoch", 0))
             resume_skip_steps = int(meta.get("epoch_step", 0))
             start_epoch = max(start_epoch, resume_mid_epoch)
@@ -278,7 +309,12 @@ def train_model(model, train_loader, val_loader, *, epochs: int,
             lr_controller.load_state_dict(meta["lr_state"])
         print(f"Resumed from {resume_from} at epoch {start_epoch}")
 
-    train_step = make_train_step()
+    augment_fn = None
+    if device_augment:
+        from ..ops.augment_device import device_augment_batch
+
+        augment_fn = device_augment_batch
+    train_step = make_train_step(stateful=stateful, augment_fn=augment_fn)
     val_step_metrics = make_val_step()
     val_step_plain = make_val_step(with_metrics=False)
     val_static_b = int(getattr(val_loader, "batch_size", 0) or 0)
@@ -289,29 +325,53 @@ def train_model(model, train_loader, val_loader, *, epochs: int,
     # op is this cast); the target stays float32
     input_dtype = torch.bfloat16 if getattr(model, "dtype", None) == torch.bfloat16 else None
 
+    if resident:
+        from .resident import (batch_val_cache, cache_on_device, make_train_epoch_segmented,
+                               make_val_epoch)
+
+        train_batch = int(getattr(train_loader, "batch_size", 0)
+                          or next(iter(train_loader))[0].shape[0])
+        workers = getattr(train_loader, "num_workers", 8)
+        budget = None if dev.type == "cuda" else _host_memory_bytes()
+        rd_train = cache_on_device(train_loader, dtype=input_dtype, num_workers=workers,
+                                   device=dev, device_bytes=budget)
+        res_plan_fn, res_segment_fn = make_train_epoch_segmented(
+            batch_size=train_batch, stateful=stateful, augment_fn=augment_fn)
+        val_batches = None
+        if int(getattr(val_loader, "num_samples", len(val_loader)) or 0):
+            rd_val = cache_on_device(val_loader, dtype=input_dtype, num_workers=workers,
+                                     device=dev, device_bytes=budget)
+            val_batches = batch_val_cache(rd_val, val_static_b)
+            val_epoch_metrics = make_val_epoch()
+            val_epoch_plain = make_val_epoch(with_metrics=False)
+
     scheduler = lr_controller or ReduceLROnPlateau(lr, factor=plateau_factor,
                                                    patience=plateau_patience)
     set_learning_rate(state, scheduler.lr)
 
     best_val_loss = float("inf")
-    best_params = None
+    best_params = best_model_state = None
     if resume_from is not None:
         # the run's existing best_model is the bar: without it the first
         # epoch after the resume would always "improve" on inf and
         # overwrite a better checkpoint
         best_dir = os.path.join(output_dir, "best_model")
         if os.path.isdir(best_dir):
-            shapes = {k: v.shape for k, v in flatten_tree(export_jax_params(model)).items()}
+            def shapes(tree):
+                return {k: np.shape(v) for k, v in flatten_tree(tree).items()}
+
             try:
                 prev_item, prev_meta = restore_checkpoint(best_dir)
                 prev_val = prev_meta.get("val_loss")
-                prev_shapes = {k: np.shape(v) for k, v in flatten_tree(prev_item["params"]).items()}
-                if prev_shapes != shapes:
+                prev_ms = prev_item.get("model_state", {})
+                if (shapes(prev_item["params"]) != shapes(export_jax_params(model))
+                        or shapes(prev_ms) != shapes(model_state())):
                     print(f"Resume: existing best_model in {best_dir} has a different "
                           "parameter structure (different --model?); best-model tracking "
                           "restarts")
                 elif prev_val is not None and np.isfinite(prev_val):
                     best_val_loss, best_params = float(prev_val), prev_item["params"]
+                    best_model_state = prev_ms
                     print(f"Resume: keeping existing best_model (val loss "
                           f"{best_val_loss:.4f}) as the bar")
             except (OSError, ValueError, KeyError) as e:  # corrupt best: start afresh
@@ -330,12 +390,15 @@ def train_model(model, train_loader, val_loader, *, epochs: int,
         return save_checkpoint(os.path.join(output_dir, name),
                                params=export_jax_params(model),
                                opt_state=export_jax_opt_state(state.optimizer, model, clip=clip),
-                               epoch=epoch, val_loss=val, extra=extra)
+                               model_state=model_state(), epoch=epoch, val_loss=val,
+                               extra=extra)
 
     def _save_preempt(epoch_step=None):
         extra = _resume_extra()
         if epoch_step is not None:
-            extra.update(mid_epoch=True, epoch_step=int(epoch_step), resident=False)
+            # the mode stamp: a streaming skip counts loader batches, a
+            # resident one positions in the device permutation
+            extra.update(mid_epoch=True, epoch_step=int(epoch_step), resident=bool(resident))
         path = _save("preempt_checkpoint", val=best_val_loss, extra=extra)
         if guard is not None:
             guard.preempt_checkpoint = path
@@ -353,60 +416,82 @@ def train_model(model, train_loader, val_loader, *, epochs: int,
         for epoch in range(start_epoch, epochs):
             # ------------------------------------------------------ train
             t0 = time.time()
-            if hasattr(train_loader, "set_epoch"):
-                train_loader.set_epoch(epoch)
-            # mid-epoch resume: skip the trained batches in the loader's
-            # plan (no decode, no copy), or drop them in the loop for a
-            # loader without the hook
             skip = resume_skip_steps if epoch == resume_mid_epoch else 0
-            plan_skip = skip if skip and hasattr(train_loader, "set_skip_batches") else 0
-            if plan_skip:
-                train_loader.set_skip_batches(plan_skip)
-            try:
-                planned_steps = len(train_loader) - (0 if plan_skip else skip)
-            except TypeError:
-                planned_steps = None
-            it = DevicePrefetcher(train_loader, device=dev, prefetch=prefetch,
-                                  input_dtype=input_dtype)
-            if progress:
-                try:
-                    from tqdm import tqdm
-
-                    it = tqdm(it, total=len(train_loader),
-                              desc=f"Epoch {epoch + 1}/{epochs} [Train]")
-                except ImportError:
-                    pass
-            step_losses: list = []
-            step_sizes: list[int] = []
-            mid_step = 0
-            for i, (x, y) in enumerate(it):
-                if not plan_skip and skip and i < skip:
-                    continue  # trained before the preemption snapshot
-                state, loss = train_step(state, x, y)
-                step_losses.append(loss)
-                step_sizes.append(x.shape[0])
-                if guard is not None and guard.triggered:
-                    preempted = True
-                    mid_step = plan_skip + i + 1  # counted from the epoch's start
+            if resident:
+                # the epoch's plan, drawn once from (seed, epoch) and run in
+                # segments; a resume slices it from the saved boundary
+                idx = res_plan_fn(seed, epoch, rd_train.n, dev)
+                steps = int(idx.shape[0])
+                seg_len = -(-steps // max(1, min(resident_segments, steps)))
+                s, parts, mid_step = min(skip, steps), [], 0
+                while s < steps:
+                    e = min(s + seg_len, steps)
+                    state, seg_losses = res_segment_fn(state, rd_train.x, rd_train.y, idx[s:e])
+                    parts.append(seg_losses.double().cpu())  # one fetch per segment
+                    s = e
+                    if s < steps and guard is not None and guard.triggered:
+                        preempted, mid_step = True, s
+                        break
+                if preempted:
+                    _save_preempt(mid_step)
                     break
-            if plan_skip:  # one-shot: later epochs iterate in full
-                train_loader.set_skip_batches(0)
-            if preempted:
-                _save_preempt(mid_step)
-                break
-            if planned_steps is not None and len(step_sizes) != planned_steps:
-                raise RuntimeError(
-                    f"epoch {epoch}: trained {len(step_sizes)} steps but the loader planned "
-                    f"{planned_steps} (skip={skip}, plan_skip={bool(plan_skip)}) — the "
-                    f"loader's set_skip_batches len/iter contract is violated or batches "
-                    f"were dropped")
-            n_seen = sum(step_sizes)
-            if step_losses:  # one fetch per epoch, not one sync per step
-                losses_np = torch.stack(step_losses).double().cpu().numpy()
-                running = float(losses_np @ np.asarray(step_sizes, np.float64))
+                losses_np = torch.cat(parts).numpy() if parts else np.zeros(0)
+                n_seen = losses_np.size * min(train_batch, rd_train.n)
+                train_loss = float(losses_np.mean()) if losses_np.size else 0.0
             else:
-                running = 0.0
-            train_loss = running / max(n_seen, 1)
+                if hasattr(train_loader, "set_epoch"):
+                    train_loader.set_epoch(epoch)
+                # mid-epoch resume: skip the trained batches in the loader's
+                # plan (no decode, no copy), or drop them in the loop for a
+                # loader without the hook
+                plan_skip = skip if skip and hasattr(train_loader, "set_skip_batches") else 0
+                if plan_skip:
+                    train_loader.set_skip_batches(plan_skip)
+                try:
+                    planned_steps = len(train_loader) - (0 if plan_skip else skip)
+                except TypeError:
+                    planned_steps = None
+                it = DevicePrefetcher(train_loader, device=dev, prefetch=prefetch,
+                                      input_dtype=input_dtype)
+                if progress:
+                    try:
+                        from tqdm import tqdm
+
+                        it = tqdm(it, total=len(train_loader),
+                                  desc=f"Epoch {epoch + 1}/{epochs} [Train]")
+                    except ImportError:
+                        pass
+                step_losses: list = []
+                step_sizes: list[int] = []
+                mid_step = 0
+                for i, (x, y) in enumerate(it):
+                    if not plan_skip and skip and i < skip:
+                        continue  # trained before the preemption snapshot
+                    state, loss = train_step(state, x, y)
+                    step_losses.append(loss)
+                    step_sizes.append(x.shape[0])
+                    if guard is not None and guard.triggered:
+                        preempted = True
+                        mid_step = plan_skip + i + 1  # counted from the epoch's start
+                        break
+                if plan_skip:  # one-shot: later epochs iterate in full
+                    train_loader.set_skip_batches(0)
+                if preempted:
+                    _save_preempt(mid_step)
+                    break
+                if planned_steps is not None and len(step_sizes) != planned_steps:
+                    raise RuntimeError(
+                        f"epoch {epoch}: trained {len(step_sizes)} steps but the loader planned "
+                        f"{planned_steps} (skip={skip}, plan_skip={bool(plan_skip)}) — the "
+                        f"loader's set_skip_batches len/iter contract is violated or batches "
+                        f"were dropped")
+                n_seen = sum(step_sizes)
+                if step_losses:  # one fetch per epoch, not one sync per step
+                    losses_np = torch.stack(step_losses).double().cpu().numpy()
+                    running = float(losses_np @ np.asarray(step_sizes, np.float64))
+                else:
+                    running = 0.0
+                train_loss = running / max(n_seen, 1)
             history["train_loss"].append(train_loss)
             train_secs = time.time() - t0
             train_ips = n_seen / train_secs if train_secs > 0 else 0.0
@@ -416,26 +501,40 @@ def train_model(model, train_loader, val_loader, *, epochs: int,
                             or epoch == epochs - 1)
             log_images = logger is not None and (
                 (epoch + 1) % log_images_every == 0 or epoch == 0 or epoch == epochs - 1)
-            val_step = val_step_metrics if calc_metrics else val_step_plain
-            val_stats: list = []
-            for batch_idx, (x, y, mask) in enumerate(
-                    DevicePrefetcher(padded_val, device=dev, prefetch=prefetch,
-                                     input_dtype=input_dtype)):
-                loss, psnr, ssim, out = val_step(model, x, y, mask)
-                val_stats.append(torch.stack([loss, psnr, ssim, mask.float().sum()]))
-                if log_images and batch_idx == 0:
-                    k = min(2, out.shape[0])
-                    out_np = out[:k].cpu().numpy()
-                    x_np = x[:k].float().cpu().numpy()
-                    y_np = y[:k].float().cpu().numpy()
-                    imgs = {}
-                    for j in range(k):
-                        imgs[f"input_{j}"] = x_np[j, ..., 0]
-                        imgs[f"prediction_{j}"] = np.clip(out_np[j, ..., 0], 0, 1)
-                        imgs[f"target_{j}"] = y_np[j, ..., 0]
-                    logger.log_images("val", imgs, step=epoch + 1)
-            if val_stats:
-                vs = torch.stack(val_stats).double().cpu().numpy()
+            first_val = None
+            vs = None
+            if resident:
+                if val_batches is not None:
+                    val_epoch = val_epoch_metrics if calc_metrics else val_epoch_plain
+                    vs = val_epoch(model, *val_batches).double().cpu().numpy()
+                    if log_images:
+                        x, y = val_batches[0][0], val_batches[1][0]
+                        first_val = (x, y, val_step_plain(model, x, y, val_batches[2][0])[3])
+            else:
+                val_step = val_step_metrics if calc_metrics else val_step_plain
+                val_stats: list = []
+                for batch_idx, (x, y, mask) in enumerate(
+                        DevicePrefetcher(padded_val, device=dev, prefetch=prefetch,
+                                         input_dtype=input_dtype)):
+                    loss, psnr, ssim, out = val_step(model, x, y, mask)
+                    val_stats.append(torch.stack([loss, psnr, ssim, mask.float().sum()]))
+                    if log_images and batch_idx == 0:
+                        first_val = (x, y, out)
+                if val_stats:
+                    vs = torch.stack(val_stats).double().cpu().numpy()
+            if first_val is not None:
+                x, y, out = first_val
+                k = min(2, out.shape[0])
+                out_np = out[:k].cpu().numpy()
+                x_np = x[:k].float().cpu().numpy()
+                y_np = y[:k].float().cpu().numpy()
+                imgs = {}
+                for j in range(k):
+                    imgs[f"input_{j}"] = x_np[j, ..., 0]
+                    imgs[f"prediction_{j}"] = np.clip(out_np[j, ..., 0], 0, 1)
+                    imgs[f"target_{j}"] = y_np[j, ..., 0]
+                logger.log_images("val", imgs, step=epoch + 1)
+            if vs is not None:
                 val_seen = float(vs[:, 3].sum())
                 val_loss = float(vs[:, 0] @ vs[:, 3]) / max(val_seen, 1.0)
                 val_psnr = float(vs[:, 1].mean())
@@ -476,7 +575,7 @@ def train_model(model, train_loader, val_loader, *, epochs: int,
             if val_loss < best_val_loss:
                 epochs_without_improvement = 0
                 best_val_loss = val_loss
-                best_params = export_jax_params(model)
+                best_params, best_model_state = export_jax_params(model), model_state()
                 _save("best_model", val=val_loss, extra=_resume_extra())
                 print(f"New best model with validation loss: {val_loss:.4f}")
                 if logger is not None:
@@ -518,8 +617,8 @@ def train_model(model, train_loader, val_loader, *, epochs: int,
             guard.__exit__(None, None, None)
     _plot_losses(history, output_dir)
     if best_params is None:
-        best_params = export_jax_params(model)
-    return best_params, {}, best_val_loss, state
+        best_params, best_model_state = export_jax_params(model), model_state()
+    return best_params, best_model_state, best_val_loss, state
 
 
 def _plot_losses(history: dict, output_dir: str) -> None:

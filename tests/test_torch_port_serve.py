@@ -938,7 +938,9 @@ def test_load_model_for_eval_refusals(artifacts, tmp_path):
         detect_model_arch(str(pth))
     with pytest.raises(NotImplementedError, match="item 12"):
         load_model_for_eval(str(pth), model_arch="lightweight", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
+    # a LightweightUNet tree with an SE gate's leaf: detected as
+    # OptimizedUNet, whose tree it is not
+    with pytest.raises(ValueError, match="does not match the model"):
         load_model_for_eval(paths["optimized"], device="cpu")
     with pytest.raises(FileNotFoundError):
         detect_model_arch(str(tmp_path / "missing.onnx"))

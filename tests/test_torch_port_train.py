@@ -495,9 +495,8 @@ def test_early_stop_after_patience(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--model", "enhanced"], 9), (["--distributed"], 13), (["--n_devices", "2"], 13),
-    (["--resident_data"], 8), (["--augment", "device"], 8), (["--augment", "heavy"], 17),
-    (["--remat"], 11), (["--profile_dir", "p"], 15),
+    (["--distributed"], 13), (["--n_devices", "2"], 13), (["--augment", "heavy"], 17),
+    (["--profile_dir", "p"], 15),
 ])
 def test_cli_refuses_unported_flags_naming_their_queue_item(flags, item):
     with pytest.raises(SystemExit, match=f"item {item}"):
@@ -513,8 +512,8 @@ def test_cli_and_train_model_default_to_cuda(tmp_path):
         train_model(LightweightUNet(), [], [], epochs=1, output_dir=str(tmp_path))
     with pytest.raises(NotImplementedError, match="item 13"):
         train_model(LightweightUNet(), [], [], epochs=1, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        make_train_step(stateful=True)
+    with pytest.raises(NotImplementedError, match="item 15"):
+        train_model(LightweightUNet(), [], [], epochs=1, profile_dir="p", device="cpu")
 
 
 # -------------------------------------------------- the kernels' grad guard
