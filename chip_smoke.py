@@ -72,7 +72,7 @@ Phases, each fatal on failure:
    ``batches_dispatched``), 1200x900 ``?mode=tile`` requests one at a time
    (14 and 4 per tile forward), then tile and resize requests at once;
    every answer against the same frame through the engine or tiler called
-   directly (>= 45 dB), a JPEG upload's explicit 500, ``/stats`` and
+   directly (>= 45 dB), a JPEG upload answered 200 at the same gate, ``/stats`` and
    ``/metrics`` against the requests sent; then
    ``tools.load_test_api`` in its own process, closed loops at
    concurrency 8 on "up"-filtered uploads and on uploads under PIL's
@@ -118,7 +118,29 @@ Phases, each fatal on failure:
    saved checkpoint and ``cli.evaluate --model`` in its own process; (g)
    ``cli.train --resident_data --augment device`` over 128 PNG triptychs:
    the production model at batch 32 for 2 epochs, EnhancedUNet at batch 8
-   for 1; no kernel launches over the phase.
+   for 1; no kernel launches over the phase;
+12. JPEG uploads and every family served: (a) the port's JPEG decoder
+   (``data/jpeg.py``; the card's host has no PIL) on every committed JPEG
+   fixture, each decode's pixels and luma against the sha256 digests PIL
+   wrote (``tests/fixtures/jpeg/manifest.json``), its decode time; the
+   phone-size (4032x3024) decode in a process of its own: its peak host
+   memory over the process's base, and the longest wait of another Python
+   thread meanwhile; each fixture POSTed to ``create_server`` (bf16, 512,
+   the kernels on): 200 at the upload's size, >= 45 dB against the engine
+   called directly on the decoded luma, K1 and K3 launches 14 and 4 per
+   device batch; closed loops of one process at phase 8's request count
+   on the 512x512 JPEG and the same page as a PNG, and 8 phone-size JPEG
+   uploads; (b) OptimizedUNet and EnhancedUNet at their published width
+   served from a ``.pth`` of seeded weights under the reference's names
+   (``model_arch="auto"``, bf16, 512, mode "both"): resize and tile
+   answers >= 45 dB against the engine and tiler called directly, req/s
+   of a closed loop at phase 8's request count;
+   EnhancedUNet behind 2 worker processes, and ``/reload`` of a second
+   ``.pth`` whose answers equal its engine's at the gate and leave both
+   the first model's and its own weights-with-the-first-statistics'; no
+   kernel launches; (c) OptimizedUNet's f32 forward card vs CPU, module by
+   module: the error each module's output carries, and its own on the
+   CPU run's input.
 
 The line before the last is a JSON object with one entry per kernel, its
 launches also by path (each counted from 0 in its own run); the last
@@ -1759,9 +1781,7 @@ def http_serving(card: str) -> dict:
     kernels on) answers real HTTP requests; returns the launches of its
     counted resize and tile traffic, by path."""
     import base64
-    import logging
     import shutil
-    import socket
     import tempfile
 
     from image_enhancement_deglaring_tpu_torch.data.png import encode_png
@@ -1771,31 +1791,14 @@ def http_serving(card: str) -> dict:
     from image_enhancement_deglaring_tpu_torch.tools.load_test_api import multipart_body
 
     host_split()
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
+    port = _free_port()
     log_dir = tempfile.mkdtemp(prefix="chip_smoke_api_")
     t0 = time.perf_counter()
     server = create_server(ONNX, host="127.0.0.1", port=port, compute_dtype=torch.bfloat16,
                            image_size=HTTP_SIZE, max_batch_size=8, mode="both", warmup=True,
                            log_dir=log_dir)
     t_create = time.perf_counter() - t0
-    # the console gets one line per request and a traceback for the JPEG
-    # probe's expected 500; the file handler under log_dir keeps them all
-    for h in server.logger.handlers:
-        if type(h) is logging.StreamHandler:
-            h.setLevel(logging.CRITICAL)
-    thread = threading.Thread(target=server.run, daemon=True)
-    thread.start()
-    deadline = time.time() + 60
-    while True:
-        try:
-            if _get_json(port, "/ping") == (200, {"message": "pong"}):
-                break
-        except OSError:
-            if time.time() > deadline:
-                raise
-            time.sleep(0.05)
+    thread = _start(server, timeout=60)
     engine, tiler = server.engine, server.tiler
     print(f"8 create_server (bf16, {HTTP_SIZE}, buckets warmed) in {t_create:.1f} s; bound "
           f"127.0.0.1:{port}", flush=True)
@@ -1890,12 +1893,21 @@ def http_serving(card: str) -> dict:
     if min(v[0] for v in worst.values()) < HTTP_PSNR_GATE_DB:
         raise AssertionError(f"an /infer answer is below {HTTP_PSNR_GATE_DB} dB: {worst}")
 
+    # a JPEG upload (the JAX serve tests' photo): 200 at its size, at the gate
+    with open(os.path.join(REPO, "tests", "fixtures", "photo_noise.jpg"), "rb") as f:
+        jpeg = f.read()
+    jpeg_answer, = _post_all(port, [("/infer", *multipart_body(jpeg))], 1)[0]
+    luma = imaging.to_luma(imaging.decode_image(jpeg).pixels, "L")
+    small = imaging.resize_lanczos(luma, (HTTP_SIZE, HTTP_SIZE))
+    want = imaging.resize_lanczos(engine.infer_batch(small[None])[0], luma.shape[::-1])
+    got = decoded(jpeg_answer)
+    if got.shape != luma.shape or psnr_u8(got, want) < HTTP_PSNR_GATE_DB:
+        raise AssertionError(f"JPEG upload: answer {got.shape} at {psnr_u8(got, want):.2f} dB, "
+                             f"want {luma.shape} at >= {HTTP_PSNR_GATE_DB} dB")
+    print(f"8 JPEG upload (photo_noise.jpg, {luma.shape[1]}x{luma.shape[0]}): 200, "
+          f"{psnr_u8(got, want):.2f} dB against the engine called directly", flush=True)
     # the other endpoints
-    jpeg = b"\xff\xd8\xff\xe0\x00\x10JFIF\x00" + bytes(64)
-    (status, payload), = _post_all(port, [("/infer", *multipart_body(jpeg))], 1)[0]
-    if status != 500 or "JPEG" not in payload.get("detail", ""):
-        raise AssertionError(f"JPEG upload: want the explicit 500, got {status} {payload}")
-    sent = len(resize_bodies) + 16  # every request that reached the engine
+    sent = len(resize_bodies) + 16 + 1  # every request that reached the engine
     status, stats = _get_json(port, "/stats")
     status_m, text = _get_json(port, "/metrics")
     line = [x for x in text.splitlines() if x.startswith("deglaring_requests_served_total ")]
@@ -1915,10 +1927,7 @@ def http_serving(card: str) -> dict:
     # latter at half its closed-loop rate
     load = load_loops(port, "8d", card)
 
-    loop = server._server.get_loop()
-    loop.call_soon_threadsafe(server._server.close)
-    thread.join(timeout=30)
-    engine.stop()
+    _stop(server, thread)
     shutil.rmtree(log_dir, ignore_errors=True)
     return {"8a HTTP resize": counts_resize, "8b HTTP tile": counts_tile}, load
 
@@ -2204,7 +2213,6 @@ def http_workers(card: str, single_load: dict | None) -> dict:
     the launches of the counted traffic."""
     import shutil
     import signal
-    import socket
     import tempfile
 
     from image_enhancement_deglaring_tpu_torch.data.png import decode_png, encode_png
@@ -2212,11 +2220,6 @@ def http_workers(card: str, single_load: dict | None) -> dict:
     from image_enhancement_deglaring_tpu_torch.serve.http_server import create_server
     from image_enhancement_deglaring_tpu_torch.serve.ipc import serve_multiprocess
     from image_enhancement_deglaring_tpu_torch.tools.load_test_api import multipart_body
-
-    def free_port():
-        with socket.socket() as sock:
-            sock.bind(("127.0.0.1", 0))
-            return sock.getsockname()[1]
 
     def wait_ping(port, timeout):
         deadline = time.time() + timeout
@@ -2230,7 +2233,7 @@ def http_workers(card: str, single_load: dict | None) -> dict:
                 raise AssertionError(f"nothing answered /ping on port {port} in {timeout} s")
             time.sleep(0.1)
 
-    port = free_port()
+    port = _free_port()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_workers_")
     t0 = time.perf_counter()
     server = create_server(ONNX, host="127.0.0.1", port=port, compute_dtype=torch.bfloat16,
@@ -2372,7 +2375,7 @@ def http_workers(card: str, single_load: dict | None) -> dict:
     engine.stop()
 
     # 10f: cli.serve --workers 2 in its own process
-    port2 = free_port()
+    port2 = _free_port()
     t0 = time.perf_counter()
     proc = subprocess.Popen([sys.executable, "-m",
                              "image_enhancement_deglaring_tpu_torch.cli.serve",
@@ -2921,6 +2924,474 @@ def resident_training(card: str, step_rate: float, loader_rates: tuple) -> dict:
     return counts
 
 
+JPEG_FIXTURES = os.path.join(REPO, "tests", "fixtures")
+JPEG_PHONE = "jpeg/page_4032x3024_420.jpg"
+JPEG_PHONE_LOOP = 8
+FAMILY_HTTP_GRAY = 16
+FAMILY_WIDTH = 16  # OptimizedUNet's and EnhancedUNet's published init_features
+# the phone-size decode in a process of its own: peak host memory over the
+# process's resident set before the decode, and the longest another
+# Python thread waits meanwhile
+JPEG_FOOTPRINT = r'''
+import json, os, sys, threading, time
+from image_enhancement_deglaring_tpu_torch.data.jpeg import decode_jpeg
+
+def rss_mib():
+    # resident set now; the high-water marks (VmHWM, ru_maxrss) start at
+    # the forking parent's size
+    try:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE") / 2**20
+    except (OSError, ValueError, IndexError):
+        return None
+
+with open(sys.argv[1], "rb") as f:
+    data = f.read()
+base, rss, gaps, done = rss_mib(), [], [], threading.Event()
+
+def tick():
+    last = time.perf_counter()
+    while not done.is_set():
+        time.sleep(0.001)
+        now = time.perf_counter()
+        gaps.append(now - last)
+        rss.append(rss_mib())
+        last = now
+
+ticker = threading.Thread(target=tick)
+ticker.start()
+t = time.perf_counter()
+decode_jpeg(data)
+secs = time.perf_counter() - t
+done.set()
+ticker.join()
+peak = None if base is None or None in rss else max(rss)
+print(json.dumps({"base_mib": base, "peak_mib": peak, "decode_s": secs,
+                  "max_wait_ms": max(gaps) * 1e3, "waits": len(gaps)}))
+'''
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _start(server, timeout: float = 120.0) -> threading.Thread:
+    """Run a DeglareServer on its own thread until /ping answers. The
+    console gets no line per request; the file handler under its log_dir
+    keeps them all."""
+    import logging
+
+    for h in server.logger.handlers:
+        if type(h) is logging.StreamHandler:
+            h.setLevel(logging.CRITICAL)
+    thread = threading.Thread(target=server.run, daemon=True)
+    thread.start()
+    deadline = time.time() + timeout
+    while True:
+        try:
+            if _get_json(server.port, "/ping") == (200, {"message": "pong"}):
+                return thread
+        except OSError:
+            pass
+        if time.time() > deadline:
+            raise AssertionError(f"server on port {server.port} never answered /ping")
+        time.sleep(0.05)
+
+
+def _stop(server, thread) -> None:
+    loop = server._server.get_loop()
+    loop.call_soon_threadsafe(server._server.close)
+    thread.join(timeout=30)
+    server.engine.stop()
+
+
+def _answer_pixels(answer) -> np.ndarray:
+    import base64
+
+    from image_enhancement_deglaring_tpu_torch.serve import imaging
+
+    status, payload = answer
+    if status != 200:
+        raise AssertionError(f"/infer answered {status}: {payload}")
+    img = imaging.decode_image(base64.b64decode(payload["image"]))
+    if img.mode != "L":
+        raise AssertionError(f"/infer answered a {img.mode} PNG")
+    return img.pixels
+
+
+def _resized_reference(engine, luma: np.ndarray, size: int) -> np.ndarray:
+    """What /infer in resize mode answers for ``luma``, through the engine
+    called directly: LANCZOS to the model's size, the forward, LANCZOS back."""
+    from image_enhancement_deglaring_tpu_torch.serve import imaging
+
+    h, w = luma.shape
+    small = imaging.resize_lanczos(luma, (size, size)) if (h, w) != (size, size) else luma
+    out = engine.infer_batch(small[None])[0]
+    return imaging.resize_lanczos(out, (w, h)) if (h, w) != (size, size) else out
+
+
+def _gate(label: str, pairs) -> float:
+    """min PSNR of (got, want) pairs, each of the same shape; fails below
+    phase 8's gate."""
+    worst = math.inf
+    for got, want in pairs:
+        if got.shape != want.shape:
+            raise AssertionError(f"{label}: answer {got.shape}, want {want.shape}")
+        worst = min(worst, psnr_u8(got, want))
+    if worst < HTTP_PSNR_GATE_DB:
+        raise AssertionError(f"{label}: min PSNR {worst:.2f} dB < {HTTP_PSNR_GATE_DB} dB")
+    return worst
+
+
+def jpeg_uploads(card: str, single_load: dict | None) -> dict:
+    """Phase 12a: the port's JPEG decoder on the card's host (no PIL here):
+    every committed JPEG fixture decoded and held against the digests PIL
+    wrote into the manifest, its decode time; then each POSTed to
+    ``create_server`` (bf16, 512, the kernels on): 200 at the upload's
+    size, >= 45 dB against the engine called directly on the decoded luma,
+    K1/K3 launches 14 and 4 per device batch; and the closed-loop rates of
+    one process on the 512x512 JPEG beside the same page as a PNG, at
+    phase 8's request count, and on phone-size JPEGs. Returns the launches
+    of the counted JPEG traffic."""
+    import hashlib
+    import shutil
+    import tempfile
+
+    from image_enhancement_deglaring_tpu_torch.data.jpeg import decode_jpeg
+    from image_enhancement_deglaring_tpu_torch.data.png import encode_png
+    from image_enhancement_deglaring_tpu_torch.ops import fused_kernels as fk
+    from image_enhancement_deglaring_tpu_torch.serve import imaging
+    from image_enhancement_deglaring_tpu_torch.serve.http_server import create_server
+    from image_enhancement_deglaring_tpu_torch.tools.load_test_api import multipart_body
+
+    with open(os.path.join(JPEG_FIXTURES, "jpeg", "manifest.json")) as f:
+        manifest = json.load(f)
+    files, lumas = {}, {}
+    for name, entry in sorted(manifest.items()):
+        with open(os.path.join(JPEG_FIXTURES, name), "rb") as f:
+            data = f.read()
+        times = []
+        for _ in range(3):
+            t = time.perf_counter()
+            img = decode_jpeg(data)
+            times.append(time.perf_counter() - t)
+        sha = hashlib.sha256(np.ascontiguousarray(img.pixels).tobytes()).hexdigest()
+        luma = imaging.to_luma(img.pixels, img.mode)
+        luma_sha = hashlib.sha256(luma.tobytes()).hexdigest()
+        if (img.mode, list(img.pixels.shape), sha, luma_sha) != (
+                entry["mode"], entry["shape"], entry["sha256"], entry["luma_sha256"]):
+            raise AssertionError(f"12a {name}: the decode differs from PIL's manifest entry")
+        print(f"12a decode {name} ({len(data)} bytes, {img.mode} "
+              f"{img.pixels.shape[1]}x{img.pixels.shape[0]}): {sorted(times)[1] * 1e3:.1f} ms "
+              f"(median of 3, one thread), pixels and luma equal to PIL's digests", flush=True)
+        files[name], lumas[name] = data, luma
+    probe = subprocess.run([sys.executable, "-c", JPEG_FOOTPRINT,
+                            os.path.join(JPEG_FIXTURES, JPEG_PHONE)], cwd=REPO,
+                           capture_output=True, text=True, timeout=300)
+    if probe.returncode:
+        raise AssertionError(f"12a footprint probe exited {probe.returncode}: "
+                             f"{probe.stderr[-2000:]}")
+    fp = json.loads(probe.stdout.strip().splitlines()[-1])
+    memory = ("not measured (no /proc/self/statm)" if fp["peak_mib"] is None else
+              f"{fp['peak_mib'] - fp['base_mib']:.1f} MiB over the process's "
+              f"{fp['base_mib']:.1f} MiB (resident set sampled at each tick)")
+    print(f"12a {JPEG_PHONE} decoded in a process of its own: peak host memory {memory}; "
+          f"{fp['decode_s'] * 1e3:.1f} ms while a 1 ms ticker thread ran, whose longest "
+          f"wait for the GIL was {fp['max_wait_ms']:.2f} ms ({fp['waits']} ticks)", flush=True)
+
+    log_dir = tempfile.mkdtemp(prefix="chip_smoke_jpeg_")
+    server = create_server(ONNX, host="127.0.0.1", port=_free_port(),
+                           compute_dtype=torch.bfloat16, image_size=HTTP_SIZE, max_batch_size=8,
+                           mode="resize", warmup=True, log_dir=log_dir)
+    thread = _start(server)
+    engine, port = server.engine, server.port
+    try:
+        names = sorted(files)
+        bodies = [("/infer", *multipart_body(files[n])) for n in names]
+
+        def served():
+            return _get_json(port, "/stats")[1]["batches_dispatched"]
+
+        fk.reset_launch_counts()
+        b0 = served()
+        answers, alone_ms = [], {}
+        for n, b in zip(names, bodies):
+            answer, lat, _ = _post_all(port, [b], 1)
+            answers.append(answer[0])
+            alone_ms[n] = lat[0] * 1e3
+        torch.cuda.synchronize()
+        counts, forwards = dict(fk.LAUNCHES), served() - b0
+        if counts != {"gn_silu_flat": 14 * forwards, "gn_silu_nhwc": 0,
+                      "conv3x3_gn_silu": 4 * forwards, "conv3x3_gn_silu_batched": 0}:
+            raise AssertionError(f"12a JPEG traffic: want 14 K1 and 4 K3 launches per each of "
+                                 f"{forwards} forwards, got {counts}")
+        worst = _gate("12a JPEG answers", [
+            (_answer_pixels(a), _resized_reference(engine, lumas[n], HTTP_SIZE))
+            for a, n in zip(answers, names)])
+        print(f"12a {len(names)} JPEG uploads answered 200 at their own sizes; min PSNR "
+              f"{worst:.2f} dB against the engine called directly (need >= "
+              f"{HTTP_PSNR_GATE_DB}); {forwards} device batches, launches {counts}; "
+              f"latency of each alone: " + ", ".join(f"{n} {ms:.1f} ms"
+                                                     for n, ms in alone_ms.items()), flush=True)
+
+        # closed loops of one process: the 512x512 photo as JPEG and as PNG
+        # at phase 8's request count, then phone-size JPEGs
+        page = "jpeg/page_512_420_restarts.jpg"
+        rgb = decode_jpeg(files[page]).pixels
+        n_page = HTTP_LOAD_REQUESTS["up"]
+        for kind, payload, n in (("512x512 JPEG", files[page], n_page),
+                                 ("512x512 PNG", encode_png(rgb), n_page),
+                                 ("4032x3024 JPEG", files[JPEG_PHONE], JPEG_PHONE_LOOP)):
+            body = ("/infer", *multipart_body(payload))
+            if n == n_page:  # warm the pool
+                _post_all(port, [body] * HTTP_CONNECTIONS, HTTP_CONNECTIONS)
+            loop_answers, lat, wall = _post_all(port, [body] * n, HTTP_CONNECTIONS)
+            if any(a[0] != 200 for a in loop_answers):
+                raise AssertionError(f"12a {kind} loop: an answer was not 200")
+            p50, _, p99 = _percentiles_ms(lat)
+            print(f"12a closed loop, one process, {n} uploads of the {kind} ({len(payload)} "
+                  f"bytes) over {HTTP_CONNECTIONS} connections: {n / wall:.2f} req/s, p50 "
+                  f"{p50:.1f} ms, p99 {p99:.1f} ms on {card}", flush=True)
+        if single_load:
+            print("12a beside phase 8's PNG loops in this run: " + ", ".join(
+                f"{k} {v['req_per_s']:.2f} req/s" for k, v in single_load.items()
+                if isinstance(v, dict) and "req_per_s" in v), flush=True)
+        stats = _get_json(port, "/stats")[1]
+        print(f"12a host phase p50 over this server's requests: decode "
+              f"{stats['host_decode_ms_p50']:.2f} ms, engine {stats['host_engine_ms_p50']:.2f} "
+              f"ms, encode {stats['host_encode_ms_p50']:.2f} ms", flush=True)
+    finally:
+        _stop(server, thread)
+        shutil.rmtree(log_dir, ignore_errors=True)
+    return {"12a HTTP JPEG": counts}
+
+
+def every_family_served(card: str) -> dict:
+    """Phase 12b: OptimizedUNet and EnhancedUNet served from a ``.pth`` of
+    seeded weights under the reference's names (``model_arch="auto"``),
+    bf16, 512, mode "both": resize and tile answers against the engine and
+    the tiler called directly, a closed loop's req/s; EnhancedUNet also
+    behind 2 worker processes, and ``/reload`` of a second ``.pth`` that
+    must swap weights and BatchNorm statistics together. No kernel
+    launches. Returns the (zero) launch counts.
+
+    Random weights amplify bf16 rounding far more than the trained
+    LightweightUNet does, so a frame's answer depends on the batch it rode
+    in (cuDNN picks per batch size): checked answers go one request at a
+    time, against the engine called on that frame alone (bucket 1)."""
+    import tempfile
+
+    from image_enhancement_deglaring_tpu_torch.data.png import encode_png
+    from image_enhancement_deglaring_tpu_torch.eval import load_model_for_eval
+    from image_enhancement_deglaring_tpu_torch.ops import dec1
+    from image_enhancement_deglaring_tpu_torch.ops import fused_kernels as fk
+    from image_enhancement_deglaring_tpu_torch.serve import imaging
+    from image_enhancement_deglaring_tpu_torch.serve.engine import InferenceEngine
+    from image_enhancement_deglaring_tpu_torch.serve.http_server import create_server
+    from image_enhancement_deglaring_tpu_torch.serve.ipc import serve_multiprocess
+    from image_enhancement_deglaring_tpu_torch.tools.load_test_api import multipart_body
+    import importlib.util
+
+    # the tests' seeded weights, loaded by path: another installed "tests"
+    # package cannot shadow it
+    spec = importlib.util.spec_from_file_location(
+        "torch_port_weights", os.path.join(REPO, "tests", "torch_port_weights.py"))
+    weights = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(weights)
+    seeded_tree = weights.seeded_tree
+
+    def write_pth(path, arch, params, stats):
+        return weights.save_pth(path, weights.state_dict_from_params(arch, params, stats))
+
+    fk.reset_launch_counts()
+    dec1.reset_launch_counts()
+    gray = make_frames(FAMILY_HTTP_GRAY, HTTP_SIZE, seed=21)
+    rgb = rgb_pages(2, *HTTP_RGB_SIZE, seed=22)
+    tile = make_frames(1, HTTP_TILE_SIZE[0], seed=23, w=HTTP_TILE_SIZE[1])[0]
+    gray_bodies = [("/infer", *multipart_body(encode_png(im))) for im in gray]
+    rgb_bodies = [("/infer", *multipart_body(encode_png(im))) for im in rgb]
+    tile_body = ("/infer?mode=tile", *multipart_body(encode_png(tile)))
+
+    def direct_engine(path):
+        model, _ = load_model_for_eval(path, compute_dtype=torch.bfloat16, device="cuda")
+        return InferenceEngine(model, image_size=HTTP_SIZE, max_batch_size=8,
+                               compute_dtype=torch.bfloat16, warmup=False, device="cuda")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for arch in ("optimized", "enhanced"):
+            params, stats = seeded_tree(arch, 0, FAMILY_WIDTH)
+            pth = write_pth(os.path.join(tmp, f"{arch}.pth"), arch, params, stats)
+            t0 = time.perf_counter()
+            server = create_server(pth, model_arch="auto", host="127.0.0.1", port=_free_port(),
+                                   compute_dtype=torch.bfloat16, image_size=HTTP_SIZE,
+                                   max_batch_size=8, mode="both", warmup=True,
+                                   allow_reload=arch == "enhanced", log_dir=tmp)
+            if server.model_info["model"] != arch:
+                raise AssertionError(f"12b {pth}: detected {server.model_info['model']}")
+            thread = _start(server)
+            engine, tiler, port = server.engine, server.tiler, server.port
+            try:
+                print(f"12b {arch} (init_features {FAMILY_WIDTH}, "
+                      f"{sum(p.numel() for p in engine._model.parameters()):,} parameters) "
+                      f"from .pth, auto-detected, create_server bf16 {HTTP_SIZE} up in "
+                      f"{time.perf_counter() - t0:.1f} s", flush=True)
+                def one_by_one(p, bodies):
+                    return [_answer_pixels(_post_all(p, [b], 1)[0][0]) for b in bodies]
+
+                ref = [engine.infer_batch(im[None])[0] for im in gray[:4]]
+                worst = _gate(f"12b {arch}", list(zip(one_by_one(port, gray_bodies[:4]), ref))
+                              + [(got, _resized_reference(engine, imaging.to_luma(im, "RGB"),
+                                                          HTTP_SIZE))
+                                 for got, im in zip(one_by_one(port, rgb_bodies), rgb)]
+                              + [(one_by_one(port, [tile_body])[0], tiler(tile))])
+                n = HTTP_LOAD_REQUESTS["up"]
+                loop = (gray_bodies * -(-n // len(gray_bodies)))[:n]
+                _post_all(port, loop[:HTTP_CONNECTIONS], HTTP_CONNECTIONS)  # warm the pool
+                answers, lat, wall = _post_all(port, loop, HTTP_CONNECTIONS)
+                if any(a[0] != 200 for a in answers):
+                    raise AssertionError(f"12b {arch} loop: an answer was not 200")
+                rate = n / wall
+                p50, _, p99 = _percentiles_ms(lat)
+                print(f"12b {arch}: 4 gray + {len(rgb_bodies)} RGB + 1 tile answers, one at a "
+                      f"time, min PSNR {worst:.2f} dB against the engine/tiler called directly;"
+                      f" closed loop of {n} uploads {rate:.2f} req/s over {HTTP_CONNECTIONS} "
+                      f"connections (p50 "
+                      f"{p50:.1f} ms, p99 {p99:.1f} ms) on {card}", flush=True)
+
+                if arch == "enhanced":
+                    # behind 2 worker processes: the engine of this process
+                    main = sys.modules["__main__"]
+                    main_file = main.__dict__.pop("__file__", None)
+                    wport = _free_port()
+                    try:
+                        mps = serve_multiprocess(engine, host="127.0.0.1", port=wport,
+                                                 image_size=HTTP_SIZE, n_workers=2, log_dir=tmp,
+                                                 address=os.path.join(tmp, "engine.sock"),
+                                                 model_info=server.model_info)
+                    finally:
+                        if main_file is not None:
+                            main.__file__ = main_file
+                    try:
+                        deadline = time.time() + 120
+                        while True:
+                            try:
+                                if _get_json(wport, "/ping")[0] == 200:
+                                    break
+                            except OSError:
+                                pass
+                            if time.time() > deadline:
+                                raise AssertionError("12b workers never answered /ping")
+                            time.sleep(0.1)
+                        worst_w = _gate("12b enhanced --workers 2",
+                                        list(zip(one_by_one(wport, gray_bodies[:4]), ref)))
+                    finally:
+                        mps.stop(grace_s=60)
+                    print(f"12b enhanced behind 2 worker processes: 4 answers, min PSNR "
+                          f"{worst_w:.2f} dB against the engine called directly", flush=True)
+
+                    # /reload of a second .pth: other weights, other statistics
+                    params2, stats2 = seeded_tree(arch, 1, FAMILY_WIDTH)
+                    second = write_pth(os.path.join(tmp, "enhanced_2.pth"), arch, params2, stats2)
+                    mixed = write_pth(os.path.join(tmp, "enhanced_mixed.pth"), arch, params2,
+                                      stats)
+                    status, data = _post_all(port, [("/reload", json.dumps(
+                        {"model_path": second}).encode(), {"Content-Type": "application/json"})],
+                        1)[0][0]
+                    if status != 200:
+                        raise AssertionError(f"12b /reload answered {status}: {data}")
+                    after = one_by_one(port, gray_bodies[:4])
+                    after_tile = one_by_one(port, [tile_body])[0]
+                    e2, em = direct_engine(second), direct_engine(mixed)
+                    want2 = [e2.infer_batch(im[None])[0] for im in gray[:4]]
+                    want_mixed = [em.infer_batch(im[None])[0] for im in gray[:4]]
+                    p_new = _gate("12b /reload vs the second model's engine",
+                                  list(zip(after, want2)))
+                    p_before = min(psnr_u8(a, r) for a, r in zip(after, ref))
+                    p_mixed = min(psnr_u8(a, r) for a, r in zip(after, want_mixed))
+                    if not (p_before < HTTP_PSNR_GATE_DB and p_mixed < HTTP_PSNR_GATE_DB):
+                        raise AssertionError(
+                            f"12b /reload: the answers must leave both the first model ("
+                            f"{p_before:.2f} dB) and the second model's weights with the first "
+                            f"statistics ({p_mixed:.2f} dB)")
+                    if psnr_u8(after_tile, tiler(tile)) < HTTP_PSNR_GATE_DB:
+                        raise AssertionError("12b /reload: the tiler kept other weights")
+                    print(f"12b /reload of a second EnhancedUNet .pth: answers {p_new:.2f} dB "
+                          f"against its engine; against the first model {p_before:.2f} dB, "
+                          f"against its weights with the first statistics {p_mixed:.2f} dB; "
+                          f"the tiler swapped too", flush=True)
+            finally:
+                _stop(server, thread)
+    torch.cuda.synchronize()
+    counts = {**fk.LAUNCHES, **dec1.LAUNCHES}
+    if any(counts.values()):
+        raise AssertionError(f"12b launched kernels: {counts}")
+    print(f"12b kernel launches over the other families' serving: {counts}", flush=True)
+    return {"12b HTTP other families": counts}
+
+
+def optimized_f32_layers(card: str) -> None:
+    """Phase 12c: OptimizedUNet's f32 forward card vs CPU (phase 11f's
+    model and input), located layer by layer: each top-level module's
+    output error as the forward propagates it, and its own error when the
+    card runs it on the CPU run's input to it; relative to the output's
+    largest magnitude."""
+    from image_enhancement_deglaring_tpu_torch.modelio import export_jax_params, load_jax_params
+    from image_enhancement_deglaring_tpu_torch.models import OptimizedUNet
+    from image_enhancement_deglaring_tpu_torch.ops.conv_blocks import highest_precision
+
+    xf, _ = triptych_batch(2, TRAIN_SIZE, seed=14)
+    params = export_jax_params(OptimizedUNet(generator=torch.Generator().manual_seed(0)))
+    models, seen = {}, {}
+    for device in ("cuda", "cpu"):
+        m = OptimizedUNet().to(device).eval()
+        load_jax_params(m, params)
+        models[device], seen[device] = m, []
+        for name, mod in m.named_children():
+            mod.register_forward_hook(lambda mod, args, out, device=device, name=name:
+                                      seen[device].append((name, args[0].detach(),
+                                                           out.detach())))
+        with torch.no_grad(), highest_precision():
+            seen[device].append(("output", None, m(torch.from_numpy(xf).to(device))))
+    rows = []
+    for (name, x_cpu, y_cpu), (_, _, y_card) in zip(seen["cpu"], seen["cuda"]):
+        scale = float(y_cpu.abs().max())
+        prop = float((y_card.cpu() - y_cpu).abs().max())
+        own = math.nan
+        if x_cpu is not None:
+            with torch.no_grad(), highest_precision():
+                own = float((getattr(models["cuda"], name)(x_cpu.cuda()).cpu() - y_cpu)
+                            .abs().max())
+        rows.append((name, scale, prop, own))
+    print(f"12c OptimizedUNet f32 card vs CPU by module on {card} (phase 11f's model and "
+          f"input), max |out|, propagated |err|, own |err| (card on the CPU's input), own "
+          f"relative:", flush=True)
+    for name, scale, prop, own in rows:
+        print(f"12c   {name:>11}: max|out| {scale:.4g}, propagated {prop:.3g}, own {own:.3g}, "
+              f"own/max|out| {own / scale if scale else math.nan:.3g}", flush=True)
+    worst = max((r for r in rows if not math.isnan(r[3])), key=lambda r: r[3] / max(r[1], 1e-30))
+    print(f"12c largest own relative error: {worst[0]} ({worst[3] / worst[1]:.3g}); final "
+          f"output error {rows[-1][2]:.3g} (gate 1e-4 in phase 11f)", flush=True)
+
+
+def jpeg_and_families(card: str, single_load: dict | None) -> dict:
+    """Phase 12: 12a JPEG uploads, 12b every family served, 12c
+    OptimizedUNet's f32 error by layer. Returns launches by path."""
+    counts = {}
+    for label, fn, *args in (("12a", jpeg_uploads, card, single_load),
+                             ("12b", every_family_served, card),
+                             ("12c", optimized_f32_layers, card)):
+        t = time.perf_counter()
+        out = fn(*args)
+        if out:
+            counts.update(out)
+        print(f"phase {label}: {time.perf_counter() - t:.1f} s", flush=True)
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -2966,6 +3437,8 @@ def main() -> int:
     paths.update(phase("10 HTTP worker processes", http_workers, card, single_load))
     phase("11 resident training and the other families", resident_training, card, step_rate,
           loader_rates)
+    paths.update(phase("12 JPEG uploads, every family served", jpeg_and_families, card,
+                       single_load))
 
     src = "image_enhancement_deglaring_tpu_torch/csrc/"
     tpu = "image_enhancement_deglaring_tpu/ops/"

@@ -7,8 +7,8 @@ input, PNG outputs).
 
 The same flags and defaults as the JAX CLI, plus ``--device`` (default
 ``cuda``; without a card that raises unless ``--device cpu`` is given).
-Images are read and written by the port's PNG path (``serve.imaging``); a
-JPEG input raises until the port has a JPEG decoder. ``--visualize``
+Images (PNG or JPEG) are read by the port's image path (``serve.imaging``,
+``data.jpeg``) and written as PNG. ``--visualize
 (matplotlib) and ``--data_parallel`` raise NotImplementedError naming
 their ROADMAP.md Queue 1 item.
 """

@@ -5,9 +5,10 @@
 
 The same flags, defaults, printed lines and ``evaluation_results.txt`` as
 the JAX CLI, plus ``--device`` (default ``cuda``; without a card that
-raises unless ``--device cpu`` is given). ``--model`` takes every family.
+raises unless ``--device cpu`` is given). ``--model`` takes every family,
+from ``.onnx``, ``.pth``/``.pt``, ``.npz`` or a checkpoint directory.
 ``--n_devices > 1`` (ROADMAP.md Queue 1 item 13) exits before the model
-loads; a ``.pth`` artifact raises in ``load_model_for_eval`` (item 12).
+loads.
 """
 
 from __future__ import annotations

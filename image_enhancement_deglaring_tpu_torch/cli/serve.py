@@ -35,7 +35,7 @@ def parse_args(argv=None):
     p.add_argument("--model", type=str, default="auto",
                    choices=["auto", "lightweight", "optimized", "enhanced"],
                    help="model family of the checkpoint; auto detects from "
-                        "the artifact (the port serves lightweight)")
+                        "the artifact")
     p.add_argument("--max_batch_size", type=int, default=8)
     p.add_argument("--batch_timeout_ms", type=float, default=3.0)
     p.add_argument("--tile_overlap", type=int, default=32)
@@ -70,7 +70,6 @@ def _refuse_unported(args) -> None:
         (args.data_parallel is not None, "--data_parallel", 13),
         (args.quantize is not None, f"--quantize {args.quantize}", 10),
         (bool(args.profile_port), "--profile_port", 15),
-        (args.model not in ("auto", "lightweight"), f"--model {args.model}", 9),
     ]
     for bad, flag, item in todo:
         if bad:

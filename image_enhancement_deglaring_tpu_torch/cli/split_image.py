@@ -5,9 +5,9 @@
 Splits a [ground-truth | glared | mask] strip into three PNGs named
 {base}_ground_truth.png / {base}_glared.png / {base}_mask.png, as the JAX
 CLI does with PIL: the first two thirds are width // 3 wide, the last
-takes the remainder. The port reads PNG only, with its own codec, and
-writes each crop under the row filters PIL's encoder picks; a JPEG input
-fails until the port has a JPEG decoder (ROADMAP.md Queue 1 item 16).
+takes the remainder. The port reads PNG with its own codec and JPEG with
+its own decoder (``data.jpeg``), into the pixels PIL reads, and writes
+each crop as a PNG under the row filters PIL's encoder picks.
 """
 
 from __future__ import annotations
@@ -18,20 +18,18 @@ import sys
 
 
 def split_image(image_path: str, output_dir: str | None = None) -> bool:
-    from ..data.png import decode_png_image, encode_png
+    from ..data.png import encode_png
+    from ..serve.imaging import decode_image
 
     output_dir = output_dir or (os.path.dirname(image_path) or ".")
     os.makedirs(output_dir, exist_ok=True)
     try:
         with open(image_path, "rb") as f:
             data = f.read()
-        if data[:2] == b"\xff\xd8":
-            raise ValueError("JPEG input: the port has no JPEG decoder yet "
-                             "(ROADMAP.md Queue 1 item 16); convert it to PNG")
-        img = decode_png_image(data)
+        img = decode_image(data)
         if img.mode not in ("L", "LA", "RGB", "RGBA"):
-            raise ValueError(f"PNG mode {img.mode}: the port writes 8-bit L, LA, RGB "
-                             "and RGBA only")
+            raise ValueError(f"mode {img.mode}: the port writes 8-bit L, LA, RGB "
+                             "and RGBA PNGs only")
     except Exception as e:
         print(f"Error opening image: {e}")
         return False

@@ -5,7 +5,10 @@ with --test ping|infer|all, --url, --image flags).
         --url http://localhost:4000 [--test ping|infer|stats|all] [--image X.png]
 
 The JAX CLI's flags and output, on the standard library (``urllib``) and
-the port's PNG path instead of ``requests`` and PIL.
+the port's image path instead of ``requests`` and PIL. ``--image`` may be
+a PNG or a JPEG; the answer is saved as the PNG the server sent, under the
+JAX CLI's name with a ``.png`` extension (PIL re-encodes it by the name's
+extension, a JPEG for a ``.jpg`` upload; the port has no JPEG encoder).
 """
 
 from __future__ import annotations
@@ -62,7 +65,8 @@ def test_infer(url: str, image_path: str, out_dir: str = "test_output",
     png = base64.b64decode(json.loads(data)["image"])
     img = decode_image(png)
     os.makedirs(out_dir, exist_ok=True)
-    out = os.path.join(out_dir, f"enhanced_{os.path.basename(image_path)}")
+    stem, ext = os.path.splitext(os.path.basename(image_path))
+    out = os.path.join(out_dir, f"enhanced_{stem}{ext if ext.lower() == '.png' else '.png'}")
     with open(out, "wb") as f:
         f.write(png)
     h, w = img.pixels.shape[:2]

@@ -1,9 +1,10 @@
 """SD1 triptych pipeline: path discovery, seeded split, host decode.
 
 Counterpart of ``image_enhancement_deglaring_tpu.data.pipeline`` on its
-numpy path. Each sample is one (S, 3S) PNG laid out [ground-truth | glared
-| glare-mask]; it is read with the port's PNG codec (``data.png``), turned
-to grayscale and resized here. The split is the JAX package's (and the
+numpy path. Each sample is one (S, 3S) image laid out [ground-truth |
+glared | glare-mask]; it is read with the port's PNG codec (``data.png``)
+or JPEG decoder (``data.jpeg``) into the array PIL gives, turned to
+grayscale and resized here. The split is the JAX package's (and the
 reference's): sort paths, shuffle with ``np.random.RandomState(seed)``, cut
 at ``1 - val_split``.
 
@@ -19,7 +20,6 @@ import os
 
 import numpy as np
 
-from .png import read_png
 
 _IMG_EXTS = (".png", ".jpg", ".jpeg")
 _COEF_BITS = 11                 # OpenCV's INTER_RESIZE_COEF_BITS
@@ -99,6 +99,15 @@ def _resize_uint8(img: np.ndarray, size: int) -> np.ndarray:
     return np.clip((top + bottom + 2) >> 2, 0, 255).astype(np.uint8)
 
 
+def read_image(path) -> np.ndarray:
+    """The pixels ``np.asarray(PIL.Image.open(path))`` gives, for a PNG or a
+    JPEG (``serve.imaging.decode_image``)."""
+    from ..serve.imaging import decode_image
+
+    with open(path, "rb") as f:
+        return decode_image(f.read()).pixels
+
+
 def decode_triptych(path: str, image_size: int = 512, *, with_mask: bool = False,
                     use_native: bool | None = None):
     """Decode one SD1 sample -> (glared, ground_truth[, mask]) float32 in
@@ -108,7 +117,7 @@ def decode_triptych(path: str, image_size: int = 512, *, with_mask: bool = False
     if use_native:
         raise NotImplementedError("the native C++ decode route is not ported; "
                                   "use_native=None or False takes the numpy path")
-    img = read_png(path)
+    img = read_image(path)
     third = img.shape[1] // 3
     gt = _to_gray_uint8(img[:, :third])
     glared = _to_gray_uint8(img[:, third : 2 * third])
@@ -126,9 +135,8 @@ def decode_inference_image(path_or_array, image_size: int = 512, *,
     """Single-image inference preprocessing: gray, resize, [0,1] (H, W)
     (reference: src/preprocess.py:54-90).
 
-    A path is decoded by the port's image path (``serve.imaging``) into
-    the array ``np.asarray(PIL.Image.open(path))`` gives; a JPEG raises
-    until the port has a JPEG decoder. Array inputs may be uint8 [0,255]
+    A path (PNG or JPEG) is decoded into the array
+    ``np.asarray(PIL.Image.open(path))`` gives (``read_image``). Array inputs may be uint8 [0,255]
     or float [0,1]; floats are converted to the uint8 path up front, and a
     float array holding [0,255] values raises rather than saturating every
     pixel to white. ``use_native=True`` asks for the JAX package's C++
@@ -137,10 +145,7 @@ def decode_inference_image(path_or_array, image_size: int = 512, *,
         raise NotImplementedError("the native C++ decode route is not ported; "
                                   "use_native=None or False takes the numpy path")
     if isinstance(path_or_array, (str, os.PathLike)):
-        from ..serve.imaging import decode_image
-
-        with open(path_or_array, "rb") as f:
-            img = decode_image(f.read()).pixels
+        img = read_image(path_or_array)
     else:
         img = np.asarray(path_or_array)
         if np.issubdtype(img.dtype, np.floating):

@@ -6,8 +6,11 @@ It reads every PNG: bit depths 1, 2, 4, 8 and 16, gray, RGB, palette,
 gray+alpha and RGBA, plain or Adam7-interlaced, all five scanline
 filters, into the arrays ``np.asarray(PIL.Image.open(path))`` gives:
 (H, W) for one sample per pixel and (H, W, C) otherwise, in PIL's mode
-(``decode_png_image`` names it). It writes 8-bit gray, gray+alpha, RGB
-and RGBA, under one filter or under the filters PIL's encoder picks.
+(``decode_png_image`` names it). As PIL, it refuses an image of more than
+twice PIL's ``Image.MAX_IMAGE_PIXELS`` before it inflates anything, and
+inflates no more than the image's scanlines. It writes 8-bit gray,
+gray+alpha, RGB and RGBA, under one filter or under the filters PIL's
+encoder picks.
 """
 
 from __future__ import annotations
@@ -106,6 +109,7 @@ _MODES = {(1, 0): "1", (2, 0): "L", (4, 0): "L", (8, 0): "L", (16, 0): "I;16",
           (1, 3): "P", (2, 3): "P", (4, 3): "P", (8, 3): "P",
           (8, 4): "LA", (16, 4): "RGBA", (8, 6): "RGBA", (16, 6): "RGBA"}
 _SAMPLES = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}   # colour type -> samples per pixel
+_MAX_PIXELS = 2 * 89478485  # PIL's bomb limit: twice Image.MAX_IMAGE_PIXELS
 # Adam7 passes: (x0, y0, dx, dy)
 _ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
           (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
@@ -165,7 +169,17 @@ def decode_png_image(data: bytes) -> PngImage:
     if interlace not in (0, 1):
         raise ValueError(f"PNG interlace method {interlace} is invalid")
     samples = _SAMPLES[colour]
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    pixels = max(1, w) * max(1, h)
+    if pixels > _MAX_PIXELS:  # PIL's _decompression_bomb_check, before any allocation
+        raise ValueError(f"Image size ({pixels} pixels) exceeds limit of {_MAX_PIXELS} "
+                         "pixels, could be decompression bomb DOS attack.")
+    passes = [(w, h)] if interlace == 0 else [
+        (-(-(w - x0) // dx), -(-(h - y0) // dy)) for x0, y0, dx, dy in _ADAM7]
+    want = sum(ph * (1 + (pw * depth * samples + 7) // 8) for pw, ph in passes
+               if pw > 0 and ph > 0)
+    # as PIL, inflate no more than the image holds and ignore data past it
+    raw = np.frombuffer(zlib.decompressobj().decompress(b"".join(idat), max(want, 1)),
+                        np.uint8)
     if interlace == 0:
         img = _unpack(raw, w, h, depth, samples)
     else:

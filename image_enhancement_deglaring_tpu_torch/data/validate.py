@@ -8,11 +8,12 @@ port's PNG codec instead of PIL. Checks every image under
   bit depth by the rules ``data.png`` follows,
 - fully decodable pixel data (truncated/corrupt files).
 
-A JPEG is read as far as its frame header: its SOF marker gives the size
-and the mode PIL would open it in (1 component "L", 3 "RGB", 4 "CMYK"),
-so it is flagged as not RGBA, as the JAX validator flags it; its pixels
-are not decoded until the port has a JPEG decoder (ROADMAP.md Queue 1
-item 16), so a truncated JPEG is not reported under invalid pixels.
+A JPEG's header is read as ``PIL.Image.open`` reads it, up to its scan
+header: the frame header gives the size and the mode PIL opens it in (1
+component "L", 3 "RGB", 4 "CMYK"), so it is flagged as not RGBA, as the
+JAX validator flags it; a file cut before its scan header fails there.
+Its pixels are then decoded in full (``data.jpeg``), so a truncated JPEG
+is an invalid-pixels finding where PIL's decode raises.
 """
 
 from __future__ import annotations
@@ -26,10 +27,11 @@ _SOF_MARKERS = frozenset(range(0xC0, 0xD0)) - {0xC4, 0xC8, 0xCC}
 
 
 def jpeg_header(data: bytes) -> tuple[int, int, str]:
-    """(width, height, PIL's mode) from a JPEG's frame header."""
+    """(width, height, PIL's mode) from a JPEG's frame header, read as
+    ``PIL.Image.open`` reads the markers: up to a complete scan header."""
     if data[:2] != b"\xff\xd8":
         raise ValueError("not a JPEG file (no SOI marker)")
-    pos = 2
+    pos, header = 2, None
     while pos + 4 <= len(data):
         if data[pos] != 0xFF:
             raise ValueError(f"JPEG marker expected at byte {pos}")
@@ -41,24 +43,31 @@ def jpeg_header(data: bytes) -> tuple[int, int, str]:
             pos += 2
             continue
         (length,) = struct.unpack(">H", data[pos + 2:pos + 4])
+        if pos + 2 + length > len(data):
+            break  # PIL's _safe_read of the segment runs out
         if marker in _SOF_MARKERS:
-            if pos + 10 > len(data):
+            if length < 8:
                 break
+            if data[pos + 4] != 8:  # PIL's SOF handler refuses the file
+                raise ValueError(f"cannot handle {data[pos + 4]}-bit layers")
             height, width = struct.unpack(">HH", data[pos + 5:pos + 9])
             components = data[pos + 9]
             mode = _JPEG_MODES.get(components)
             if mode is None:
                 raise ValueError(f"JPEG with {components} components")
-            return width, height, mode
-        if marker == 0xDA:  # start of scan before any frame header
-            break
+            header = width, height, mode
+        if marker == 0xDA:  # start of scan: PIL stops reading markers here
+            if header is None:
+                break
+            return header
         pos += 2 + length
-    raise ValueError("JPEG file has no frame header")
+    raise ValueError("JPEG file has no complete frame and scan header")
 
 
 def check_png_dimensions(data_dir: str = "SD1", required_width: int = 1536,
                          required_height: int = 512):
     """Returns (incorrect_dimensions, invalid_channels, invalid_pixels, total)."""
+    from .jpeg import decode_jpeg
     from .pipeline import list_image_paths
     from .png import decode_png_image, png_header
 
@@ -91,10 +100,9 @@ def check_png_dimensions(data_dir: str = "SD1", required_width: int = 1536,
                     incorrect_dimensions.append((rel, w, h))
                 if mode != "RGBA":
                     invalid_channels.append((rel, mode))
-                if not jpeg:
-                    # the full decode: a truncated or bit-flipped file
-                    # raises here, not at the header
-                    decode_png_image(data)
+                # the full decode: a truncated or bit-flipped file raises
+                # here, not at the header
+                (decode_jpeg if jpeg else decode_png_image)(data)
             except Exception:
                 invalid_pixels.append(rel)
     return incorrect_dimensions, invalid_channels, invalid_pixels, total

@@ -25,9 +25,13 @@ from .._device import resolve_device
 from ..modelio.params_import import (
     detect_model_arch,
     enhanced_unet_params_from_onnx,
+    enhanced_unet_params_from_state_dict,
     lightweight_unet_params_from_onnx,
+    lightweight_unet_params_from_state_dict,
     load_jax_params,
+    load_torch_state_dict,
     optimized_unet_params_from_onnx,
+    optimized_unet_params_from_state_dict,
 )
 from ..models import EnhancedUNet, LightweightUNet, OptimizedUNet
 from ..ops.image import to_uint8
@@ -145,8 +149,9 @@ def _save_visualizations(x, y, pred, b, out_dir, vis_count, max_vis, psnrs, ssim
 
 def load_model_for_eval(model_path: str, *, model_arch: str = "auto",
                         compute_dtype: torch.dtype = torch.float32, device="cuda"):
-    """(model, params) from an ``.onnx`` file, a flat ``a/b/c`` ``.npz`` or
-    the port's checkpoint directory: the family's model in eval mode on
+    """(model, params) from an ``.onnx`` file, a torch ``.pth``/``.pt``
+    state dict (the reference's names), a flat ``a/b/c`` ``.npz`` or the
+    port's checkpoint directory: the family's model in eval mode on
     ``device``, its width taken from the artifact, and the JAX package's
     parameter tree (float32 numpy) it was loaded from. For EnhancedUNet
     ``params`` is the bundle ``{"params": ..., "batch_stats": ...}``: its
@@ -159,14 +164,10 @@ def load_model_for_eval(model_path: str, *, model_arch: str = "auto",
     composition, so on the CPU the model computes what the JAX model does
     with both knobs off. The other families have no kernel, as in the JAX
     package. ``model_arch="auto"`` finds the family in the artifact
-    (``detect_model_arch``); ``.pth`` files raise until the port reads
-    torch state dicts (ROADMAP.md Queue 1 item 12). ``device`` defaults to
-    CUDA and raises without a card unless "cpu" is passed."""
+    (``detect_model_arch``). ``device`` defaults to CUDA and raises
+    without a card unless "cpu" is passed."""
     dev = resolve_device(device)
     lower = model_path.lower()
-    if lower.endswith((".pth", ".pt")):
-        raise NotImplementedError(
-            ".pth/.pt state dicts are not ported yet (ROADMAP.md Queue 1 item 12)")
     if model_arch == "auto":
         model_arch = detect_model_arch(model_path)
     gen = torch.Generator().manual_seed(0)
@@ -178,6 +179,14 @@ def load_model_for_eval(model_path: str, *, model_arch: str = "auto",
             params = optimized_unet_params_from_onnx(model_path)
         else:
             params = lightweight_unet_params_from_onnx(model_path)
+    elif lower.endswith((".pth", ".pt")):
+        sd = load_torch_state_dict(model_path)
+        if model_arch == "enhanced":
+            params, stats = enhanced_unet_params_from_state_dict(sd)
+        elif model_arch == "optimized":
+            params = optimized_unet_params_from_state_dict(sd)
+        else:
+            params = lightweight_unet_params_from_state_dict(sd)
     elif lower.endswith(".npz"):
         params = load_npz_tree(model_path)
         # extractions of stateful models nest the collections; stateless
@@ -190,8 +199,8 @@ def load_model_for_eval(model_path: str, *, model_arch: str = "auto",
         item, _ = restore_checkpoint(model_path)
         params, stats = item["params"], item.get("model_state", {}).get("batch_stats")
     else:
-        raise ValueError(f"cannot load {model_path!r}: expected .onnx, .npz or a checkpoint "
-                         "directory")
+        raise ValueError(f"cannot load {model_path!r}: expected .onnx, .pth/.pt, .npz or a "
+                         "checkpoint directory")
     # module widths come from the ARTIFACT, not hard-coded defaults:
     # narrow exports (features_start=4) would otherwise fail to load
     width = _infer_width(params)

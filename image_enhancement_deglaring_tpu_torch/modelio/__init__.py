@@ -15,6 +15,7 @@ from .params_import import (
     load_jax_opt_state,
     load_jax_params,
     load_lightweight_unet,
+    load_torch_state_dict,
     optimized_unet_params_from_onnx,
     optimized_unet_params_from_state_dict,
 )

@@ -16,6 +16,8 @@
   optimizer state (optax ``inject_hyperparams(chain(clip_by_global_norm,
   adamw))``) into and out of a torch AdamW, so a run continues across the
   packages, under the leaf mapping written out below.
+- ``load_torch_state_dict`` reads a ``.pth``/``.pt`` state dict (the
+  reference's own artifact) into float32 numpy arrays for the importers.
 - ``load_lightweight_unet`` builds the model from an ``.onnx`` file.
 - ``detect_model_arch`` finds an artifact's model family.
 
@@ -76,6 +78,39 @@ def _gn_block_from_sd(sd, blk: str) -> dict:
         "gn2_scale": sd[f"{blk}.4.weight"].astype(np.float32).reshape(-1),
         "gn2_bias": sd[f"{blk}.4.bias"].astype(np.float32).reshape(-1),
     }
+
+
+def load_torch_state_dict(path: str, *,
+                          allow_pickle: bool = False) -> dict[str, np.ndarray]:
+    """A torch checkpoint as {name: float32 ndarray}: a full training
+    checkpoint ({"model_state_dict": ...} or {"state_dict": ...}) or a raw
+    state dict, by the reference's loader heuristics (reference:
+    evaluate.py:62-67, scripts/extract_weights.py:28-37).
+
+    Loads with ``weights_only=True`` (tensors and containers only): this
+    is reachable from ``/reload`` and autodetection, so a tampered file
+    must not run code when it is unpickled. A checkpoint that pickles
+    other objects needs an explicit ``allow_pickle=True``. A missing or
+    truncated file raises as itself."""
+    import pickle
+
+    try:
+        ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    except pickle.UnpicklingError as e:
+        # only the weights_only refusal gets the allow_pickle advice
+        if not allow_pickle:
+            raise ValueError(
+                f"{path} is not loadable with weights_only=True (it pickles "
+                "non-tensor objects). Re-save it as a plain state dict, or "
+                "pass allow_pickle=True if you trust its origin.") from e
+        ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(ckpt, dict) and "model_state_dict" in ckpt:
+        sd = ckpt["model_state_dict"]
+    elif isinstance(ckpt, dict) and "state_dict" in ckpt:
+        sd = ckpt["state_dict"]
+    else:
+        sd = ckpt
+    return {k: v.detach().cpu().numpy().astype(np.float32) for k, v in sd.items()}
 
 
 def lightweight_unet_params_from_state_dict(sd: dict[str, np.ndarray]) -> dict:
@@ -324,11 +359,11 @@ def detect_model_arch(path: str) -> str:
     ``detect_model_arch`` finds it:
     - .onnx: op census (the port's reader): BatchNormalization appears only
       in EnhancedUNet, Resize/GlobalAveragePool only in OptimizedUNet;
+    - .pth/.pt: the state dict's names (``*.conv_block.*`` only in
+      EnhancedUNet, ``*.fc.*`` only in OptimizedUNet's SE gates);
     - .npz: flat ``a/b/c`` key census (``arch_from_param_keys``);
     - a directory: the port's checkpoint, its ``train_meta.json``
-      ``model_arch``, else its parameters' module names.
-    A ``.pth`` state dict raises until the port reads torch state dicts of
-    the JAX package's layouts (ROADMAP.md Queue 1 item 12)."""
+      ``model_arch``, else its parameters' module names."""
     if not os.path.exists(path):
         raise FileNotFoundError(f"model artifact not found: {path}")
     lower = path.lower()
@@ -340,8 +375,12 @@ def detect_model_arch(path: str) -> str:
             return "optimized"
         return "lightweight"
     if lower.endswith((".pth", ".pt")):
-        raise NotImplementedError(
-            ".pth/.pt state dicts are not ported yet (ROADMAP.md Queue 1 item 12)")
+        sd = load_torch_state_dict(path)
+        if any(".conv_block." in k for k in sd):
+            return "enhanced"
+        if any(".fc." in k for k in sd):
+            return "optimized"
+        return "lightweight"
     if lower.endswith(".npz"):
         with np.load(path) as flat:
             tops = set()

@@ -21,8 +21,8 @@ host phase timings, line for line. Only ``_infer`` differs: the machine
 with the card has no PIL, so image decode, the luma conversion and the
 LANCZOS resizes run on the port's own host path (``serve.imaging``),
 equal to PIL's bit for bit (reference: api/app.py:150,203), and the
-response PNG is written by the port's codec. A JPEG upload answers 500
-until the port has a JPEG decoder (ROADMAP.md Queue 1 item 16).
+response PNG is written by the port's codec; JPEG uploads are decoded by
+the port's own decoder (``data.jpeg``), as PIL decodes them.
 Normalization, the U-Net forward, clipping and the uint8 conversion run
 on the card inside the engine (``serve.engine``).
 
@@ -351,8 +351,8 @@ class DeglareServer:
             arch = req.get("model", "auto")
             if arch == "auto":
                 arch = detect_model_arch(model_path)
-            # a family other than the engine's fails in the loader (only
-            # LightweightUNet is ported) or in load_jax_params' shape checks
+            # a family other than the engine's, or another width, fails in
+            # load_jax_params' name and shape checks
             from ..eval.harness import load_model_for_eval
 
             # the weights are read on the host; each backend copies them

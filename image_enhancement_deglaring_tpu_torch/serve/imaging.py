@@ -6,12 +6,14 @@ machine with the card has no PIL, and the pixel values are the API's
 contract. This module computes the same values bit for bit:
 
 - ``decode_image``: PNG bytes of any bit depth, colour type or interlace
-  (``data.png``). A JPEG body raises a ValueError that names the missing
-  decoder; any other body that is no PNG raises one too.
+  (``data.png``), and JPEG bytes (``FF D8 FF`` first, PIL's test): baseline,
+  extended and progressive Huffman JPEGs, as PIL's libjpeg-turbo decodes
+  them (``data.jpeg``). Any other body raises a ValueError.
 - ``to_luma``: ``np.array(img.convert("L"))`` by Pillow's rules
   (``Convert.c``): RGB/RGBA/palette colours by ``(R*19595 + G*38470 +
-  B*7471 + 0x8000) >> 16``, alpha ignored; LA its L; "1" to 0/255;
-  "I;16" clipped to 255.
+  B*7471 + 0x8000) >> 16``, alpha ignored; CMYK through ``cmyk2rgb``
+  first (each of C, M, Y to ``255-K - MULDIV255(v, 255-K)``); LA its L;
+  "1" to 0/255; "I;16" clipped to 255.
 - ``resize_lanczos``: ``Image.resize(size, Image.LANCZOS)`` of a uint8
   image by Pillow's ``Resample.c``: ``sinc(x)·sinc(x/3)`` on support
   ``3·max(scale, 1)`` centred at ``(i + 0.5)·scale``, normalised in
@@ -30,6 +32,7 @@ import math
 
 import numpy as np
 
+from ..data.jpeg import decode_jpeg
 from ..data.png import decode_png_image
 
 _PRECISION_BITS = 22  # Resample.c: 32 - 8 - 2
@@ -41,8 +44,7 @@ _LUMA = (19595, 38470, 7471)  # Convert.c's L24 weights, summing to 2^16
 def decode_image(data: bytes):
     """Image bytes -> ``data.png.PngImage`` (pixels, PIL mode, palette)."""
     if data[:3] == b"\xff\xd8\xff":
-        raise ValueError("JPEG upload: the port has no JPEG decoder yet "
-                         "(ROADMAP.md Queue 1 item 16); send PNG")
+        return decode_jpeg(bytes(data))
     return decode_png_image(bytes(data))
 
 
@@ -50,6 +52,15 @@ def _luma(rgb: np.ndarray) -> np.ndarray:
     """uint8 (..., >=3) -> uint8 (...), Pillow's integer luma."""
     r, g, b = (rgb[..., i].astype(np.uint32) for i in range(3))
     return ((r * _LUMA[0] + g * _LUMA[1] + b * _LUMA[2] + 0x8000) >> 16).astype(np.uint8)
+
+
+def _cmyk_to_rgb(cmyk: np.ndarray) -> np.ndarray:
+    """uint8 (..., 4) -> uint8 (..., 3), Pillow's ``cmyk2rgb``: with nk =
+    255 - K, each of C, M, Y to ``clip8(nk - MULDIV255(v, nk))``."""
+    c = cmyk.astype(np.int32)
+    nk = 255 - c[..., 3:4]
+    t = c[..., :3] * nk + 128
+    return np.clip(nk - ((t + (t >> 8)) >> 8), 0, 255).astype(np.uint8)
 
 
 def to_luma(img: np.ndarray, pil_mode: str, palette: np.ndarray | None = None) -> np.ndarray:
@@ -65,6 +76,8 @@ def to_luma(img: np.ndarray, pil_mode: str, palette: np.ndarray | None = None) -
         if palette is None:
             raise ValueError("mode P needs its palette")
         return _luma(np.asarray(palette, np.uint8))[img]
+    if pil_mode == "CMYK":
+        return _luma(_cmyk_to_rgb(img))
     if pil_mode == "LA":
         return img[..., 0].astype(np.uint8, copy=False)
     if pil_mode == "1":

@@ -211,6 +211,41 @@ def test_png_refuses_corrupt_files(tmp_path):
     np.testing.assert_array_equal(read_png(path), _image("RGB"))
 
 
+
+def _png_of(ihdr: tuple, raw: bytes) -> bytes:
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", *ihdr))
+            + chunk(b"IDAT", zlib.compress(raw, 9)) + chunk(b"IEND", b""))
+
+
+@pytest.mark.parametrize("interlace", [0, 1])
+def test_png_inflates_no_more_than_the_image_as_pil(interlace):
+    """A 3x2 gray image whose IDAT inflates to 64 MiB more than its
+    scanlines: PIL stops at the image's end and so does the port, without
+    inflating the rest."""
+    img = _image("L")[:2, :3]
+    passes = [(0, 0, 1, 1)] if not interlace else png._ADAM7
+    lines = b"".join(b"\x00" + row.tobytes() for x0, y0, dx, dy in passes
+                     for row in img[y0::dy, x0::dx] if row.size)
+    data = _png_of((3, 2, 8, 0, 0, 0, interlace), lines + bytes(64 << 20))
+    want = np.asarray(Image.open(io.BytesIO(data)))
+    np.testing.assert_array_equal(png.decode_png_image(data).pixels, want)
+    np.testing.assert_array_equal(want, img)
+
+
+@pytest.mark.parametrize("width,height", [(65535, 65535), (13377, 13378)])
+def test_png_decompression_bomb_refused_as_pil_refuses(width, height):
+    """An IHDR that claims more than twice PIL's MAX_IMAGE_PIXELS (13377 x
+    13378 is just over it): PIL refuses it at open, the port before it
+    inflates or allocates anything."""
+    data = _png_of((width, height, 8, 0, 0, 0, 0), b"\x00\x07")
+    with pytest.raises(Image.DecompressionBombError):
+        Image.open(io.BytesIO(data))
+    with pytest.raises(ValueError, match="decompression bomb"):
+        decode_png(data)
+
 # ---------------------------------------------------------- SD1 pipeline
 
 
@@ -246,6 +281,21 @@ def test_decode_triptych_exact_at_no_resize(sd1):
             np.testing.assert_array_equal(g, w)
     with pytest.raises(NotImplementedError, match="native"):
         decode_triptych(list_image_paths(sd1)[0], 32, use_native=True)
+
+
+def test_decode_triptych_reads_a_jpeg_as_jax_does(sd1, tmp_path):
+    """A triptych saved as JPEG (as users' own data may be): the pixels
+    are PIL's, so at no resize the samples equal the JAX loader's."""
+    from PIL import Image
+
+    for i, path in enumerate(list_image_paths(sd1)[:2]):
+        jpg = tmp_path / f"t{i}.jpg"
+        with Image.open(path) as im:
+            im.convert("RGB").save(jpg, quality=90, subsampling=2)
+        got = decode_triptych(str(jpg), 32, with_mask=True)
+        want = jax_pipeline.decode_triptych(str(jpg), 32, with_mask=True, use_native=False)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
 
 
 @pytest.mark.parametrize("size", [16, 24, 40, 64])

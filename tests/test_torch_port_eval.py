@@ -290,9 +290,12 @@ def test_cli_evaluate_parser_and_refusals(tmp_path):
     with pytest.raises(SystemExit) as got_exit:
         eval_cli.main(["--model_path", str(bad), "--device", "cpu"])
     assert str(got_exit.value) == str(want.value)
+    # a .pth is read now: an empty one fails in torch.load, as in the JAX CLI
     pth = tmp_path / "model.pth"
     pth.write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(Exception) as want_pth:
+        jax_eval_cli.main(["--model_path", str(pth), "--model", "lightweight"])
+    with pytest.raises(want_pth.type):
         eval_cli.main(["--model_path", str(pth), "--model", "lightweight", "--device", "cpu"])
 
 
@@ -347,17 +350,19 @@ def test_check_png_dimensions_equals_jax(mixed_dataset, capsys):
 
 
 def test_check_png_dimensions_jpeg_header_is_all_the_port_reads(mixed_dataset, tmp_path):
-    """The recorded difference (ROADMAP Queue 3): a JPEG cut after its frame
-    header is a decode failure for the JAX validator (PIL decodes it) and
-    only a mode finding for the port, which does not decode JPEG yet."""
+    """A JPEG cut after its frame header is a decode failure for both
+    validators now that the port decodes JPEG in full (the difference this
+    test once held is gone); one cut inside its headers fails at the
+    header in both, so neither records its size or mode."""
     (tmp_path / "val").mkdir()
     data = (mixed_dataset / "val" / "photo.jpeg").read_bytes()
     (tmp_path / "val" / "cut.jpg").write_bytes(data[:len(data) - 200])
+    (tmp_path / "val" / "head.jpg").write_bytes(data[:data.index(b"\xff\xda") + 4])
     kw = dict(required_width=96, required_height=32)
     got = validate.check_png_dimensions(str(tmp_path), **kw)
     want = jax_validate.check_png_dimensions(str(tmp_path), **kw)
-    assert got[:2] == want[:2] == ([], [("val/cut.jpg", "RGB")])
-    assert want[2] == ["val/cut.jpg"] and got[2] == []
+    assert got == want
+    assert got[:3] == ([], [("val/cut.jpg", "RGB")], ["val/cut.jpg", "val/head.jpg"])
     for cmyk, mode in ((4, "CMYK"), (1, "L")):
         assert validate.jpeg_header(_sof(cmyk))[2] == mode
     with pytest.raises(ValueError):
@@ -365,9 +370,11 @@ def test_check_png_dimensions_jpeg_header_is_all_the_port_reads(mixed_dataset, t
 
 
 def _sof(components: int) -> bytes:
-    """A JPEG header up to a baseline frame header of 8x16 pixels."""
+    """A JPEG header up to the scan header, its frame 8x16 pixels."""
     sof = bytes([8, 0, 8, 0, 16, components]) + bytes(3 * components)
-    return b"\xff\xd8\xff\xe0\x00\x04ab\xff\xc0" + (2 + len(sof)).to_bytes(2, "big") + sof
+    sos = bytes([1, 0, 0, 0, 63, 0])
+    return (b"\xff\xd8\xff\xe0\x00\x04ab\xff\xc0" + (2 + len(sof)).to_bytes(2, "big") + sof
+            + b"\xff\xda" + (2 + len(sos)).to_bytes(2, "big") + sos)
 
 
 @pytest.mark.parametrize("args", [[], ["--width", "96", "--height", "32"], ["missing"]])
@@ -405,13 +412,19 @@ def test_split_image_equals_jax_crops(tmp_path, capsys):
 
     for name in names:
         assert raw(tmp_path / "port" / name) == raw(tmp_path / "jax" / name)
-    # a JPEG input fails, naming the missing decoder; a missing file exits 1
+    # a JPEG input gives the JAX CLI's crops too; a missing file exits 1
     jpg = tmp_path / "photo.jpg"
     buf = io.BytesIO()
-    Image.fromarray(rng.integers(0, 256, (8, 9, 3), dtype=np.uint8)).save(buf, format="JPEG")
+    Image.fromarray(rng.integers(0, 256, (8, 29, 3), dtype=np.uint8)).save(buf, format="JPEG")
     jpg.write_bytes(buf.getvalue())
-    assert split_cli.main([str(jpg)]) == 1
-    assert "item 16" in capsys.readouterr().out
+    assert jax_split_cli.main([str(jpg), "-o", str(tmp_path / "jax_jpg")]) == 0
+    assert split_cli.main([str(jpg), "-o", str(tmp_path / "port_jpg")]) == 0
+    capsys.readouterr()
+    for name in sorted(os.listdir(tmp_path / "jax_jpg")):
+        with Image.open(tmp_path / "jax_jpg" / name) as a, \
+                Image.open(tmp_path / "port_jpg" / name) as b:
+            assert a.mode == b.mode == "RGB"
+            np.testing.assert_array_equal(np.asarray(b), np.asarray(a))
     assert split_cli.main([str(tmp_path / "none.png")]) == 1
     assert capsys.readouterr().out.startswith("Error: Image file not found")
 

@@ -241,7 +241,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "          'tools.load_test_api', 'serve.ipc', 'cli.evaluate', 'cli.check_dataset',\n"
         "          'cli.make_synthetic', 'cli.split_image', 'data.validate', 'utils.envfile',\n"
         "          'ops.image', '__main__', 'ops.augment_device', 'train.resident',\n"
-        "          'models.optimized_unet', 'models.enhanced_unet', 'models.model_utils'):\n"
+        "          'models.optimized_unet', 'models.enhanced_unet', 'models.model_utils',\n"
+        "          'data.jpeg'):\n"
         "    assert pkg.__name__ + '.' + m in names, m\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'PIL', 'cv2', 'matplotlib',\n"
