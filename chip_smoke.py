@@ -140,7 +140,29 @@ Phases, each fatal on failure:
    the first model's and its own weights-with-the-first-statistics'; no
    kernel launches; (c) OptimizedUNet's f32 forward card vs CPU, module by
    module: the error each module's output carries, and its own on the
-   CPU run's input.
+   CPU run's input;
+13. the model-artifact lifecycle and int8 serving, on the production
+   LightweightUNet at 512x512 with the kernels on: (a)
+   ``tools.e2e_lifecycle --device cuda --size 512`` in its own process
+   (synthesize 24 + 8 triptychs, validate, train 2 epochs, export to
+   ONNX, evaluate the export, serve it, ``cli.test_api --test all``, the
+   frontend proxy, SIGTERM drain): every stage PASS, the export over
+   1,000,000 bytes, each stage's seconds; (b) the export against its
+   checkpoint: ``load_model_for_eval`` gives the same parameters bit for
+   bit, ``create_server`` on each answers the same pages at inf dB one at
+   a time (K1/K3 14/4 per forward), and ``run_onnx`` on the host agrees
+   with the f32 forward on the card at 64x64 within 1e-4; (c)
+   ``InferenceEngine(quantize="int8")`` on best_model.onnx: >= 45 dB
+   against the unquantized engine in float32 on 8 uniform random 512x512
+   frames (the JAX gate's dtype and inputs), read in bf16 and on
+   synthetic pages beside it; its kernels int8 on the card and their
+   bytes; ``reload_params`` equal to a fresh int8 engine; bf16 img/s at
+   buckets 8 and 64, int8 and not, in interleaved rounds; one /infer
+   through ``cli.serve --quantize int8 --workers 2``; (d)
+   ``calibrate_act_scales`` on 4 pages, then the ``act_scales`` forward
+   with every site and with ``HOT_SITES_512`` at buckets 8 and 64: SNR >=
+   20 dB against the exact forward, device ms and busy share beside
+   ``act_scales=None``; K1/K3 14/4 per forward on every path.
 
 The line before the last is a JSON object with one entry per kernel, its
 launches also by path (each counted from 0 in its own run); the last
@@ -3392,6 +3414,374 @@ def jpeg_and_families(card: str, single_load: dict | None) -> dict:
     return counts
 
 
+
+# phase 13: the model-artifact lifecycle and int8 serving, on the production
+# LightweightUNet (features 8..128, 486,409 parameters), 512^2, bf16, the
+# kernels on. Gates: the export's parameters bit for bit and its answers
+# at inf dB (13b); run_onnx on the host against the f32 forward on the
+# card within LIFECYCLE_ONNX_ATOL at 64^2 (the CPU tests' bound for the
+# f32 forward against the numpy executor); int8 weights >= 45 dB against
+# the unquantized engine (the JAX package's gate, tests/test_serve.py);
+# the act_scales forward >= 20 dB SNR against the exact one (its gate,
+# tests/test_quant_act.py). K1/K3 exactly 14/4 per forward on each path.
+LIFECYCLE_TRAIN, LIFECYCLE_EPOCHS, LIFECYCLE_ONNX_ATOL = 24, 2, 1e-4
+INT8_PAGES, INT8_ROUNDS = 8, 5
+INT8_PSNR_GATE_DB, ACT_SNR_GATE_DB, ACT_CALIB_PAGES = 45.0, 20.0, 4
+STAGES = ("make_synthetic", "check_dataset", "train", "export_onnx", "evaluate_onnx",
+          "serve_up", "test_api_all", "frontend_proxy", "sigterm_drain")
+
+
+def _per_forward(counts: dict, forwards: int, label: str) -> None:
+    """Fails unless K1 and K3 launched exactly 14 and 4 times per forward
+    and no other kernel of the port did."""
+    want = {"gn_silu_flat": 14 * forwards, "gn_silu_nhwc": 0, "conv3x3_gn_silu": 4 * forwards,
+            "conv3x3_gn_silu_batched": 0, "dec1_output": 0}
+    if forwards == 0 or counts != want:
+        raise AssertionError(f"{label}: want 14 K1 / 4 K3 launches per forward over "
+                             f"{forwards} forwards, got {counts}")
+
+
+def _launches() -> dict:
+    from image_enhancement_deglaring_tpu_torch.ops import dec1
+    from image_enhancement_deglaring_tpu_torch.ops import fused_kernels as fk
+
+    torch.cuda.synchronize()
+    return {**fk.LAUNCHES, **dec1.LAUNCHES}
+
+
+def _reset_launches() -> None:
+    from image_enhancement_deglaring_tpu_torch.ops import dec1
+    from image_enhancement_deglaring_tpu_torch.ops import fused_kernels as fk
+
+    torch.cuda.synchronize()
+    fk.reset_launch_counts()
+    dec1.reset_launch_counts()
+
+
+def lifecycle_cli(work: str) -> dict:
+    """Phase 13a: ``tools.e2e_lifecycle --device cuda --size 512`` in its own
+    process: every stage's PASS line, rc 0, the export over 1,000,000
+    bytes. Returns its summary."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m",
+                        "image_enhancement_deglaring_tpu_torch.tools.e2e_lifecycle",
+                        "--device", "cuda", "--size", "512", "--epochs", str(LIFECYCLE_EPOCHS),
+                        "--work_dir", work], cwd=REPO, capture_output=True, text=True,
+                       timeout=900)
+    passed = [ln.split()[1] for ln in r.stdout.splitlines() if ln.startswith("PASS ")]
+    if r.returncode != 0 or tuple(passed) != STAGES:
+        raise AssertionError(f"13a lifecycle rc {r.returncode}, passed {passed}: "
+                             f"{r.stdout[-3000:]}{r.stderr[-3000:]}")
+    summary = json.loads(next(ln for ln in r.stdout.splitlines()
+                              if ln.startswith("E2E_SUMMARY ")).split(" ", 1)[1])
+    if summary["onnx_bytes"] <= 1_000_000:
+        raise AssertionError(f"13a export of {summary['onnx_bytes']} bytes")
+    print(f"13a tools.e2e_lifecycle --device cuda --size 512 ({LIFECYCLE_TRAIN} train + 8 val "
+          f"triptychs, {LIFECYCLE_EPOCHS} epochs): every stage PASS, rc 0, "
+          f"{time.perf_counter() - t0:.1f} s; best val L1 "
+          f"{summary['train_best_val_loss']:.5f}, the export's L1 {summary['onnx_l1']:.4f}, "
+          f"{summary['onnx_bytes']:,} bytes", flush=True)
+    print("13a stage seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in
+                                             summary["stage_seconds"].items()), flush=True)
+    return summary
+
+
+def exported_artifact(card: str, work: str) -> dict:
+    """Phase 13b: 13a's export against its checkpoint: the parameters bit
+    for bit; ``create_server`` on each answers the same pages at inf dB, one
+    at a time, K1/K3 14/4 per forward; ``run_onnx`` on the host against the
+    f32 forward on the card at 64^2. Returns the launches."""
+    from image_enhancement_deglaring_tpu_torch.data.png import encode_png
+    from image_enhancement_deglaring_tpu_torch.eval import load_model_for_eval
+    from image_enhancement_deglaring_tpu_torch.modelio import run_onnx
+    from image_enhancement_deglaring_tpu_torch.serve.http_server import create_server
+    from image_enhancement_deglaring_tpu_torch.tools.load_test_api import multipart_body
+    from image_enhancement_deglaring_tpu_torch.utils import flatten_tree
+
+    onnx = os.path.join(work, "models", "best_model.onnx")
+    ckpt = os.path.join(work, "models", "best_model")
+    trees = {p: flatten_tree(load_model_for_eval(p, device="cuda")[1]) for p in (onnx, ckpt)}
+    if trees[onnx].keys() != trees[ckpt].keys() or not all(
+            np.array_equal(trees[onnx][k], trees[ckpt][k]) for k in trees[ckpt]):
+        raise AssertionError("13b: the export's parameters differ from its checkpoint's")
+    pages = make_frames(4, HTTP_SIZE, seed=131)
+    bodies = [("/infer", *multipart_body(encode_png(im))) for im in pages]
+    answers, counts = {}, {}
+    for label, path in (("onnx", onnx), ("checkpoint", ckpt)):
+        server = create_server(path, host="127.0.0.1", port=_free_port(),
+                               compute_dtype=torch.bfloat16, image_size=HTTP_SIZE,
+                               max_batch_size=8, warmup=True, log_dir=work, device="cuda")
+        thread = _start(server)
+        try:
+            b0 = server.engine.stats()["batches_dispatched"]
+            _reset_launches()
+            answers[label] = [_answer_pixels(_post_all(server.port, [b], 1)[0][0])
+                              for b in bodies]
+            counts = _launches()
+            _per_forward(counts, server.engine.stats()["batches_dispatched"] - b0,
+                         f"13b create_server({label})")
+        finally:
+            _stop(server, thread)
+    worst = min(psnr_u8(a, b) for a, b in zip(answers["onnx"], answers["checkpoint"]))
+    if worst != math.inf:
+        raise AssertionError(f"13b: the export answers {worst:.2f} dB against its checkpoint")
+
+    model, _ = load_model_for_eval(onnx, device="cuda")  # float32, the kernels on
+    x = triptych_batch(2, 64, seed=132)[0]
+    with torch.inference_mode():
+        card_out = model(torch.from_numpy(x).cuda()).cpu().numpy()
+    t0 = time.perf_counter()
+    host = run_onnx(onnx, {"input": x.transpose(0, 3, 1, 2).copy()})["output"]
+    t_host = time.perf_counter() - t0
+    err = float(np.abs(host.transpose(0, 2, 3, 1) - card_out).max())
+    print(f"13b export vs checkpoint: {len(trees[ckpt])} leaves equal bit for bit; "
+          f"create_server on each, {len(pages)} pages one at a time: min PSNR {worst} dB, "
+          f"K1/K3 launches {counts['gn_silu_flat']}/{counts['conv3x3_gn_silu']} over "
+          f"{len(pages)} forwards; run_onnx (numpy, {t_host:.2f} s on the host) vs the f32 "
+          f"forward on {card} at 2x64x64: max |diff| {err:.3g} (need <= "
+          f"{LIFECYCLE_ONNX_ATOL})", flush=True)
+    if err > LIFECYCLE_ONNX_ATOL:
+        raise AssertionError(f"13b run_onnx vs the card: {err:.3g}")
+    return {"13b HTTP exported .onnx": counts}
+
+
+def int8_weights(card: str, work: str) -> dict:
+    """Phase 13c: ``InferenceEngine(quantize="int8")`` on best_model.onnx
+    against ``quantize=None``, the kernels on: fidelity in float32 (the JAX
+    gate's dtype and inputs) and in bf16, int8 storage on the card,
+    ``reload_params``, bf16 img/s at buckets 8 and 64 in interleaved rounds,
+    launches; then one /infer through ``cli.serve --quantize int8
+    --workers 2``. Returns the launches of the int8 forwards."""
+    import shutil
+    import signal
+    import tempfile
+
+    from image_enhancement_deglaring_tpu_torch.data.png import encode_png
+    from image_enhancement_deglaring_tpu_torch.eval import load_model_for_eval
+    from image_enhancement_deglaring_tpu_torch.serve.engine import InferenceEngine
+    from image_enhancement_deglaring_tpu_torch.tools.load_test_api import multipart_body
+    from image_enhancement_deglaring_tpu_torch.train.checkpoint import restore_params
+    from image_enhancement_deglaring_tpu_torch.utils import flatten_tree
+
+    def pair(dtype, max_batch, warmup):
+        model, params = load_model_for_eval(ONNX, compute_dtype=dtype, device="cuda")
+        return {q: InferenceEngine(model, image_size=512, max_batch_size=max_batch,
+                                   compute_dtype=dtype, quantize=q, device="cuda",
+                                   warmup=warmup) for q in (None, "int8")}, params
+
+    # the gate's inputs are the JAX test's: uniform random frames, float32
+    # engines; seeded synthetic pages, and both in bf16, are read beside it
+    noise = (np.random.default_rng(133).random((INT8_PAGES, 512, 512)) * 255).astype(np.uint8)
+    pages = make_frames(INT8_PAGES, 512, seed=133)
+    f32, _ = pair(torch.float32, 8, False)
+    engines, prod_params = pair(torch.bfloat16, 64, True)
+    q8 = engines["int8"]
+    psnr, total = {}, {}
+    for dtype, pr in (("float32", f32), ("bf16", engines)):
+        for kind, frames in (("noise", noise), ("pages", pages)):
+            want = pr[None].infer_batch(frames)
+            _reset_launches()
+            got = pr["int8"].infer_batch(frames)
+            counts = _launches()
+            _per_forward(counts, 1, f"13c int8 engine {dtype}")
+            total = {k: total.get(k, 0) + v for k, v in counts.items()}
+            psnr[(dtype, kind)] = [psnr_u8(a, b) for a, b in zip(got, want)] + [
+                psnr_u8(got, want)]
+            if (dtype, kind) == ("bf16", "noise"):
+                got_bf16 = got
+    print(f"13c int8 weights against the unquantized engine, {INT8_PAGES} frames at 512^2, "
+          f"K1/K3 14/4 per forward on {card}:", flush=True)
+    for (dtype, kind), v in psnr.items():
+        print(f"13c   {dtype} {kind}: PSNR {v[-1]:.2f} dB over the batch, per frame "
+              + ", ".join(f"{x:.2f}" for x in v[:-1])
+              + (f" (need >= {INT8_PSNR_GATE_DB})" if (dtype, kind) == ("float32", "noise")
+                 else " (no gate)"), flush=True)
+    p = psnr[("float32", "noise")][-1]
+    if p < INT8_PSNR_GATE_DB:
+        raise AssertionError(f"13c int8 fidelity {p:.2f} dB")
+    for eng in f32.values():
+        eng.stop()
+    got = got_bf16
+
+    q_leaves = flatten_tree(q8._int8[1])
+    s_leaves = flatten_tree(q8._int8[2])
+    kernels = {k: v for k, v in q_leaves.items() if v.ndim >= 2}
+    bad = [k for k, v in kernels.items() if v.dtype != torch.int8 or v.device.type != "cuda"]
+    if bad or not kernels:
+        raise AssertionError(f"13c: leaves not int8 on the card: {bad}")
+    int8_bytes = sum(v.numel() for v in kernels.values())
+    scale_bytes = sum(s_leaves[k].numel() * 4 for k in kernels)
+    f32_bytes = sum(v.numel() * 4 for v in kernels.values())
+    rest = sum(v.numel() * v.element_size() for k, v in q_leaves.items() if k not in kernels)
+    print(f"13c int8 weights on {card}: {len(kernels)} kernels as torch.int8 on cuda, "
+          f"{int8_bytes:,} B + {scale_bytes:,} B of float32 scales against {f32_bytes:,} B in "
+          f"float32 ({(int8_bytes + scale_bytes) / f32_bytes:.3f}x); {len(q_leaves) - len(kernels)}"
+          f" vectors stay float32 ({rest:,} B)", flush=True)
+
+    # reload_params quantizes again: 13a's trained weights against a fresh
+    # int8 engine on them
+    params = restore_params(os.path.join(work, "models", "best_model"))
+    q8.reload_params(params)
+    fresh_model, _ = load_model_for_eval(os.path.join(work, "models", "best_model"),
+                                         compute_dtype=torch.bfloat16, device="cuda")
+    fresh = InferenceEngine(fresh_model, image_size=512, max_batch_size=64,
+                            compute_dtype=torch.bfloat16, quantize="int8", device="cuda",
+                            warmup=False)
+    a, b = q8.infer_batch(noise), fresh.infer_batch(noise)
+    if not np.array_equal(a, b) or psnr_u8(a, got) >= INT8_PSNR_GATE_DB:
+        raise AssertionError(f"13c reload_params: {psnr_u8(a, b):.2f} dB against a fresh int8 "
+                             f"engine, {psnr_u8(a, got):.2f} dB against the old weights")
+    print(f"13c reload_params under int8 (13a's weights): equal to a fresh int8 engine bit for "
+          f"bit; {psnr_u8(a, got):.2f} dB against the old weights' answers", flush=True)
+    q8.reload_params(prod_params)  # back to the production weights for the rates
+
+    frames = make_frames(64, 512, seed=134)
+    rates: dict = {}
+    for b, iters in ((8, 30), (64, 8)):
+        for q, eng in engines.items():
+            eng.infer_batch(frames[:b])
+        for r in range(INT8_ROUNDS):
+            order = list(engines)
+            random.Random(r).shuffle(order)
+            for q in order:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(iters):
+                    engines[q].infer_batch(frames[:b])
+                rates.setdefault((b, q), []).append(b * iters / (time.perf_counter() - t0))
+    for b in (8, 64):
+        line = []
+        for q in (None, "int8"):
+            v = sorted(rates[(b, q)])
+            line.append(f"{q or 'bf16'} {v[len(v) // 2]:.1f} img/s ({v[0]:.1f}-{v[-1]:.1f})")
+        med = {q: sorted(rates[(b, q)])[INT8_ROUNDS // 2] for q in (None, "int8")}
+        print(f"13c infer_batch bucket {b}, 512^2, {INT8_ROUNDS} interleaved rounds, median "
+              f"(range): {'; '.join(line)}; int8/bf16 {med['int8'] / med[None]:.4f} on {card}",
+              flush=True)
+    busy = {q: busy_share(lambda q=q: engines[q].infer_batch(frames)) for q in engines}
+    print("13c one bucket-64 batch: " + "; ".join(
+        f"{q or 'bf16'} device busy {ms:.3f} ms, busy share {sh:.3f}"
+        for q, (ms, sh) in busy.items()), flush=True)
+    for eng in engines.values():
+        eng.stop()
+
+    # cli.serve --quantize int8 --workers 2 in its own process
+    port = _free_port()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_int8_")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m",
+                             "image_enhancement_deglaring_tpu_torch.cli.serve",
+                             "--model_path", ONNX, "--host", "127.0.0.1", "--port", str(port),
+                             "--workers", "2", "--quantize", "int8", "--log_dir", tmp], cwd=REPO,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        deadline = time.time() + 300
+        while True:
+            try:
+                if _get_json(port, "/ping") == (200, {"message": "pong"}):
+                    break
+            except OSError:
+                pass
+            if time.time() > deadline or proc.poll() is not None:
+                raise AssertionError("13c cli.serve --quantize int8 never answered /ping")
+            time.sleep(0.1)
+        t_up = time.perf_counter() - t0
+        (status, payload), = _post_all(port, [("/infer", *multipart_body(
+            encode_png(noise[0])))], 1)[0]
+        stats = _get_json(port, "/stats")[1]
+        proc.send_signal(signal.SIGTERM)
+        out = proc.communicate(timeout=300)[0]
+    finally:
+        proc.kill()
+        proc.wait(60)
+        shutil.rmtree(tmp, ignore_errors=True)
+    p_cli = psnr_u8(_answer_pixels((status, payload)), got[0]) if status == 200 else -math.inf
+    print(f"13c cli.serve --quantize int8 --workers 2: /ping after {t_up:.1f} s, /infer {status} "
+          f"at {p_cli:.2f} dB against the int8 engine, /stats quantize "
+          f"{stats.get('quantize')!r}, SIGTERM exit code {proc.returncode}", flush=True)
+    if (status != 200 or stats.get("quantize") != "int8" or proc.returncode != 0
+            or p_cli < INT8_PSNR_GATE_DB):
+        raise AssertionError(f"13c cli.serve --quantize int8: {status}, {stats}, exit "
+                             f"{proc.returncode}: {out[-2000:]}")
+    return {"13c int8 engine": total}
+
+
+def int8_activations(card: str) -> dict:
+    """Phase 13d: ``calibrate_act_scales`` on seeded 512^2 pages, then the
+    forward with every site and with ``HOT_SITES_512`` against
+    ``act_scales=None`` at buckets 8 and 64: SNR, device ms and busy share,
+    launches. Returns the launches of the quantized forwards."""
+    from image_enhancement_deglaring_tpu_torch.eval import load_model_for_eval
+    from image_enhancement_deglaring_tpu_torch.models import calibrate_act_scales
+    from image_enhancement_deglaring_tpu_torch.ops.quant import HOT_SITES_512, subset_act_scales
+
+    model, _ = load_model_for_eval(ONNX, compute_dtype=torch.bfloat16, device="cuda")
+    calib = triptych_batch(ACT_CALIB_PAGES, 512, seed=135)[0]
+    t0 = time.perf_counter()
+    scales = calibrate_act_scales(model, [calib])
+    torch.cuda.synchronize()
+    t_cal = time.perf_counter() - t0
+    sites = {"all": scales, "hot": subset_act_scales(scales, HOT_SITES_512)}
+    n_sites = {k: sum(len(v) if isinstance(v, dict) else 1 for v in s.values())
+               for k, s in sites.items()}
+    print(f"13d calibrate_act_scales on {ACT_CALIB_PAGES} seeded 512^2 pages: {t_cal:.2f} s, "
+          f"{n_sites['all']} sites ({n_sites['hot']} in HOT_SITES_512)", flush=True)
+    total: dict = {}
+    x64 = torch.from_numpy(triptych_batch(64, 512, seed=136)[0]).to("cuda", torch.bfloat16)
+    for b in (8, 64):
+        x = x64[:b]
+        with torch.inference_mode():
+            exact = model(x)
+            for label, sc in sites.items():
+                _reset_launches()
+                got = model(x, act_scales=sc)
+                counts = _launches()
+                _per_forward(counts, 1, f"13d act_scales={label} bucket {b}")
+                for k, v in counts.items():
+                    total[k] = total.get(k, 0) + v
+                snr = 10 * math.log10(float(exact.square().mean())
+                                      / float((got - exact).square().mean()))
+                if snr < ACT_SNR_GATE_DB:
+                    raise AssertionError(f"13d {label} bucket {b}: SNR {snr:.2f} dB")
+                print(f"13d act_scales={label} ({n_sites[label]} sites) bucket {b}: SNR "
+                      f"{snr:.2f} dB against the exact forward (need >= {ACT_SNR_GATE_DB}); "
+                      f"K1/K3 {counts['gn_silu_flat']}/{counts['conv3x3_gn_silu']}",
+                      flush=True)
+        for label, sc in (("none", None), *sites.items()):
+            def fwd(sc=sc):
+                with torch.inference_mode():
+                    model(x, act_scales=sc)
+            ms, share = busy_share(fwd)
+            t = time_ms(fwd, iters=5 if b == 64 else 10, warmup=2, rounds=3)
+            print(f"13d bucket {b} act_scales={label}: device busy {ms:.3f} ms per forward, busy "
+                  f"share {share:.3f}; {t:.3f} ms per forward by CUDA events on {card}",
+                  flush=True)
+    return {"13d act_scales forward": total}
+
+
+def lifecycle_and_int8(card: str) -> dict:
+    """Phase 13: 13a the lifecycle through the port's CLIs, 13b the exported
+    artifact, 13c int8 weights, 13d int8 activations. Returns launches by
+    path."""
+    import shutil
+    import tempfile
+
+    counts: dict = {}
+    work = tempfile.mkdtemp(prefix="chip_smoke_lifecycle_")
+    try:
+        for label, fn, *args in (("13a", lifecycle_cli, work),
+                                 ("13b", exported_artifact, card, work),
+                                 ("13c", int8_weights, card, work),
+                                 ("13d", int8_activations, card)):
+            t = time.perf_counter()
+            out = fn(*args)
+            if label != "13a":
+                counts.update(out)
+            print(f"phase {label}: {time.perf_counter() - t:.1f} s", flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return counts
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -3439,6 +3829,8 @@ def main() -> int:
           loader_rates)
     paths.update(phase("12 JPEG uploads, every family served", jpeg_and_families, card,
                        single_load))
+    paths.update(phase("13 lifecycle, exported artifact, int8 serving", lifecycle_and_int8,
+                       card))
 
     src = "image_enhancement_deglaring_tpu_torch/csrc/"
     tpu = "image_enhancement_deglaring_tpu/ops/"

@@ -42,7 +42,7 @@ def parse_args(argv=None):
     p.add_argument("--compute_dtype", type=str, default="bfloat16",
                    choices=["bfloat16", "float32"])
     p.add_argument("--quantize", type=str, default=None, choices=["int8"],
-                   help="serve with int8 weights (not ported yet)")
+                   help="serve with int8 weights (per-output-channel PTQ)")
     p.add_argument("--image_size", type=int, default=512,
                    help="model input resolution (resize mode) / tile size")
     p.add_argument("--workers", type=int, default=1,
@@ -68,7 +68,6 @@ def _refuse_unported(args) -> None:
     """Flags whose parts of the port do not exist yet, with their queue item."""
     todo = [
         (args.data_parallel is not None, "--data_parallel", 13),
-        (args.quantize is not None, f"--quantize {args.quantize}", 10),
         (bool(args.profile_port), "--profile_port", 15),
     ]
     for bad, flag, item in todo:
@@ -98,8 +97,8 @@ def main(argv=None):
         model_arch=args.model, max_batch_size=args.max_batch_size,
         batch_timeout_ms=args.batch_timeout_ms, compute_dtype=dtype,
         tile_overlap=args.tile_overlap, log_dir=args.log_dir,
-        image_size=args.image_size, allow_reload=args.allow_reload,
-        device=args.device,
+        image_size=args.image_size, quantize=args.quantize,
+        allow_reload=args.allow_reload, device=args.device,
     )
     if args.workers > 1:
         import signal

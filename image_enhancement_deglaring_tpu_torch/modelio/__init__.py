@@ -1,7 +1,14 @@
-"""Weight import for the port (numpy ONNX reader, JAX parameter trees and
-optimizer state)."""
+"""Weight import and export for the port (numpy ONNX reader, writer and
+executor, JAX parameter trees and optimizer state)."""
 
+from .onnx_exec import run_graph, run_onnx
 from .onnx_reader import load_onnx
+from .onnx_writer import (
+    export_enhanced_unet,
+    export_lightweight_unet,
+    export_model,
+    export_optimized_unet,
+)
 from .params_import import (
     arch_from_param_keys,
     detect_model_arch,

@@ -31,6 +31,7 @@ from ..ops.conv_blocks import (
     upsample2x_matmul,
 )
 from ..ops.fused_kernels import fused_conv3x3_gn_silu
+from ..ops.quant import fake_quant_act_int8
 
 
 def _uniform(shape, fan_in: int, generator, device) -> nn.Parameter:
@@ -40,11 +41,44 @@ def _uniform(shape, fan_in: int, generator, device) -> nn.Parameter:
     return nn.Parameter(t)
 
 
+def _act_site(t: torch.Tensor, name: str, act_scales, stats):
+    """One int8-activation quantization site (see ``ops.quant``).
+
+    ``act_scales`` selects the mode: None = off (the exact forward);
+    "calib" = record per-channel max|t| as ``stats[name]``; a dict = store
+    ``t`` as int8 with ``act_scales[name]``'s scales (a site missing from
+    the dict runs unquantized)."""
+    if act_scales is None:
+        return t
+    if isinstance(act_scales, str):  # "calib"
+        stats[name] = t.float().abs().amax(dim=(0, 1, 2))
+        return t
+    scale = act_scales.get(name)
+    return t if scale is None else fake_quant_act_int8(t, scale)
+
+
+def _act_hook(act_scales, stats):
+    """``_act_site`` as a block's ``act_hook``, None when quantization is off."""
+    if act_scales is None:
+        return None
+    return lambda t, name: _act_site(t, name, act_scales, stats)
+
+
+def _sub_scales(act_scales, name: str):
+    """A child block's entry of the scales dict (the None / "calib" modes
+    pass through; a missing key runs the child unquantized)."""
+    if act_scales is None or isinstance(act_scales, str):
+        return act_scales
+    return act_scales.get(name)
+
+
 class ConvBlock(nn.Module):
     """[Conv3x3(no bias) -> GroupNorm -> SiLU] x 2.
 
     ``fused=True`` runs each conv+GN+SiLU as one ``fused_conv3x3_gn_silu``;
-    else ``pallas_gn=True`` fuses each GN+SiLU pair."""
+    else ``pallas_gn=True`` fuses each GN+SiLU pair. ``act_scales`` and
+    ``stats``: the block's int8-activation sites "a1" and "a2", after each
+    GN+SiLU (``_act_site``)."""
 
     def __init__(self, in_features: int, features: int, num_groups: int = 8, *,
                  fused: bool = False, pallas_gn: bool = False, generator=None,
@@ -64,14 +98,19 @@ class ConvBlock(nn.Module):
         return {k: getattr(self, k) for k in
                 ("conv1", "gn1_scale", "gn1_bias", "conv2", "gn2_scale", "gn2_bias")}
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, act_scales=None, stats=None) -> torch.Tensor:
         g = self.groups
+        hook = _act_hook(act_scales, stats)
         if self.fused:
             y = fused_conv3x3_gn_silu(x, self.conv1, self.gn1_scale, self.gn1_bias,
                                       num_groups=g)
-            return fused_conv3x3_gn_silu(y, self.conv2, self.gn2_scale, self.gn2_bias,
-                                         num_groups=g)
-        return conv_block(x, self._params(), num_groups=g, pallas_gn=self.pallas_gn)
+            if hook is not None:
+                y = hook(y, "a1")
+            y = fused_conv3x3_gn_silu(y, self.conv2, self.gn2_scale, self.gn2_bias,
+                                      num_groups=g)
+            return y if hook is None else hook(y, "a2")
+        return conv_block(x, self._params(), num_groups=g, pallas_gn=self.pallas_gn,
+                          act_hook=hook)
 
 
 class DualConvBlock(ConvBlock):
@@ -83,9 +122,11 @@ class DualConvBlock(ConvBlock):
         super().__init__(2 * features, features, num_groups, pallas_gn=pallas_gn,
                          generator=generator, device=device)
 
-    def forward(self, x_up: torch.Tensor, x_skip: torch.Tensor) -> torch.Tensor:
+    def forward(self, x_up: torch.Tensor, x_skip: torch.Tensor, act_scales=None,
+                stats=None) -> torch.Tensor:
         return conv_block_dual(x_up, x_skip, self._params(), num_groups=self.groups,
-                               pallas_gn=self.pallas_gn)
+                               pallas_gn=self.pallas_gn,
+                               act_hook=_act_hook(act_scales, stats))
 
 
 class UpConv2x(nn.Module):
@@ -113,8 +154,16 @@ class LightweightUNet(nn.Module):
     ``pallas_gn``: fuse the other GroupNorm+SiLU pairs (K1/K2).
     ``remat``: recompute each block's activations in the backward pass
     (``torch.utils.checkpoint`` per block, as the JAX model wraps each
-    block in ``nn.remat``) instead of storing them. ``act_scales`` belongs
-    to a later part of the port and raises if set.
+    block in ``nn.remat``) instead of storing them.
+
+    ``forward(x, act_scales=...)``: int8 activations for serving (see
+    ``ops.quant``) at 26 sites, the JAX model's: "a1"/"a2" inside each
+    block, "p1".."p4" after the pools, "u4".."u1" after the up-convs.
+    None = the exact forward; "calib" = also return per-site, per-channel
+    max|x| as a nested dict, ``(out, act_stats)`` (flax's ``sow`` into
+    ``act_stats``, with its keys); a scales dict
+    (``ops.quant.scales_from_act_stats``) = round-trip every listed site
+    through int8. ``remat`` cannot be combined with it.
     """
 
     def __init__(self, in_channels: int = 1, out_channels: int = 1, num_groups: int = 8,
@@ -125,6 +174,7 @@ class LightweightUNet(nn.Module):
         if fused_blocks not in (False, True, "auto"):
             raise ValueError(f"fused_blocks must be False, True or 'auto', got {fused_blocks!r}")
         self.dtype = dtype
+        self.num_groups = num_groups
         self.remat = remat
         self.fused_blocks, self.pallas_gn = fused_blocks, pallas_gn
         f0 = features_start
@@ -156,24 +206,33 @@ class LightweightUNet(nn.Module):
             return checkpoint(block, *args, use_reentrant=False)
         return block(*args)
 
-    def forward(self, x: torch.Tensor, act_scales=None) -> torch.Tensor:
-        if act_scales is not None:
-            if self.remat:
-                raise ValueError("remat=True cannot be combined with act_scales; rebuild "
-                                 "the model with remat=False for calibration/int8 serving")
-            raise NotImplementedError("int8 activation sites are not ported yet")
-        run = self._block
+    def forward(self, x: torch.Tensor, act_scales=None):
+        if act_scales is not None and self.remat:
+            raise ValueError("remat=True cannot be combined with act_scales; rebuild "
+                             "the model with remat=False for calibration/int8 serving")
+        stats = {} if isinstance(act_scales, str) else None
+
+        def run(name: str, *args: torch.Tensor) -> torch.Tensor:
+            block = getattr(self, name)
+            if act_scales is None:
+                return self._block(block, *args)
+            return block(*args, act_scales=_sub_scales(act_scales, name),
+                         stats=None if stats is None else stats.setdefault(name, {}))
+
+        def aq(t: torch.Tensor, name: str) -> torch.Tensor:
+            return _act_site(t, name, act_scales, stats)
+
         exact = self.dtype == torch.float32
         with highest_precision() if exact else contextlib.nullcontext():
             x = x.to(self.dtype)
-            enc1 = run(self.enc1, x)
-            enc2 = run(self.enc2, avg_pool_2x2(enc1))
-            enc3 = run(self.enc3, avg_pool_2x2(enc2))
-            enc4 = run(self.enc4, avg_pool_2x2(enc3))
-            bottleneck = run(self.bottleneck, avg_pool_2x2(enc4))
-            d4 = run(self.dec4, self.upconv4(bottleneck), enc4)
-            d3 = run(self.dec3, self.upconv3(d4), enc3)
-            d2 = run(self.dec2, self.upconv2(d3), enc2)
-            d1 = run(self.dec1, self.upconv1(d2), enc1)
-            out = conv2d(d1, self.output_conv_weight, self.output_conv_bias)
-        return out.float()
+            enc1 = run("enc1", x)
+            enc2 = run("enc2", aq(avg_pool_2x2(enc1), "p1"))
+            enc3 = run("enc3", aq(avg_pool_2x2(enc2), "p2"))
+            enc4 = run("enc4", aq(avg_pool_2x2(enc3), "p3"))
+            bottleneck = run("bottleneck", aq(avg_pool_2x2(enc4), "p4"))
+            d4 = run("dec4", aq(self.upconv4(bottleneck), "u4"), enc4)
+            d3 = run("dec3", aq(self.upconv3(d4), "u3"), enc3)
+            d2 = run("dec2", aq(self.upconv2(d3), "u2"), enc2)
+            d1 = run("dec1", aq(self.upconv1(d2), "u1"), enc1)
+            out = conv2d(d1, self.output_conv_weight, self.output_conv_bias).float()
+        return out if stats is None else (out, stats)

@@ -126,32 +126,40 @@ def _gn_silu_fn(num_groups: int, eps: float, pallas_gn: bool):
 
 
 def conv_block(x: torch.Tensor, params: dict, *, num_groups: int,
-               eps: float = 1e-5, pallas_gn: bool = False) -> torch.Tensor:
+               eps: float = 1e-5, pallas_gn: bool = False, act_hook=None) -> torch.Tensor:
     """[Conv3x3(no bias) -> GroupNorm -> SiLU] x 2.
 
     ``params`` keys: conv1/gn1_scale/gn1_bias/conv2/gn2_scale/gn2_bias.
     ``pallas_gn`` routes each GroupNorm+SiLU through the port's fused
-    kernel dispatcher (the knob keeps the JAX package's name)."""
+    kernel dispatcher (the knob keeps the JAX package's name).
+    ``act_hook(t, name)``, when given, is applied after each GN+SiLU at
+    the int8-activation sites "a1" and "a2" (see ``ops.quant``)."""
     gn_silu = _gn_silu_fn(num_groups, eps, pallas_gn)
     y = gn_silu(conv2d(x, params["conv1"], padding=1), params["gn1_scale"], params["gn1_bias"])
+    if act_hook is not None:
+        y = act_hook(y, "a1")
     y = conv2d(y, params["conv2"], padding=1)
-    return gn_silu(y, params["gn2_scale"], params["gn2_bias"])
+    y = gn_silu(y, params["gn2_scale"], params["gn2_bias"])
+    return y if act_hook is None else act_hook(y, "a2")
 
 
 def conv_block_dual(x_up: torch.Tensor, x_skip: torch.Tensor, params: dict, *,
                     num_groups: int, eps: float = 1e-5,
-                    pallas_gn: bool = False) -> torch.Tensor:
+                    pallas_gn: bool = False, act_hook=None) -> torch.Tensor:
     """Decoder block: conv_block(concat([x_up, x_skip]), ...) without the
     concatenation. conv1's (3, 3, 2f, f) kernel splits along its input
     channels into the up-path and skip-path halves, in that order.
-    ``pallas_gn`` as in :func:`conv_block`."""
+    ``pallas_gn`` and ``act_hook`` as in :func:`conv_block`."""
     gn_silu = _gn_silu_fn(num_groups, eps, pallas_gn)
     f = x_up.shape[-1]
     w1 = params["conv1"]
     y = conv2d(x_up, w1[:, :, :f, :], padding=1) + conv2d(x_skip, w1[:, :, f:, :], padding=1)
     y = gn_silu(y, params["gn1_scale"], params["gn1_bias"])
+    if act_hook is not None:
+        y = act_hook(y, "a1")
     y = conv2d(y, params["conv2"], padding=1)
-    return gn_silu(y, params["gn2_scale"], params["gn2_bias"])
+    y = gn_silu(y, params["gn2_scale"], params["gn2_bias"])
+    return y if act_hook is None else act_hook(y, "a2")
 
 
 def avg_pool_2x2(x: torch.Tensor) -> torch.Tensor:

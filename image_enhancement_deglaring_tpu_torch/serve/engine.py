@@ -14,6 +14,15 @@ with the same public surface (``submit``, ``infer_batch``, ``infer_one``,
   to the host (the synchronisation point) and resolves the futures.
 
 The uint8 output truncates (floor of x*255), as the reference does.
+
+``quantize="int8"`` serves int8 weights: the model's rank >= 2 parameters
+are quantized per output channel once (``models.model_utils.
+quantize_params_int8``) and kept on the device as int8 tensors with
+float32 scales; each step widens them to float32
+(``dequantize_params_int8``) and runs the model on them through
+``torch.func.functional_call``, which then casts them to the compute dtype
+as it casts its own parameters (the JAX engine's
+``dequantize_params_int8(..., dtype=float32)`` inside its compiled step).
 """
 
 from __future__ import annotations
@@ -30,6 +39,8 @@ import torch
 
 from .._device import resolve_device
 from ..modelio.params_import import load_jax_params
+from ..models.model_utils import dequantize_params_int8, quantize_params_int8
+from ..utils.pytree import flatten_tree
 
 
 def _bucket_sizes(max_batch: int) -> list[int]:
@@ -37,6 +48,20 @@ def _bucket_sizes(max_batch: int) -> list[int]:
     while sizes[-1] < max_batch:
         sizes.append(min(sizes[-1] * 2, max_batch))
     return sizes
+
+
+def _int8_weights(model: torch.nn.Module) -> tuple:
+    """(model, int8 tree, scales tree): the model's parameters as the JAX
+    package's nested tree ({"enc1": {"conv1": ...}}), quantized per output
+    channel."""
+    tree: dict = {}
+    for name, p in model.named_parameters():
+        *path, leaf = name.split(".")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = p.detach()
+    return (model, *quantize_params_int8(tree, per_channel=True))
 
 
 class InferenceEngine:
@@ -47,14 +72,19 @@ class InferenceEngine:
                  device="cuda"):
         """``model`` maps NHWC float (B, S, S, 1) to (B, S, S, 1); it is moved
         to ``device`` and put in eval mode. ``device`` defaults to CUDA and
-        raises without a card unless "cpu" is passed. ``mesh`` (multi-GPU
-        serving) and ``quantize`` (int8 weights) are later parts of the port."""
+        raises without a card unless "cpu" is passed. ``quantize``: None or
+        "int8" (see the module docstring). ``mesh`` (multi-GPU serving) is a
+        later part of the port (ROADMAP.md Queue 1 item 13)."""
         if mesh is not None:
-            raise NotImplementedError("multi-device serving (mesh=) is not ported yet")
-        if quantize is not None:
-            raise NotImplementedError(f"quantize={quantize!r} is not ported yet")
+            raise NotImplementedError(
+                "multi-device serving (mesh=) is not ported yet (ROADMAP.md Queue 1 item 13)")
+        if quantize not in (None, "int8"):
+            raise ValueError(f"unsupported quantize mode: {quantize!r}")
         self.device = resolve_device(device)
+        self.quantize = quantize
         self._model = model.to(self.device).eval()
+        # (model, int8 tree, scales tree), swapped whole by reload_params
+        self._int8 = _int8_weights(self._model) if quantize else None
         self.image_size = image_size
         self.max_batch_size = max_batch_size
         self.batch_timeout_s = batch_timeout_ms / 1e3
@@ -81,9 +111,12 @@ class InferenceEngine:
         """Weight swap from the JAX package's parameter tree (float32 numpy
         arrays of the running model's shapes). The new weights go into a
         copy of the model that replaces the old one in one attribute
-        rebind: batches launched before it finish on the old weights."""
+        rebind: batches launched before it finish on the old weights. An
+        int8 engine quantizes the new weights again."""
         new = copy.deepcopy(self._model)
         load_jax_params(new, params)
+        if self.quantize:
+            self._int8 = _int8_weights(new)
         self._model = new
 
     def stats(self) -> dict:
@@ -119,10 +152,18 @@ class InferenceEngine:
     def _step(self, batch_u8: np.ndarray) -> torch.Tensor:
         """uint8 (B, S, S, 1) -> uint8 (B, S, S, 1) on the device, launched
         asynchronously; the caller's copy to the host waits for it."""
-        model = self._model  # read once: a concurrent reload swaps it whole
+        # read once: a concurrent reload swaps it whole
+        int8 = self._int8
+        model = self._model if int8 is None else int8[0]
         x = torch.from_numpy(np.ascontiguousarray(batch_u8)).to(self.device, non_blocking=True)
         with torch.inference_mode():
-            out = model(x.to(self.compute_dtype) / 255.0).float()
+            x = x.to(self.compute_dtype) / 255.0
+            if int8 is None:
+                out = model(x).float()
+            else:
+                weights = {name.replace("/", "."): w for name, w in
+                           flatten_tree(dequantize_params_int8(int8[1], int8[2])).items()}
+                out = torch.func.functional_call(model, weights, (x,)).float()
             y = torch.floor(out.clamp(0.0, 1.0) * 255.0).to(torch.uint8)
         with self._stats_lock:
             self._batches += 1

@@ -778,9 +778,11 @@ def create_server(model_path: str, *, host: str = "0.0.0.0", port: int = 4000,
     it and launch on the device's default stream. ``warmup`` runs every
     batch bucket, so that the kernels are built and cuDNN has its plans
     before the server binds its port. ``device`` defaults to CUDA and
-    raises without a card unless "cpu" is passed. ``mesh=`` (multi-GPU
-    serving) and ``quantize=`` (int8 weights) raise until the port has
-    them."""
+    raises without a card unless "cpu" is passed. ``quantize="int8"``
+    serves int8 weights from the engine (``serve.engine``); the tiler runs
+    the unquantized model, as the JAX server passes its tiler the
+    unquantized parameters. ``mesh=`` (multi-GPU serving) raises until the
+    port has it."""
     import torch
 
     from .._device import resolve_device
@@ -790,9 +792,6 @@ def create_server(model_path: str, *, host: str = "0.0.0.0", port: int = 4000,
     if mesh is not None:
         raise NotImplementedError(
             "multi-device serving (mesh=) is not ported yet (ROADMAP.md Queue 1 item 13)")
-    if quantize is not None:
-        raise NotImplementedError(
-            f"quantize={quantize!r} is not ported yet (ROADMAP.md Queue 1 item 10)")
     dev = resolve_device(device)
     dtype = compute_dtype or torch.bfloat16
     if model_arch == "auto":
@@ -804,7 +803,7 @@ def create_server(model_path: str, *, host: str = "0.0.0.0", port: int = 4000,
     engine = InferenceEngine(
         model, image_size=image_size, max_batch_size=max_batch_size,
         batch_timeout_ms=batch_timeout_ms, compute_dtype=dtype, warmup=warmup,
-        device=dev,
+        quantize=quantize, device=dev,
     )
     tiler = None
     if mode in ("tile", "both"):

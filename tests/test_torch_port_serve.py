@@ -837,9 +837,11 @@ def test_create_server_on_best_model_both_packages(tmp_path):
 
 
 def test_create_server_refuses_unported_options_and_needs_a_card():
-    for kw, item in ((dict(mesh=object()), "item 13"), (dict(quantize="int8"), "item 10")):
-        with pytest.raises(NotImplementedError, match=item):
-            http_server.create_server(ONNX, warmup=False, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="item 13"):
+        http_server.create_server(ONNX, warmup=False, device="cpu", mesh=object())
+    # quantize="int8" is served now (ROADMAP Queue 1 item 10)
+    server = http_server.create_server(ONNX, warmup=False, device="cpu", quantize="int8")
+    assert server.model_info["quantize"] == "int8" and server.engine.quantize == "int8"
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             http_server.create_server(ONNX, warmup=False)
@@ -1003,12 +1005,24 @@ def test_cli_parsers_defaults_equal_jax():
 
 @pytest.mark.parametrize("flags,item", [
     (["--data_parallel"], "item 13"),
-    (["--quantize", "int8"], "item 10"),
     (["--profile_port", "6006"], "item 15"),
 ])
 def test_cli_serve_refuses_unported_flags(flags, item):
     with pytest.raises(NotImplementedError, match=item):
         serve_cli.main(["--model_path", ONNX, "--device", "cpu"] + flags)
+
+
+def test_cli_serve_quantize_int8_serves(monkeypatch):
+    """``--quantize int8`` reaches the engine (it raised naming ROADMAP
+    Queue 1 item 10 before the port had it)."""
+    served = []
+    monkeypatch.setattr(http_server.DeglareServer, "run", lambda self: served.append(self))
+    serve_cli.main(["--model_path", ONNX, "--device", "cpu", "--quantize", "int8",
+                    "--image_size", "32", "--max_batch_size", "2",
+                    "--compute_dtype", "float32"])
+    (server,) = served
+    assert server.model_info["quantize"] == "int8" and server.engine._int8 is not None
+    assert server.engine._worker is None  # main() stopped the engine
 
 
 @pytest.mark.parametrize("flags,item", [(["--visualize"], "item 15"),

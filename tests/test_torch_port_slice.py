@@ -223,9 +223,12 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
 
 
 def test_later_slices_raise_not_implemented():
-    with pytest.raises(NotImplementedError):
-        InferenceEngine(LightweightUNet(), device="cpu", warmup=False, quantize="int8")
-    with pytest.raises(NotImplementedError):
+    # int8 weights are served now (ROADMAP Queue 1 item 10); another mode is a ValueError
+    eng = InferenceEngine(LightweightUNet(), device="cpu", warmup=False, quantize="int8")
+    assert eng._int8[1]["enc1"]["conv1"].dtype == torch.int8
+    with pytest.raises(ValueError, match="quantize"):
+        InferenceEngine(LightweightUNet(), device="cpu", warmup=False, quantize="int4")
+    with pytest.raises(NotImplementedError, match="item 13"):
         InferenceEngine(LightweightUNet(), device="cpu", warmup=False, mesh=object())
 
 
@@ -242,7 +245,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "          'cli.make_synthetic', 'cli.split_image', 'data.validate', 'utils.envfile',\n"
         "          'ops.image', '__main__', 'ops.augment_device', 'train.resident',\n"
         "          'models.optimized_unet', 'models.enhanced_unet', 'models.model_utils',\n"
-        "          'data.jpeg'):\n"
+        "          'data.jpeg', 'modelio.onnx_writer', 'modelio.onnx_exec', 'cli.export_onnx',\n"
+        "          'cli.extract_weights', 'tools.e2e_lifecycle', 'ops.quant'):\n"
         "    assert pkg.__name__ + '.' + m in names, m\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'PIL', 'cv2', 'matplotlib',\n"
