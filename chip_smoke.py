@@ -144,7 +144,8 @@ Phases, each fatal on failure:
 13. the model-artifact lifecycle and int8 serving, on the production
    LightweightUNet at 512x512 with the kernels on: (a)
    ``tools.e2e_lifecycle --device cuda --size 512`` in its own process
-   (synthesize 24 + 8 triptychs, validate, train 2 epochs, export to
+   (synthesize 24 + 8 triptychs, validate, sweep (random, 3 trials, 2
+   epochs at 32x32), train 2 epochs at the best trial's settings, export to
    ONNX, evaluate the export, serve it, ``cli.test_api --test all``, the
    frontend proxy, SIGTERM drain): every stage PASS, the export over
    1,000,000 bytes, each stage's seconds; (b) the export against its
@@ -162,7 +163,32 @@ Phases, each fatal on failure:
    ``calibrate_act_scales`` on 4 pages, then the ``act_scales`` forward
    with every site and with ``HOT_SITES_512`` at buckets 8 and 64: SNR >=
    20 dB against the exact forward, device ms and busy share beside
-   ``act_scales=None``; K1/K3 14/4 per forward on every path.
+   ``act_scales=None``; K1/K3 14/4 per forward on every path;
+14. hyperparameter sweeps on one card (``parallel.sweep``, ``cli.sweep``),
+   the production LightweightUNet at full width, 512x512, bf16 unless
+   said (no kernel runs in training): (a) a lock-step group of 4 trials
+   with distinct lr/wd against 4 single-trial steps (``make_step_body`` +
+   ``ClippedAdamW``) from the same weights, 3 steps at batch 4, in f32
+   (TF32 off) and bf16 (losses, parameters, first-step gradient cosines),
+   and EnhancedUNet's stateful group (two identical trials stay identical,
+   its BatchNorm statistics move); (b) over 256 resident synthetic pairs,
+   the group step's median ms (CUDA events, 20 steps), trial-img/s and
+   peak memory at batch 16 for K = 1, 4, 8 and at batch 32 for K = 1, 4,
+   beside its K trials' single steps run one after another, in turns,
+   under the deterministic algorithms cli.sweep runs on the card (and
+   batch 16, K = 8 under the defaults beside them); then
+   ``tools.sweep_resident_bench`` (per-step against resident epochs, K = 8,
+   batch 16); (c) ``python -m ...cli.sweep --method tpe --resident_data``
+   (6 trials, 3 epochs, halving at eta 3, 4 trials per group) as a user
+   runs it, in its own process without ``CUBLAS_WORKSPACE_CONFIG``, on 64 +
+   16 PNG triptychs: its three files, every trial; the best trial's
+   ``best_trial_params.npz`` served by ``InferenceEngine`` (bf16, the
+   kernels on: K1/K3 14/4 per forward), and ``--method wandb`` refused with
+   its pointer at tpe; (d) the same sweep sent SIGTERM after its first
+   journaled group exits 0 with the resume hint, and ``--resume`` ends
+   equal to (c): trials, stop epochs and reasons, best id, val losses bit
+   for bit (the CLI's own deterministic algorithms); no kernel launch on the
+   training paths.
 
 The line before the last is a JSON object with one entry per kernel, its
 launches also by path (each counted from 0 in its own run); the last
@@ -3427,7 +3453,7 @@ def jpeg_and_families(card: str, single_load: dict | None) -> dict:
 LIFECYCLE_TRAIN, LIFECYCLE_EPOCHS, LIFECYCLE_ONNX_ATOL = 24, 2, 1e-4
 INT8_PAGES, INT8_ROUNDS = 8, 5
 INT8_PSNR_GATE_DB, ACT_SNR_GATE_DB, ACT_CALIB_PAGES = 45.0, 20.0, 4
-STAGES = ("make_synthetic", "check_dataset", "train", "export_onnx", "evaluate_onnx",
+STAGES = ("make_synthetic", "check_dataset", "sweep", "train", "export_onnx", "evaluate_onnx",
           "serve_up", "test_api_all", "frontend_proxy", "sigterm_drain")
 
 
@@ -3480,7 +3506,8 @@ def lifecycle_cli(work: str) -> dict:
           f"triptychs, {LIFECYCLE_EPOCHS} epochs): every stage PASS, rc 0, "
           f"{time.perf_counter() - t0:.1f} s; best val L1 "
           f"{summary['train_best_val_loss']:.5f}, the export's L1 {summary['onnx_l1']:.4f}, "
-          f"{summary['onnx_bytes']:,} bytes", flush=True)
+          f"{summary['onnx_bytes']:,} bytes; the sweep's best {summary['sweep_best']} at val L1 "
+          f"{summary['sweep_best_val_loss']:.5f}", flush=True)
     print("13a stage seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in
                                              summary["stage_seconds"].items()), flush=True)
     return summary
@@ -3782,6 +3809,388 @@ def lifecycle_and_int8(card: str) -> dict:
         shutil.rmtree(work, ignore_errors=True)
     return counts
 
+
+# phase 14: hyperparameter sweeps on one card (parallel.sweep, cli.sweep),
+# the production LightweightUNet at full width, 512^2, bf16 unless said;
+# the model trains on the composition (the kernels are forward-only). 14a
+# holds a lock-step group of SWEEP_CFG's 4 trials against 4 single-trial
+# steps (make_step_body + ClippedAdamW) from the same weights. Gates, set
+# before the first card run from the CPU tests' rules: f32 (TF32 off)
+# losses rel 1e-5 and each trial's parameters within 2 * its lr (one Adam
+# sign flip) with at most 1 % beyond 1e-5; bf16 losses rel 1e-2 and, at the
+# first step, each gradient leaf's cosine >= 0.95 (tests/test_torch_port_
+# train.py's bf16 rule). 14b times the group step against its K trials'
+# single steps in turns, under the deterministic algorithms cli.sweep runs
+# on the card, and one case under the defaults beside them; 14c/14d run
+# cli.sweep as a user does, in processes of their own without
+# CUBLAS_WORKSPACE_CONFIG: the CLI sets up its own determinism, so a
+# resumed sweep can equal the uninterrupted one bit for bit.
+SWEEP_CFG = [(2e-3, 1e-4), (1e-3, 1e-5), (5e-3, 5e-4), (3e-4, 1e-6)]
+SWEEP_BATCH, SWEEP_STEPS = 4, 3
+SWEEP_GATE = {"f32_loss_rel": 1e-5, "f32_share_beyond_1e-5": 0.01, "bf16_loss_rel": 1e-2,
+              "bf16_grad_cos": 0.95}
+# (batch, trials, deterministic algorithms)
+SWEEP_RATE_CASES = ((16, 1, True), (16, 4, True), (16, 8, True), (32, 1, True), (32, 4, True),
+                    (16, 8, False))
+SWEEP_PAIRS, SWEEP_ROUNDS, SWEEP_ROUND_STEPS = 256, 4, 5
+SWEEP_CLI_TRAIN, SWEEP_CLI_VAL = 64, 16
+SWEEP_CLI_FLAGS = ["--method", "tpe", "--sweep_count", "6", "--max_epochs", "3",
+                   "--early_stop_min_iter", "1", "--eta", "3", "--parallel_trials", "4",
+                   "--resident_data", "--num_workers", "8"]
+
+
+def _sweep_model(dtype, family: str = "basic"):
+    from image_enhancement_deglaring_tpu_torch.models import EnhancedUNet, LightweightUNet
+
+    gen = torch.Generator().manual_seed(14)
+    if family == "enhanced":
+        return EnhancedUNet(init_features=FAMILY_WIDTH, dtype=dtype, generator=gen)
+    return LightweightUNet(dtype=dtype, generator=gen)
+
+
+def sweep_group_parity(card: str) -> None:
+    """Phase 14a: the group against K single-trial steps from the same
+    weights, f32 and bf16; EnhancedUNet's stateful group."""
+    from image_enhancement_deglaring_tpu_torch.ops.metrics import l1_loss
+    from image_enhancement_deglaring_tpu_torch.parallel import Trial, VmappedTrialGroup
+    from image_enhancement_deglaring_tpu_torch.train import TrainState, make_optimizer
+    from image_enhancement_deglaring_tpu_torch.train.loop import make_step_body
+
+    x, y = (torch.from_numpy(a).cuda() for a in
+            triptych_batch(SWEEP_BATCH * SWEEP_STEPS, 512, seed=141))
+    batches = [(x[s * SWEEP_BATCH:(s + 1) * SWEEP_BATCH], y[s * SWEEP_BATCH:(s + 1) * SWEEP_BATCH])
+               for s in range(SWEEP_STEPS)]
+    body = make_step_body()
+    got = {}
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        g = VmappedTrialGroup(_sweep_model(dtype), [Trial(i, SWEEP_BATCH, lr, wd) for i, (lr, wd)
+                                                    in enumerate(SWEEP_CFG)], seed=0,
+                              device="cuda")
+        singles = []
+        for lr, wd in SWEEP_CFG:
+            m = _sweep_model(dtype).cuda()
+            singles.append(TrainState(model=m, optimizer=make_optimizer(m, lr, wd, 1.0)))
+        if tag == "bf16":  # the first step's gradients, before any update
+            _, grads, _ = g._loss_and_grads(*batches[0])
+            m = singles[0].model
+            m.zero_grad(set_to_none=True)
+            l1_loss(m(batches[0][0]), batches[0][1]).backward()
+            cos = min((float(torch.nn.functional.cosine_similarity(
+                grads[n][k].flatten().float(), p.grad.flatten().float(), dim=0)), n)
+                for n, p in m.named_parameters() for k in range(len(SWEEP_CFG)))
+            m.zero_grad(set_to_none=True)
+        lg, ls = [], []
+        for xb, yb in batches:
+            lg.append(g._train_step(xb, yb).double().cpu())
+            ls.append(torch.stack([body(st, xb, yb)[1] for st in singles]).double().cpu())
+        lg, ls = torch.stack(lg), torch.stack(ls)
+        loss_rel = float(((lg - ls).abs() / ls.abs()).max())
+        worst, beyond, total = [], 0, 0
+        for k, (st, (lr, _)) in enumerate(zip(singles, SWEEP_CFG)):
+            d = [(g.params[n][k] - p.detach()).abs() for n, p in st.model.named_parameters()]
+            worst.append(max(float(t.max()) for t in d) / (2 * lr))
+            beyond += sum(int((t > 1e-5).sum()) for t in d)
+            total += sum(t.numel() for t in d)
+        got[tag] = (loss_rel, max(worst), beyond / total)
+        print(f"14a {tag} group of {len(SWEEP_CFG)} (lr/wd {SWEEP_CFG}) vs {len(SWEEP_CFG)} "
+              f"single-trial steps, {SWEEP_STEPS} steps of {SWEEP_BATCH}x512^2 on {card}: "
+              f"losses max rel diff {loss_rel:.3g}; parameters max |diff| / (2 lr) "
+              f"{max(worst):.3g} (per trial {', '.join(f'{w:.3g}' for w in worst)}), share "
+              f"beyond 1e-5 {beyond / total:.3g} of {total}"
+              + (f"; first-step gradient cosine min {cos[0]:.6f} ({cos[1]})"
+                 if tag == "bf16" else ""), flush=True)
+        del g, singles
+    bad = [got["f32"][0] > SWEEP_GATE["f32_loss_rel"], got["f32"][1] > 1.0,
+           got["f32"][2] > SWEEP_GATE["f32_share_beyond_1e-5"],
+           got["bf16"][0] > SWEEP_GATE["bf16_loss_rel"], cos[0] < SWEEP_GATE["bf16_grad_cos"]]
+    if any(bad):
+        raise AssertionError(f"14a group vs single steps beyond the gates {SWEEP_GATE}: {got}, "
+                             f"cosine {cos}")
+
+    # EnhancedUNet: two identical trials stay identical, the statistics
+    # move. cuDNN's default weight-gradient algorithms may sum in an order
+    # that varies from call to call, so the trials are equal bit for bit
+    # only under deterministic algorithms (gated); the default is read
+    size, bs = 128, 4
+    xe, ye = (torch.from_numpy(a).cuda() for a in triptych_batch(2 * bs, size, seed=142))
+    for det in (False, True):
+        with deterministic() if det else contextlib.nullcontext():
+            g = VmappedTrialGroup(_sweep_model(torch.bfloat16, "enhanced"),
+                                  [Trial(i, bs, 1e-3, 1e-5) for i in range(2)], seed=0,
+                                  device="cuda")
+            stats0 = {k: v.clone() for k, v in g.model_state.items()}
+            g.generator.manual_seed(14)
+            losses = [g._train_step(xe[s * bs:(s + 1) * bs], ye[s * bs:(s + 1) * bs]).cpu()
+                      for s in range(2)]
+        apart = max(float((v[0] - v[1]).abs().max()) for tree in (g.params, g.model_state)
+                    for v in tree.values())
+        moved = sum(not torch.equal(g.model_state[k], v) for k, v in stats0.items())
+        print(f"14a EnhancedUNet (init_features {FAMILY_WIDTH}, bf16, {bs}x{size}^2) group of 2 "
+              f"identical trials, 2 steps, {'deterministic' if det else 'default'} algorithms: "
+              f"losses {[l.tolist() for l in losses]}; the trials' largest |diff| {apart:.3g}"
+              f"{' (gate 0)' if det else ' (read)'}; {moved} of {len(stats0)} BatchNorm "
+              f"statistics moved", flush=True)
+        if moved != len(stats0) or not all(torch.isfinite(l).all() for l in losses):
+            raise AssertionError("14a EnhancedUNet's stateful group")
+    if apart != 0:
+        raise AssertionError("14a EnhancedUNet's identical trials differ under deterministic "
+                             "algorithms")
+
+
+def _sweep_rate_case(x, y, bs: int, k: int, det: bool, card: str) -> None:
+    """One (batch, K) case of phase 14b: the group step against its K
+    trials' single steps, in turns."""
+    from image_enhancement_deglaring_tpu_torch.ops.augment_device import device_augment_batch
+    from image_enhancement_deglaring_tpu_torch.parallel import Trial, VmappedTrialGroup
+    from image_enhancement_deglaring_tpu_torch.train import TrainState, make_optimizer
+    from image_enhancement_deglaring_tpu_torch.train.loop import make_step_body
+    from image_enhancement_deglaring_tpu_torch.train.resident import epoch_batch_plan
+
+    body = make_step_body(augment_fn=device_augment_batch)
+    cfg = [(SWEEP_CFG[i % 4][0], SWEEP_CFG[i % 4][1]) for i in range(k)]
+    g = VmappedTrialGroup(_sweep_model(torch.bfloat16), [Trial(i, bs, lr, wd) for i, (lr, wd)
+                                                         in enumerate(cfg)], seed=0,
+                          augment_fn=device_augment_batch, device="cuda")
+    singles = []
+    for i, (lr, wd) in enumerate(cfg):
+        m = _sweep_model(torch.bfloat16).cuda()
+        singles.append(TrainState(model=m, optimizer=make_optimizer(m, lr, wd, 1.0),
+                                  generator=torch.Generator("cuda").manual_seed(i)))
+    plan = epoch_batch_plan(14, 0, SWEEP_PAIRS, bs, device="cuda")
+    steps = {"group": lambda xb, yb: g._train_step(xb, yb),
+             "loop": lambda xb, yb: [body(st, xb, yb) for st in singles]}
+    peak, times, i = {}, {name: [] for name in steps}, 0
+    for name, fn in steps.items():  # two warm steps; the second one's peak
+        fn(x.index_select(0, plan[0]), y.index_select(0, plan[0]))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn(x.index_select(0, plan[1]), y.index_select(0, plan[1]))
+        torch.cuda.synchronize()
+        peak[name] = (torch.cuda.max_memory_allocated() / 2**30,
+                      (torch.cuda.max_memory_allocated() - base) / 2**30)
+    for r in range(SWEEP_ROUNDS):
+        for name in (("group", "loop") if r % 2 == 0 else ("loop", "group")):
+            for _ in range(SWEEP_ROUND_STEPS):
+                row = plan[i % plan.shape[0]]
+                i += 1
+                xb, yb = x.index_select(0, row), y.index_select(0, row)
+                e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                    enable_timing=True)
+                e0.record()
+                steps[name](xb, yb)
+                e1.record()
+                times[name].append((e0, e1))
+    torch.cuda.synchronize()
+    med = {n: float(np.median([a.elapsed_time(b) for a, b in ev])) for n, ev in times.items()}
+    print(f"14b batch {bs}, K {k}, {'deterministic' if det else 'default'} algorithms: group "
+          f"step {med['group']:.2f} ms median of {len(times['group'])} "
+          f"({k * bs / med['group'] * 1e3:.1f} trial-img/s), K single steps {med['loop']:.2f} ms "
+          f"({k * bs / med['loop'] * 1e3:.1f} trial-img/s); stack vs loop "
+          f"{med['loop'] / med['group']:.3f}x; peak memory group {peak['group'][0]:.3f} GiB "
+          f"(+{peak['group'][1]:.3f} over its state and data), loop {peak['loop'][0]:.3f} GiB "
+          f"(+{peak['loop'][1]:.3f}) on {card}", flush=True)
+
+
+def sweep_rates(card: str) -> None:
+    """Phase 14b: group step ms (CUDA events, median of 20), trial-img/s
+    and peak memory per (batch, K), beside its K trials' single steps run
+    one after another, in turns, under cli.sweep's deterministic algorithms
+    (one case under the defaults); then tools.sweep_resident_bench under
+    the same setting."""
+    from image_enhancement_deglaring_tpu_torch.tools.sweep_resident_bench import run as bench
+
+    x, y = triptych_batch(SWEEP_PAIRS, 512, seed=143)
+    x, y = torch.from_numpy(x).to("cuda", torch.bfloat16), torch.from_numpy(y).cuda()
+    print(f"14b {SWEEP_PAIRS} resident synthetic pairs at 512^2 (bf16 inputs, f32 targets), "
+          f"device augmentation, bf16 compute, on {card}:", flush=True)
+    for bs, k, det in SWEEP_RATE_CASES:
+        with deterministic() if det else contextlib.nullcontext():
+            _sweep_rate_case(x, y, bs, k, det, card)
+        torch.cuda.empty_cache()
+    del x, y
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with deterministic():
+        r = bench(n=128, size=512, bs=16, k=8, epochs=1, dtype="bfloat16", device="cuda")
+    print(f"14b tools.sweep_resident_bench --n 128 --size 512 --bs 16 --k 8 --epochs 1 --dtype "
+          f"bfloat16, deterministic algorithms: per-step epoch {r['stepwise_epoch_s']:.3f} s, "
+          f"resident {r['resident_epoch_s']:.3f} s, per-step / resident {r['speedup']:.3f}x; "
+          f"peak GiB {r['peak_gib']} ({time.perf_counter() - t0:.1f} s in all) on {card}",
+          flush=True)
+    torch.cuda.empty_cache()
+
+
+def _sweep_cli(args: list, log: str, **kw) -> subprocess.Popen:
+    """``python -m ...cli.sweep`` in a process of its own, as a user runs
+    it: without this script's CUBLAS_WORKSPACE_CONFIG, which the CLI sets
+    up itself with its deterministic algorithms."""
+    env = {k: v for k, v in os.environ.items() if k != "CUBLAS_WORKSPACE_CONFIG"}
+    with open(log, "w") as f:
+        return subprocess.Popen([sys.executable, "-m",
+                                 "image_enhancement_deglaring_tpu_torch.cli.sweep", *args],
+                                cwd=REPO, env=env, stdout=f, stderr=subprocess.STDOUT, **kw)
+
+
+def _sweep_outcome(out: str) -> tuple[dict, dict]:
+    """(results file, journal val losses by trial id) of a sweep directory."""
+    with open(os.path.join(out, "sweep_results.json")) as f:
+        result = json.load(f)
+    with open(os.path.join(out, "sweep_journal.jsonl")) as f:
+        losses = {t["trial_id"]: t["val_losses"] for ln in f
+                  if "group" in (rec := json.loads(ln)) for t in rec["group"]}
+    return result, losses
+
+
+def sweep_cli(card: str, work: str) -> tuple[dict, dict]:
+    """Phase 14c: cli.sweep end to end on the card; its best trial's
+    artifact served (bf16, kernels on, K1/K3 counted); --method wandb
+    refused offline. Returns (launches by path, the sweep's outcome)."""
+    import gc
+
+    from image_enhancement_deglaring_tpu_torch.eval import load_model_for_eval
+    from image_enhancement_deglaring_tpu_torch.serve.engine import InferenceEngine
+
+    gc.collect()
+    torch.cuda.empty_cache()  # the sweep runs in another process on this card
+    data = os.path.join(work, "data")
+    t0 = time.perf_counter()
+    write_triptychs(data, SWEEP_CLI_TRAIN + SWEEP_CLI_VAL, 512, seed=144)
+    t_data = time.perf_counter() - t0
+    out = os.path.join(work, "full")
+    t0 = time.perf_counter()
+    proc = _sweep_cli(["--data_dir", data, "--output_dir", out, *SWEEP_CLI_FLAGS],
+                      os.path.join(work, "full.log"))
+    rc = proc.wait(timeout=900)
+    secs = time.perf_counter() - t0
+    with open(os.path.join(work, "full.log")) as f:
+        text = f.read()
+    files = [f for f in ("sweep_results.json", "sweep_journal.jsonl", "best_trial_params.npz")
+             if os.path.exists(os.path.join(out, f))]
+    if rc != 0 or len(files) != 3:
+        raise AssertionError(f"14c cli.sweep rc {rc}, files {files}: {text[-3000:]}")
+    result, losses = _sweep_outcome(out)
+    best = result["best"]
+    print(f"14c cli.sweep {' '.join(SWEEP_CLI_FLAGS)} on {SWEEP_CLI_TRAIN} + {SWEEP_CLI_VAL} "
+          f"triptychs at 512^2 ({t_data:.1f} s to write them): rc 0 in {secs:.1f} s, files "
+          f"{files}; '{text.strip().splitlines()[-1]}'", flush=True)
+    for t in result["trials"]:
+        print(f"14c   trial {t['trial_id']}: batch {t['batch_size']}, lr {t['lr']:.6g}, wd "
+              f"{t['wd']:.6g}, epochs {t['epochs_run']}, stop {t['stop_reason']} at "
+              f"{t['stopped_at']}, best val L1 {t['best_val_loss']:.6f}", flush=True)
+    if best is None or not math.isfinite(best["best_val_loss"]):
+        raise AssertionError(f"14c best trial {best}")
+
+    model, _ = load_model_for_eval(os.path.join(out, "best_trial_params.npz"),
+                                   compute_dtype=torch.bfloat16, device="cuda")
+    eng = InferenceEngine(model, image_size=512, max_batch_size=8, compute_dtype=torch.bfloat16,
+                          device="cuda", warmup=True)
+    try:
+        frames = make_frames(8, 512, seed=145)
+        _reset_launches()
+        answer = eng.infer_batch(frames)
+        counts = _launches()
+    finally:
+        eng.stop()
+    _per_forward(counts, 1, "14c the sweep's best served")
+    print(f"14c best_trial_params.npz (trial {best['trial_id']}) through load_model_for_eval, "
+          f"InferenceEngine bf16 with the kernels: {answer.shape} {answer.dtype}, K1/K3 "
+          f"{counts['gn_silu_flat']}/{counts['conv3x3_gn_silu']} for one forward", flush=True)
+    if answer.shape != frames.shape or answer.dtype != np.uint8:
+        raise AssertionError("14c the served answer")
+
+    r = subprocess.run([sys.executable, "-m", "image_enhancement_deglaring_tpu_torch.cli.sweep",
+                        "--data_dir", data, "--output_dir", os.path.join(work, "wandb"),
+                        "--method", "wandb"], cwd=REPO, capture_output=True, text=True,
+                       timeout=300)
+    said = (r.stdout + r.stderr).strip().splitlines()[-1]
+    print(f"14c cli.sweep --method wandb offline: rc {r.returncode}, '{said}'", flush=True)
+    if r.returncode == 0 or "--method tpe" not in said:
+        raise AssertionError("14c --method wandb did not refuse with its pointer at tpe")
+    return {"14c sweep's best served": counts}, {"result": result, "losses": losses}
+
+
+def sweep_resume(card: str, work: str, want: dict) -> None:
+    """Phase 14d: the same cli.sweep, SIGTERM after its first journaled
+    group: exit 0 with the resume hint; --resume then ends where 14c's
+    uninterrupted sweep did."""
+    import signal
+
+    data, out = os.path.join(work, "data"), os.path.join(work, "cut")
+    journal = os.path.join(out, "sweep_journal.jsonl")
+    args = ["--data_dir", data, "--output_dir", out, *SWEEP_CLI_FLAGS]
+    t0 = time.perf_counter()
+    proc = _sweep_cli(args, os.path.join(work, "cut.log"))
+    sent = None
+    while proc.poll() is None and time.perf_counter() - t0 < 900:
+        if os.path.exists(journal):
+            with open(journal) as f:
+                if any('"group"' in ln for ln in f):
+                    proc.send_signal(signal.SIGTERM)
+                    sent = time.perf_counter() - t0
+                    break
+        time.sleep(0.02)
+    rc = proc.wait(timeout=900)
+    with open(os.path.join(work, "cut.log")) as f:
+        text = f.read()
+    with open(journal) as f:
+        groups = sum('"group"' in ln for ln in f)
+    print(f"14d SIGTERM {sent if sent is None else round(sent, 1)} s after start (first group "
+          f"journaled): rc {rc}, {groups} group(s) journaled, results file "
+          f"{os.path.exists(os.path.join(out, 'sweep_results.json'))}; "
+          f"'{text.strip().splitlines()[-1]}'", flush=True)
+    if (sent is None or rc != 0 or "--resume" not in text
+            or os.path.exists(os.path.join(out, "sweep_results.json"))):
+        raise AssertionError(f"14d the preempted sweep: {text[-3000:]}")
+    t0 = time.perf_counter()
+    proc = _sweep_cli(args + ["--resume", out], os.path.join(work, "resume.log"))
+    rc = proc.wait(timeout=900)
+    with open(os.path.join(work, "resume.log")) as f:
+        text = f.read()
+    if rc != 0:
+        raise AssertionError(f"14d --resume rc {rc}: {text[-3000:]}")
+    result, losses = _sweep_outcome(out)
+    fields = ("trial_id", "batch_size", "lr", "wd", "epochs_run", "stopped_at", "stop_reason")
+    same = ([{k: t[k] for k in fields} for t in result["trials"]]
+            == [{k: t[k] for k in fields} for t in want["result"]["trials"]]
+            and result["best"]["trial_id"] == want["result"]["best"]["trial_id"])
+    diff = max(abs(a - b) for i, v in want["losses"].items() for a, b in zip(v, losses[i]))
+    print(f"14d --resume: rc 0 in {time.perf_counter() - t0:.1f} s; trials, stop epochs, stop "
+          f"reasons and best id equal to 14c's {same}; val losses largest |diff| {diff} "
+          f"(bit for bit {diff == 0}) on {card}", flush=True)
+    if not same or diff != 0:
+        raise AssertionError("14d the resumed sweep differs from the uninterrupted one")
+
+
+def sweeps(card: str) -> dict:
+    """Phase 14: 14a group parity, 14b rates and memory, 14c cli.sweep and
+    its artifact served, 14d preemption and resume. Returns launches by
+    path; the training paths launch none."""
+    import shutil
+    import tempfile
+
+    _reset_launches()
+    for label, fn in (("14a", sweep_group_parity), ("14b", sweep_rates)):
+        t = time.perf_counter()
+        fn(card)
+        print(f"phase {label}: {time.perf_counter() - t:.1f} s", flush=True)
+    counts = _launches()
+    print(f"14a-b kernel launches over the sweep's training paths: {counts}", flush=True)
+    if any(counts.values()):
+        raise AssertionError(f"the sweep's training paths launched kernels: {counts}")
+    work = tempfile.mkdtemp(prefix="chip_smoke_sweep_")
+    try:
+        t = time.perf_counter()
+        paths, outcome = sweep_cli(card, work)
+        print(f"phase 14c: {time.perf_counter() - t:.1f} s", flush=True)
+        t = time.perf_counter()
+        sweep_resume(card, work, outcome)
+        print(f"phase 14d: {time.perf_counter() - t:.1f} s", flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -3831,6 +4240,7 @@ def main() -> int:
                        single_load))
     paths.update(phase("13 lifecycle, exported artifact, int8 serving", lifecycle_and_int8,
                        card))
+    paths.update(phase("14 sweeps on one card", sweeps, card))
 
     src = "image_enhancement_deglaring_tpu_torch/csrc/"
     tpu = "image_enhancement_deglaring_tpu/ops/"

@@ -6,6 +6,9 @@ Entry points (python -m image_enhancement_deglaring_tpu_torch.cli.<name>;
 each takes --device, default cuda, where it runs a model):
 
   train            train a model (reference: optimized_train.py)
+  sweep            hyperparameter sweep: TPE/random + successive halving,
+                   trials in lock-step groups on one GPU, --resume
+                   (reference: sweep.py)
   evaluate         L1/PSNR/SSIM on a validation set (reference: evaluate.py)
   enhance          batch de-glaring CLI (reference: main.py)
   serve            HTTP API on the batched GPU engine, --workers N HTTP
@@ -20,7 +23,7 @@ each takes --device, default cuda, where it runs a model):
   extract_weights  weights-only artifact: .npz, .onnx or a checkpoint dir
                    (reference: scripts/extract_weights.py)
 
-Lifecycle rehearsal (synthesize, train, export, evaluate, serve through the CLIs):
+Lifecycle rehearsal (synthesize, sweep, train, export, evaluate, serve through the CLIs):
 python -m image_enhancement_deglaring_tpu_torch.tools.e2e_lifecycle [--device cpu]
 
 Smoke test on the card: python3 chip_smoke.py

@@ -9,24 +9,24 @@ Each stage runs the port's real CLI in a subprocess:
 
   1. synthesize an SD1-contract dataset         (cli.make_synthetic)
   2. validate it                                (cli.check_dataset)
-  3. train                                      (cli.train)
-  4. export the best checkpoint to ONNX         (cli.export_onnx)
-  5. evaluate the ONNX artifact                 (cli.evaluate; its L1
+  3. sweep: random, 3 trials, 2 epochs at 32^2  (cli.sweep)
+  4. train with the sweep's best batch size     (cli.train)
+     (at most 16), lr and weight decay
+  5. export the best checkpoint to ONNX         (cli.export_onnx)
+  6. evaluate the ONNX artifact                 (cli.evaluate; its L1
      against the train loop's best val loss)
-  6. serve the ONNX artifact over HTTP          (cli.serve)
-  7. drive the live API                         (cli.test_api --test all)
-  8. frontend proxy round trip                  (frontend/app.py /infer)
-  9. SIGTERM drain: the server exits 0
+  7. serve the ONNX artifact over HTTP          (cli.serve)
+  8. drive the live API                         (cli.test_api --test all)
+  9. frontend proxy round trip                  (frontend/app.py /infer)
+ 10. SIGTERM drain: the server exits 0
 
 It prints ``PASS <stage> (<seconds>s)`` per stage and a final
 ``E2E_SUMMARY {json}`` with each stage's seconds. The counterpart of the
-JAX package's ``scripts/e2e_lifecycle.py`` leaves out two of its stages:
-the hyperparameter sweep (``cli.sweep``, ROADMAP Queue 1 item 14), so
-training takes the trainer's default LR and weight decay where the JAX
-script takes the sweep's best, and the promotion gate
-(``scripts/crossval_artifact.py``, item 15). ``--device`` (default cuda)
-goes to every stage that runs the model; without ``--work_dir`` the run
-works in a temporary directory and removes it.
+JAX package's ``scripts/e2e_lifecycle.py`` leaves out one of its stages,
+the promotion gate (``scripts/crossval_artifact.py``, ROADMAP Queue 1
+item 15). ``--device`` (default cuda) goes to every stage that runs the
+model; without ``--work_dir`` the run works in a temporary directory and
+removes it.
 """
 
 from __future__ import annotations
@@ -48,7 +48,9 @@ import urllib.request
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 PKG = "image_enhancement_deglaring_tpu_torch"
 PY = sys.executable
-N_TRAIN, N_VAL, BATCH = 24, 8, 8
+# n_train is sized so every batch size the sweep samples fits
+N_TRAIN, N_VAL = 24, 8
+SWEEP_COUNT, SWEEP_EPOCHS, SWEEP_SIZE = 3, 2, 32
 
 
 def _free_port() -> int:
@@ -110,9 +112,9 @@ class Lifecycle:
 
 
 def rehearse(lc: Lifecycle, *, device: str, size: int, epochs: int) -> dict:
-    """Stages 1-9; returns the summary."""
+    """Stages 1-10; returns the summary."""
     w = lc.work_dir
-    data, models = os.path.join(w, "data"), os.path.join(w, "models")
+    data, sweep, models = (os.path.join(w, d) for d in ("data", "sweep", "models"))
     summary: dict = {"device": device, "size": size}
 
     lc.run("make_synthetic", ["-m", f"{PKG}.cli.make_synthetic", "--out_dir", data,
@@ -122,17 +124,33 @@ def rehearse(lc: Lifecycle, *, device: str, size: int, epochs: int) -> dict:
     lc.run("check_dataset", ["-m", f"{PKG}.cli.check_dataset", data, "--width", str(3 * size),
                              "--height", str(size)], 600)
 
+    # random method: cheap and a fixed trial count, as the JAX script runs it
+    lc.run("sweep", ["-m", f"{PKG}.cli.sweep", "--data_dir", os.path.join(data, "train"),
+                     "--output_dir", sweep, "--sweep_count", str(SWEEP_COUNT),
+                     "--max_epochs", str(SWEEP_EPOCHS), "--early_stop_min_iter", "1",
+                     "--eta", "2", "--image_size", str(SWEEP_SIZE), "--method", "random",
+                     "--num_workers", "2", "--device", device], 1800)
+    with open(os.path.join(sweep, "sweep_results.json")) as f:
+        best = json.load(f)["best"]
+    if best is None or not best["best_val_loss"] < 1.0:
+        raise SystemExit(f"FAIL sweep: best trial {best}")
+    summary["sweep_best_val_loss"] = best["best_val_loss"]
+    summary["sweep_best"] = {k: best[k] for k in ("trial_id", "batch_size", "lr", "wd")}
+
     lc.run("train", ["-m", f"{PKG}.cli.train", "--data_dir", os.path.join(data, "train"),
-                     "--output_dir", models, "--epochs", str(epochs), "--batch_size", str(BATCH),
-                     "--image_size", str(size), "--validation_metrics_every", "1",
-                     "--num_workers", "2", "--save_every", "1000", "--device", device], 1800)
+                     "--output_dir", models, "--epochs", str(epochs),
+                     "--batch_size", str(min(best["batch_size"], 16)), "--lr", str(best["lr"]),
+                     "--weight_decay", str(best["wd"]), "--image_size", str(size),
+                     "--validation_metrics_every", "1", "--num_workers", "2",
+                     "--save_every", "1000", "--device", device], 1800)
     with open(os.path.join(models, "logs", "metrics.jsonl")) as f:
         val_losses = [r["val_loss"] for r in map(json.loads, f) if "val_loss" in r]
     if not val_losses:
         raise SystemExit("FAIL train: no val_loss records in metrics.jsonl")
     best_val = min(val_losses)
-    # a non-divergence gate, not convergence: an untrained model's L1 on
-    # [0, 1] images is ~0.2-0.5
+    # a non-divergence gate, not convergence (with few epochs and a
+    # sweep-chosen small LR, epoch 1 can be the best): an untrained model's
+    # L1 on [0, 1] images is ~0.2-0.5
     if not (best_val < 1.0 and all(math.isfinite(v) for v in val_losses)):
         raise SystemExit(f"FAIL train: diverged, val losses {val_losses}")
     summary["train_best_val_loss"] = best_val

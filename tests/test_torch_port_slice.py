@@ -246,7 +246,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "          'ops.image', '__main__', 'ops.augment_device', 'train.resident',\n"
         "          'models.optimized_unet', 'models.enhanced_unet', 'models.model_utils',\n"
         "          'data.jpeg', 'modelio.onnx_writer', 'modelio.onnx_exec', 'cli.export_onnx',\n"
-        "          'cli.extract_weights', 'tools.e2e_lifecycle', 'ops.quant'):\n"
+        "          'cli.extract_weights', 'tools.e2e_lifecycle', 'ops.quant', 'parallel',\n"
+        "          'parallel.sweep', 'cli.sweep', 'utils.config', 'tools.sweep_resident_bench'):\n"
         "    assert pkg.__name__ + '.' + m in names, m\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'PIL', 'cv2', 'matplotlib',\n"
