@@ -146,8 +146,9 @@ Phases, each fatal on failure:
    ``tools.e2e_lifecycle --device cuda --size 512`` in its own process
    (synthesize 24 + 8 triptychs, validate, sweep (random, 3 trials, 2
    epochs at 32x32), train 2 epochs at the best trial's settings, export to
-   ONNX, evaluate the export, serve it, ``cli.test_api --test all``, the
-   frontend proxy, SIGTERM drain): every stage PASS, the export over
+   ONNX, evaluate the export, the promotion gate against
+   best_model.onnx, serve it, ``cli.test_api --test all``, the frontend
+   proxy, SIGTERM drain): every stage PASS, the export over
    1,000,000 bytes, each stage's seconds; (b) the export against its
    checkpoint: ``load_model_for_eval`` gives the same parameters bit for
    bit, ``create_server`` on each answers the same pages at inf dB one at
@@ -188,7 +189,24 @@ Phases, each fatal on failure:
    journaled group exits 0 with the resume hint, and ``--resume`` ends
    equal to (c): trials, stop epochs and reasons, best id, val losses bit
    for bit (the CLI's own deterministic algorithms); no kernel launch on the
-   training paths.
+   training paths;
+15. heavy augmentation, the profiler and the tools, at 512x512 on the
+   production LightweightUNet: (a) ``heavy_augment``'s host ms per pair and
+   each numpy cv2 copy's, the train loader's img/s under heavy and optimized
+   augmentation, then ``cli.train --augment heavy`` (bf16, batch 8, 48
+   triptychs, 1 epoch of 5 steps) with (b) ``--profile_dir
+   --profile_steps 5`` in the same run: its artifacts, and a trace that
+   parses and holds CUDA kernel events; ``cli.serve --profile_port`` in
+   this process while 8 connections post pages: one ``/trace?ms=1500``
+   capture holds K1's and K3's device kernels, launches 14 and 4 per
+   batch; (c) ``cli.enhance --visualize`` on 2 pages: the JAX CLI's file
+   names, each figure the input's luma beside the output; (d)
+   ``tools.crossval_artifact`` with best_model.onnx against itself (n 16):
+   keep_incumbent at equal metrics; (e) ``tools.train_roofline`` at
+   batches 8/16/32; (f) ``tools.train_synthetic_demo`` cut to 32 + 8
+   triptychs x 3 epochs; (g) the native decode (g++) against the numpy
+   route: equal at identity size, within one uint8 step at a resize, ms
+   per triptych.
 
 The line before the last is a JSON object with one entry per kernel, its
 launches also by path (each counted from 0 in its own run); the last
@@ -3454,7 +3472,7 @@ LIFECYCLE_TRAIN, LIFECYCLE_EPOCHS, LIFECYCLE_ONNX_ATOL = 24, 2, 1e-4
 INT8_PAGES, INT8_ROUNDS = 8, 5
 INT8_PSNR_GATE_DB, ACT_SNR_GATE_DB, ACT_CALIB_PAGES = 45.0, 20.0, 4
 STAGES = ("make_synthetic", "check_dataset", "sweep", "train", "export_onnx", "evaluate_onnx",
-          "serve_up", "test_api_all", "frontend_proxy", "sigterm_drain")
+          "crossval_gate", "serve_up", "test_api_all", "frontend_proxy", "sigterm_drain")
 
 
 def _per_forward(counts: dict, forwards: int, label: str) -> None:
@@ -3507,7 +3525,8 @@ def lifecycle_cli(work: str) -> dict:
           f"{time.perf_counter() - t0:.1f} s; best val L1 "
           f"{summary['train_best_val_loss']:.5f}, the export's L1 {summary['onnx_l1']:.4f}, "
           f"{summary['onnx_bytes']:,} bytes; the sweep's best {summary['sweep_best']} at val L1 "
-          f"{summary['sweep_best_val_loss']:.5f}", flush=True)
+          f"{summary['sweep_best_val_loss']:.5f}; promotion gate {summary['gate_verdict']}",
+          flush=True)
     print("13a stage seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in
                                              summary["stage_seconds"].items()), flush=True)
     return summary
@@ -4191,6 +4210,374 @@ def sweeps(card: str) -> dict:
     return paths
 
 
+# phase 15: heavy augmentation, the profiler, --visualize, the promotion
+# gate, the training scripts and the native decode, at 512x512 on the
+# production LightweightUNet. Training launches no kernel (forward-only);
+# the paths that serve or evaluate launch K1/K3 as the rest of serving does.
+HEAVY_TRIPTYCHS, HEAVY_VAL_SPLIT, HEAVY_BATCH, PROFILE_STEPS = 48, 0.1, 8, 5
+TOOLS_SIZE = 512
+
+
+def heavy_host_times(root: str) -> None:
+    """15a's host side: ``heavy_augment`` ms per pair and each of its
+    numpy cv2 copies (one thread, the card's host has no cv2), then the
+    train loader's img/s under heavy and optimized augmentation (batch 8,
+    4 threads), decoding every pass and from ``cache_images``."""
+    from image_enhancement_deglaring_tpu_torch.data import cv_ops, make_dataloaders
+    from image_enhancement_deglaring_tpu_torch.data.augment import heavy_augment
+    from image_enhancement_deglaring_tpu_torch.data.pipeline import decode_triptych
+
+    paths = sorted(os.path.join(root, f) for f in os.listdir(root))[:8]
+    pairs = [decode_triptych(p, TOOLS_SIZE) for p in paths]
+    t0 = time.perf_counter()
+    n = 32
+    for i in range(n):
+        heavy_augment(*pairs[i % len(pairs)], np.random.default_rng(i))
+    per_pair = (time.perf_counter() - t0) * 1e3 / n
+    img = pairs[0][0]
+    m = cv_ops.rotation_matrix((TOOLS_SIZE / 2, TOOLS_SIZE / 2), 9.5, 1.04)
+    u8 = (img * 255).astype(np.uint8)
+    ops = {"warp bilinear": lambda: cv_ops.warp_affine(img, m, cv_ops.INTER_LINEAR),
+           "warp nearest": lambda: cv_ops.warp_affine(img, m, cv_ops.INTER_NEAREST),
+           "blur 3x3": lambda: cv_ops.gaussian_blur_3x3(img),
+           "CLAHE": lambda: cv_ops.clahe_u8(u8, 2.5)}
+    each = {}
+    for name, fn in ops.items():
+        t0 = time.perf_counter()
+        for _ in range(8):
+            fn()
+        each[name] = (time.perf_counter() - t0) * 1e3 / 8
+    print(f"15a heavy_augment on the host: {per_pair:.3f} ms per {TOOLS_SIZE}x{TOOLS_SIZE} "
+          f"pair (mean of {n} seeds, one thread); "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in each.items()), flush=True)
+    rates = {}
+    for augment in ("heavy", "optimized"):
+        for cache in (False, True):
+            loader, _ = make_dataloaders(root, batch_size=HEAVY_BATCH, val_split=HEAVY_VAL_SPLIT,
+                                         image_size=TOOLS_SIZE, num_workers=4,
+                                         cache_images=cache,
+                                         augment=augment)
+            t0, count = time.perf_counter(), 0
+            for _ in range(2):
+                for xb, _yb in loader:
+                    count += xb.shape[0]
+            rates[augment, cache] = count / (time.perf_counter() - t0)
+    print(f"15a train loader alone ({TOOLS_SIZE}x{TOOLS_SIZE}, batch 8, 4 threads, 2 passes): "
+          + "; ".join(f"{a} {rates[a, False]:.1f} img/s decoding every pass, "
+                      f"{rates[a, True]:.1f} from cache_images" for a in ("heavy", "optimized")),
+          flush=True)
+
+
+def heavy_and_profiled_training(work: str) -> None:
+    """15a/15b: ``cli.train --augment heavy --profile_dir D --profile_steps
+    5`` as one run (one process start, one epoch of 5 steps at batch 8):
+    the production model, bf16, 512x512; it ends normally with its
+    artifacts; the trace parses and holds CUDA kernel events of the traced
+    steps."""
+    import contextlib
+    import io
+
+    from image_enhancement_deglaring_tpu_torch.cli import train as cli_train
+
+    root = os.path.join(work, "heavy")
+    t0 = time.perf_counter()
+    write_triptychs(root, HEAVY_TRIPTYCHS, TOOLS_SIZE, seed=15)
+    t_data = time.perf_counter() - t0
+    heavy_host_times(root)
+    prof, out = os.path.join(work, "train_trace"), os.path.join(work, "heavy_run")
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        cli_train.main(["--data_dir", root, "--output_dir", out, "--epochs", "1",
+                        "--batch_size", str(HEAVY_BATCH), "--val_split", str(HEAVY_VAL_SPLIT),
+                        "--augment", "heavy", "--validation_metrics_every", "1",
+                        "--image_size", str(TOOLS_SIZE),
+                        "--profile_dir", prof, "--profile_steps", str(PROFILE_STEPS)])
+    t_run = time.perf_counter() - t0
+    text = log.getvalue()
+    missing = [f for f in ("final_model", "model_weights.npz", "logs/metrics.jsonl")
+               if not os.path.exists(os.path.join(out, f))]
+    traces = [f for f in os.listdir(prof) if f.endswith(".pt.trace.json")]
+    if len(traces) != 1:
+        raise AssertionError(f"15b --profile_dir wrote {traces}")
+    with open(os.path.join(prof, traces[0])) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    epoch = [ln for ln in text.splitlines() if ln.startswith("Epoch ")]
+    print(f"15a cli.train --augment heavy on cuda ({HEAVY_TRIPTYCHS} triptychs at {TOOLS_SIZE} written "
+          f"in {t_data:.1f} s, 1 epoch of batch {HEAVY_BATCH}, bf16, traced): {t_run:.1f} s; "
+          f"{epoch[-1] if epoch else 'no epoch line'}; missing artifacts {missing}", flush=True)
+    print(f"15b --profile_dir --profile_steps {PROFILE_STEPS}: one trace "
+          f"({os.path.getsize(os.path.join(prof, traces[0])) / 2**20:.1f} MiB), "
+          f"{len(events)} events, {len(kernels)} CUDA kernel events over "
+          f"{len({e['name'] for e in kernels})} kernel names", flush=True)
+    if missing or "Training completed" not in text or not kernels or not epoch:
+        raise AssertionError(f"15a/15b cli.train --augment heavy --profile_dir failed: "
+                             f"{text[-2000:]}")
+
+
+def profiled_serving(card: str, work: str) -> dict:
+    """15b: ``cli.serve --profile_port`` (bf16, the kernels on, max batch 8)
+    in this process, so the wrappers' launch counters see its engine: while
+    8 connections post 512x512 pages, one ``GET /trace?ms=1500`` capture;
+    its trace holds K1's and K3's device kernels. Returns the launches."""
+    import image_enhancement_deglaring_tpu_torch.serve as serve_pkg
+    from image_enhancement_deglaring_tpu_torch.cli import serve as cli_serve
+    from image_enhancement_deglaring_tpu_torch.data.png import encode_png
+    from image_enhancement_deglaring_tpu_torch.tools.load_test_api import multipart_body
+
+    port, trace_port = _free_port(), _free_port()
+    servers = []
+    real = serve_pkg.create_server
+
+    def capture(*a, **k):
+        import logging
+
+        servers.append(real(*a, **k))
+        for h in servers[-1].logger.handlers:  # no console line per request, as _start
+            if type(h) is logging.StreamHandler:
+                h.setLevel(logging.CRITICAL)
+        return servers[-1]
+
+    tmp_env = {"TMPDIR": os.path.join(work, "serve_traces")}
+    os.makedirs(tmp_env["TMPDIR"], exist_ok=True)
+    with mock.patch.object(serve_pkg, "create_server", capture), \
+            mock.patch.dict(os.environ, tmp_env), mock.patch("tempfile.tempdir", None):
+        thread = threading.Thread(target=cli_serve.main, args=([
+            "--model_path", ONNX, "--host", "127.0.0.1", "--port", str(port),
+            "--profile_port", str(trace_port), "--log_dir", os.path.join(work, "serve_logs"),
+            "--image_size", str(TOOLS_SIZE)],),
+            daemon=True)
+        thread.start()
+        deadline = time.time() + 180
+        while not servers or _ping(port) is not True:
+            if time.time() > deadline or not thread.is_alive():
+                raise AssertionError("15b cli.serve --profile_port never answered /ping")
+            time.sleep(0.1)
+        server = servers[0]
+        bodies = [("/infer", *multipart_body(encode_png(im))) for im in make_frames(16, TOOLS_SIZE, 15)]
+        done = threading.Event()
+        sent, bad = [0], []
+
+        def traffic():
+            while not done.is_set():
+                answers, _, _ = _post_all(port, bodies, 8)
+                bad.extend(a[0] for a in answers if a[0] != 200)
+                sent[0] += len(answers)
+
+        poster = threading.Thread(target=traffic, daemon=True)
+        _reset_launches()  # after the server's warmup
+        batches0 = server.engine.stats()["batches_dispatched"]
+        poster.start()
+        time.sleep(0.5)
+        t0 = time.perf_counter()
+        status, answer = _get_json(trace_port, "/trace?ms=1500")
+        t_capture = time.perf_counter() - t0
+        done.set()
+        poster.join(timeout=120)
+        counts = _launches()
+        batches = server.engine.stats()["batches_dispatched"] - batches0
+        loop = server._server.get_loop()
+        loop.call_soon_threadsafe(server._server.close)
+        thread.join(timeout=60)
+    if status != 200 or thread.is_alive() or bad or poster.is_alive():
+        raise AssertionError(f"15b /trace answered {status} {answer}; server thread alive "
+                             f"{thread.is_alive()}; /infer statuses other than 200: {bad}")
+    with open(answer["trace"]) as f:
+        events = json.load(f)["traceEvents"]
+    kern = [e for e in events if e.get("cat") == "kernel"]
+    k1 = sum(1 for e in kern if "gn_silu_kernel" in e["name"])
+    k3 = sum(1 for e in kern if "conv3x3_tc_kernel" in e["name"])
+    engine_tids = {e["tid"] for e in events if e.get("name") == "aten::conv2d"}
+    print(f"15b cli.serve --profile_port on {card}: /trace?ms=1500 answered in {t_capture:.2f} s "
+          f"while {sent[0]} requests were served ({batches} batches): {len(events)} events, "
+          f"{len(kern)} kernel events, {k1} of K1 (gn_silu_kernel), {k3} of K3's conv "
+          f"(conv3x3_tc_kernel), host conv2d ops on {len(engine_tids)} thread(s); launches "
+          f"over the run {counts}", flush=True)
+    if not (k1 and k3 and counts.get("gn_silu_flat") and counts.get("conv3x3_gn_silu")):
+        raise AssertionError("15b the serving trace holds no K1/K3 kernel events")
+    if counts["gn_silu_flat"] != 14 * batches or counts["conv3x3_gn_silu"] != 4 * batches:
+        raise AssertionError(f"15b launches {counts} against {batches} batches (14/4 each)")
+    return counts
+
+
+def _ping(port: int) -> bool:
+    try:
+        return _get_json(port, "/ping") == (200, {"message": "pong"})
+    except OSError:
+        return False
+
+
+def enhance_visualize(card: str, work: str) -> dict:
+    """15c: ``cli.enhance --visualize`` on 2 pages (a 512x512 gray PNG and a
+    1024x768 RGB PNG) on the card: outputs and figures named as the JAX CLI
+    names them, each figure the input's luma beside the output. Returns
+    the launches."""
+    import contextlib
+    import io
+
+    from image_enhancement_deglaring_tpu_torch.cli import enhance as cli_enhance
+    from image_enhancement_deglaring_tpu_torch.data.png import decode_png, png_text, write_png
+
+    inp, out = os.path.join(work, "pages"), os.path.join(work, "enhanced")
+    os.makedirs(inp)
+    write_png(os.path.join(inp, "page_a.png"), make_frames(1, TOOLS_SIZE, 16)[0])
+    write_png(os.path.join(inp, "page_b.png"), rgb_pages(1, 768, 1024, 17)[0])
+    _reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        cli_enhance.main(["--input", inp, "--output_dir", out, "--model_path", ONNX,
+                          "--image_size", str(TOOLS_SIZE), "--visualize"])
+    secs = time.perf_counter() - t0
+    counts = _launches()
+    names = sorted(os.listdir(out))
+    want = ["page_a.png", "page_a_comparison.png", "page_b.png", "page_b_comparison.png"]
+    shapes = []
+    for stem, w_in in (("page_a", TOOLS_SIZE), ("page_b", 1024)):
+        with open(os.path.join(out, stem + "_comparison.png"), "rb") as f:
+            data = f.read()
+        fig = decode_png(data)
+        shapes.append(fig.shape)
+        if fig.shape[1] != w_in + 16 + TOOLS_SIZE or set(png_text(data)) != {"Input", "Output"}:
+            raise AssertionError(f"15c figure {stem}: {fig.shape}, {png_text(data)}")
+    print(f"15c cli.enhance --visualize on {card}: 2 pages in {secs:.1f} s, files {names}, "
+          f"figures {shapes}; launches {counts}", flush=True)
+    if names != want or counts.get("gn_silu_flat") != 28 or counts.get("conv3x3_gn_silu") != 8:
+        raise AssertionError(f"15c files {names} (want {want}), launches {counts}")
+    return counts
+
+
+def crossval_gate(card: str) -> dict:
+    """15d: ``tools.crossval_artifact`` with best_model.onnx against itself
+    (n = 16, 512x512, f32 on the card): keep_incumbent, equal metrics.
+    Returns the launches."""
+    import contextlib
+    import io
+
+    from image_enhancement_deglaring_tpu_torch.tools import crossval_artifact
+
+    _reset_launches()
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        crossval_artifact.main(["--candidate", ONNX, "--n", "16", "--size", str(TOOLS_SIZE)])
+    secs = time.perf_counter() - t0
+    counts = _launches()
+    res = json.loads(log.getvalue().strip().splitlines()[-1])
+    print(f"15d tools.crossval_artifact best_model.onnx vs itself on {card} (n 16, {TOOLS_SIZE}x{TOOLS_SIZE}): "
+          f"{secs:.1f} s, {json.dumps(res)}; launches {counts}", flush=True)
+    if res["verdict"] != "keep_incumbent" or res["candidate"] != res["incumbent"]:
+        raise AssertionError(f"15d the artifact against itself: {res}")
+    return counts
+
+
+def training_tools(card: str, work: str) -> None:
+    """15e: ``tools.train_roofline`` at batches 8/16/32; 15f:
+    ``tools.train_synthetic_demo`` cut to 32 + 8 triptychs x 3 epochs (from
+    96 + 24 x 100)."""
+    import contextlib
+    import io
+
+    from image_enhancement_deglaring_tpu_torch.tools import train_roofline, train_synthetic_demo
+
+    t0 = time.perf_counter()
+    train_roofline.main(["--batches", "8,16,32", "--size", str(TOOLS_SIZE)])
+    print(f"15e tools.train_roofline: {time.perf_counter() - t0:.1f} s", flush=True)
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        train_synthetic_demo.main(["--data_dir", os.path.join(work, "demo"), "--out_dir",
+                                   os.path.join(work, "demo", "models"), "--n_train", "32",
+                                   "--n_val", "8", "--epochs", "3", "--size",
+                                   str(TOOLS_SIZE)])
+    lines = [ln for ln in log.getvalue().splitlines()
+             if ln.startswith(("identity baseline", "trained in", "final ("))]
+    print(f"15f tools.train_synthetic_demo (32 + 8 triptychs x 3 epochs, cut from 96 + 24 x 100) "
+          f"on {card}: {time.perf_counter() - t0:.1f} s; " + "; ".join(lines), flush=True)
+    if len(lines) != 3:
+        raise AssertionError(f"15f demo output: {log.getvalue()[-2000:]}")
+
+
+def native_decode(work: str) -> None:
+    """15g: the native route (g++ on the card's host) against the numpy
+    route: equal at 512x512 triptychs decoded at 512, within one uint8 step
+    at a resize (768 -> 512); ms per triptych of the per-pixel work and of
+    the whole decode."""
+    from image_enhancement_deglaring_tpu_torch import native
+    from image_enhancement_deglaring_tpu_torch.data.pipeline import (
+        _resize_uint8,
+        _to_gray_uint8,
+        decode_triptych,
+        read_image,
+    )
+
+    t0 = time.perf_counter()
+    native.get_lib()
+    t_build = time.perf_counter() - t0
+    root = os.path.join(work, "heavy")
+    paths = sorted(os.path.join(root, f) for f in os.listdir(root))[:16]
+
+    def numpy_route(img, size):
+        third = img.shape[1] // 3
+        return tuple(_resize_uint8(_to_gray_uint8(img[:, a:a + third]), size).astype(
+            np.float32) / 255.0 for a in (third, 0))
+
+    times, steps = {}, {}
+    big = TOOLS_SIZE * 3 // 2
+    for label, imgs in (("identity", [read_image(p) for p in paths]),
+                        (f"{big} -> {TOOLS_SIZE}", [np.random.default_rng(i).integers(
+                            0, 256, (big, 3 * big, 4), dtype=np.uint8) for i in range(4)])):
+        outs = {}
+        for route, fn in (("native", native.triptych_preprocess), ("numpy", numpy_route)):
+            t0 = time.perf_counter()
+            outs[route] = [fn(img, TOOLS_SIZE) for img in imgs]
+            times[label, route] = (time.perf_counter() - t0) * 1e3 / len(imgs)
+        steps[label] = 255 * max(float(np.abs(x - y).max()) for a, b in zip(
+            outs["native"], outs["numpy"]) for x, y in zip(a, b))
+    whole = {}
+    for route, flag in (("native", True), ("numpy", None)):
+        t0 = time.perf_counter()
+        for p in paths:
+            decode_triptych(p, TOOLS_SIZE, use_native=flag)
+        whole[route] = (time.perf_counter() - t0) * 1e3 / len(paths)
+    print(f"15g native decode: g++ build {t_build:.1f} s; largest difference from numpy in "
+          f"uint8 steps " + ", ".join(f"{k} {v:.3f}" for k, v in steps.items())
+          + "; per-pixel ms per triptych "
+          + ", ".join(f"{k[0]} {k[1]} {v:.3f}" for k, v in times.items())
+          + f"; whole decode_triptych (PNG decode included) native {whole['native']:.3f}, "
+          f"numpy {whole['numpy']:.3f} ms per {TOOLS_SIZE}x{TOOLS_SIZE} triptych", flush=True)
+    if steps["identity"] != 0 or max(steps.values()) > 1.0 + 1e-3:
+        raise AssertionError(f"15g native vs numpy in uint8 steps: {steps}")
+
+
+def slice_tools(card: str) -> dict:
+    """Phase 15: 15a/15b heavy-augmented, profiled cli.train; 15b cli.serve
+    --profile_port; 15c cli.enhance --visualize; 15d the promotion gate;
+    15e/15f the training tools; 15g the native decode. Returns launches by
+    path."""
+    import shutil
+    import tempfile
+
+    paths = {}
+    work = tempfile.mkdtemp(prefix="chip_smoke_tools_")
+    try:
+        for label, fn, args, path in (
+                ("15a-b train", heavy_and_profiled_training, (work,), None),
+                ("15b serve", profiled_serving, (card, work), "15b served under --profile_port"),
+                ("15c", enhance_visualize, (card, work), "15c cli.enhance --visualize"),
+                ("15d", crossval_gate, (card,), "15d crossval_artifact"),
+                ("15e-f", training_tools, (card, work), None),
+                ("15g", native_decode, (work,), None)):
+            t = time.perf_counter()
+            counts = fn(*args)
+            if path is not None:
+                paths[path] = counts
+            print(f"phase {label}: {time.perf_counter() - t:.1f} s", flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -4241,6 +4628,8 @@ def main() -> int:
     paths.update(phase("13 lifecycle, exported artifact, int8 serving", lifecycle_and_int8,
                        card))
     paths.update(phase("14 sweeps on one card", sweeps, card))
+    paths.update(phase("15 heavy augmentation, profiler, tools, native decode", slice_tools,
+                       card))
 
     src = "image_enhancement_deglaring_tpu_torch/csrc/"
     tpu = "image_enhancement_deglaring_tpu/ops/"

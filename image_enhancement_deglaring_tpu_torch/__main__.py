@@ -23,8 +23,14 @@ each takes --device, default cuda, where it runs a model):
   extract_weights  weights-only artifact: .npz, .onnx or a checkpoint dir
                    (reference: scripts/extract_weights.py)
 
-Lifecycle rehearsal (synthesize, sweep, train, export, evaluate, serve through the CLIs):
+Lifecycle rehearsal (synthesize, sweep, train, export, evaluate, promotion
+gate, serve through the CLIs):
 python -m image_enhancement_deglaring_tpu_torch.tools.e2e_lifecycle [--device cpu]
+
+Tools (python -m image_enhancement_deglaring_tpu_torch.tools.<name>): crossval_artifact
+(the promotion gate: a candidate artifact against the shipped one on a fresh
+held-out set), train_synthetic_demo (synthesize, train, evaluate against the
+identity baseline), train_roofline (ms per bf16 train step against its floors)
 
 Smoke test on the card: python3 chip_smoke.py
 Docs: README.md, PERF.md, ROADMAP.md

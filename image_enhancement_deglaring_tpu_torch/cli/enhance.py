@@ -8,9 +8,11 @@ input, PNG outputs).
 The same flags and defaults as the JAX CLI, plus ``--device`` (default
 ``cuda``; without a card that raises unless ``--device cpu`` is given).
 Images (PNG or JPEG) are read by the port's image path (``serve.imaging``,
-``data.jpeg``) and written as PNG. ``--visualize
-(matplotlib) and ``--data_parallel`` raise NotImplementedError naming
-their ROADMAP.md Queue 1 item.
+``data.jpeg``) and written as PNG. ``--visualize`` writes each
+``<stem>_comparison.png`` beside its output: the input's luma and the
+output side by side as one gray PNG, the panel titles in ``tEXt`` chunks
+(the card's machine has no matplotlib). ``--data_parallel`` raises
+NotImplementedError naming its ROADMAP.md Queue 1 item.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ def parse_args(argv=None):
                         "image's tiles internally and ignores this")
     p.add_argument("--image_size", type=int, default=512)
     p.add_argument("--visualize", action="store_true",
-                   help="side-by-side figures (not ported yet)")
+                   help="also write <stem>_comparison.png: input luma | output")
     p.add_argument("--mode", type=str, default="resize", choices=["resize", "tile"])
     p.add_argument("--tile_overlap", type=int, default=32,
                    help="tile-mode overlap in pixels (must be < the tile "
@@ -46,10 +48,6 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.visualize:
-        raise NotImplementedError(
-            "--visualize is not ported yet (ROADMAP.md Queue 1 item 15): the "
-            "machine with the card has no matplotlib or PIL")
     if args.data_parallel is not None:
         raise NotImplementedError(
             "--data_parallel is not ported yet (ROADMAP.md Queue 1 item 13)")
@@ -142,8 +140,40 @@ def main(argv=None):
         with open(out_path, "wb") as f:
             f.write(encode_png(out))
         print(f"Output saved to: {out_path}")
+        if args.visualize:
+            # the figure joins the collision set too: an input named
+            # x_comparison.png must not be clobbered by x.png's figure
+            written.add(_visualize(path, out, out_path, written))
 
     print(f"All images processed and saved to: {args.output_dir}")
+
+
+def _visualize(input_path, output_image, output_path, taken=()) -> str:
+    """Side-by-side figure (reference: main.py:40-59): the input's luma and
+    the output as one gray PNG, top-aligned on white where their heights
+    differ, 16 white columns apart, each panel's title in a ``tEXt`` chunk.
+    Returns the path written, uniquified against ``taken``."""
+    import numpy as np
+
+    from ..data.png import encode_png
+    from ..serve.imaging import decode_image, to_luma
+
+    with open(input_path, "rb") as f:
+        img = decode_image(f.read())
+    panels = [to_luma(img.pixels, img.mode, img.palette), np.asarray(output_image, np.uint8)]
+    h = max(p.shape[0] for p in panels)
+    left, right = (np.pad(p, ((0, h - p.shape[0]), (0, 0)), constant_values=255) for p in panels)
+    fig = np.concatenate([left, np.full((h, 16), 255, np.uint8), right], axis=1)
+    base, _ext = os.path.splitext(output_path)
+    vis_path = base + "_comparison.png"
+    n = 1
+    while vis_path in taken:
+        vis_path = f"{base}_comparison_{n}.png"
+        n += 1
+    with open(vis_path, "wb") as f:
+        f.write(encode_png(fig, text={"Input": "Input Image (with glare)",
+                                      "Output": "De-glared Image"}))
+    return vis_path
 
 
 if __name__ == "__main__":

@@ -58,7 +58,8 @@ def parse_args(argv=None):
                         "(not ported yet)")
     p.add_argument("--log_dir", type=str, default=None)
     p.add_argument("--profile_port", type=int, default=0,
-                   help="live profiler server port (0 = off; not ported yet)")
+                   help="profiler capture port (0 = off): GET "
+                        "http://127.0.0.1:PORT/trace?ms=N traces this process for N ms")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to serve on (cuda, or cpu)")
     return p.parse_args(argv)
@@ -68,7 +69,6 @@ def _refuse_unported(args) -> None:
     """Flags whose parts of the port do not exist yet, with their queue item."""
     todo = [
         (args.data_parallel is not None, "--data_parallel", 13),
-        (bool(args.profile_port), "--profile_port", 15),
     ]
     for bad, flag, item in todo:
         if bad:
@@ -90,6 +90,16 @@ def main(argv=None):
     import torch
 
     from ..serve import create_server
+
+    if args.profile_port:
+        # before the model loads, so the warmup can be captured too; the
+        # capture endpoint runs on a daemon thread of this process, the one
+        # that owns the engine and launches its batches
+        from ..utils.profiling import start_trace_server
+
+        start_trace_server(args.profile_port)
+        print(f"profiler captures on http://127.0.0.1:{args.profile_port}/trace?ms=N "
+              f"(a *.pt.trace.json for TensorBoard / chrome://tracing)", flush=True)
 
     dtype = torch.bfloat16 if args.compute_dtype == "bfloat16" else torch.float32
     server = create_server(

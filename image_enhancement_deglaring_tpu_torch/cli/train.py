@@ -69,8 +69,11 @@ def parse_args(argv=None):
     p.add_argument("--remat", action="store_true")
     p.add_argument("--watch_every", type=int, default=0,
                    help="log parameter histograms every N epochs (0 = off)")
-    p.add_argument("--profile_dir", type=str, default=None)
-    p.add_argument("--profile_steps", type=int, default=5)
+    p.add_argument("--profile_dir", type=str, default=None,
+                   help="write a torch profiler trace of the first epoch's first steps "
+                        "here (TensorBoard / chrome://tracing)")
+    p.add_argument("--profile_steps", type=int, default=5,
+                   help="number of train steps to trace when --profile_dir is set")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to train on (cuda, or cpu)")
     return p.parse_args(argv)
@@ -83,8 +86,6 @@ def _refuse_unported(args) -> None:
             args.coordinator_address, args.num_processes, args.process_id)),
          "--distributed (and its coordinator flags)", 13),
         (args.n_devices > 1, f"--n_devices {args.n_devices}", 13),
-        (args.augment == "heavy" and not args.resident_data, "--augment heavy", 17),
-        (args.profile_dir is not None, "--profile_dir", 15),
     ]
     for bad, flag, item in todo:
         if bad:
@@ -159,6 +160,7 @@ def main(argv=None):
             validation_metrics_every=args.validation_metrics_every,
             log_images_every=args.log_images_every, seed=args.seed, logger=logger,
             resume_from=args.resume, watch_every=args.watch_every,
+            profile_dir=args.profile_dir, profile_steps=args.profile_steps,
             device_augment=device_augment, resident=args.resident_data,
             prefetch=args.prefetch_factor, preempt_guard=guard,
             resident_segments=args.resident_segments, device=device)

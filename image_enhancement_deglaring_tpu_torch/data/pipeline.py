@@ -11,7 +11,10 @@ at ``1 - val_split``.
 The resize is a numpy bilinear resize to OpenCV's ``INTER_LINEAR`` rule
 for uint8 images, which the JAX package runs wherever cv2 is installed:
 half-pixel centres, 11-bit fixed-point weights, and OpenCV's rounding of
-the vertical pass. The JAX package's native C++ route is not ported.
+the vertical pass. ``use_native=True`` runs the per-pixel work in the
+port's copy of the JAX package's C++ library (``native/``), which resizes
+in float and rounds once: at identity size it equals the numpy path, at a
+resize it is within one uint8 step of it.
 """
 
 from __future__ import annotations
@@ -112,12 +115,16 @@ def decode_triptych(path: str, image_size: int = 512, *, with_mask: bool = False
                     use_native: bool | None = None):
     """Decode one SD1 sample -> (glared, ground_truth[, mask]) float32 in
     [0, 1], each (H, W) at ``image_size``: split the thirds, grayscale,
-    resize, /255. ``use_native=True`` asks for the JAX package's C++ route,
-    which the port does not have, and raises."""
-    if use_native:
-        raise NotImplementedError("the native C++ decode route is not ported; "
-                                  "use_native=None or False takes the numpy path")
+    resize, /255. ``use_native=True`` runs the split, luma, resize and /255
+    in the native library (``native/``; raises if it cannot be built), and
+    refuses ``with_mask``; None or False take the numpy path."""
     img = read_image(path)
+    if use_native:
+        if with_mask:
+            raise RuntimeError("native decode does not support with_mask=True")
+        from .. import native
+
+        return native.triptych_preprocess(img, image_size)
     third = img.shape[1] // 3
     gt = _to_gray_uint8(img[:, :third])
     glared = _to_gray_uint8(img[:, third : 2 * third])
@@ -139,11 +146,8 @@ def decode_inference_image(path_or_array, image_size: int = 512, *,
     ``np.asarray(PIL.Image.open(path))`` gives (``read_image``). Array inputs may be uint8 [0,255]
     or float [0,1]; floats are converted to the uint8 path up front, and a
     float array holding [0,255] values raises rather than saturating every
-    pixel to white. ``use_native=True`` asks for the JAX package's C++
-    route, which the port does not have, and raises."""
-    if use_native:
-        raise NotImplementedError("the native C++ decode route is not ported; "
-                                  "use_native=None or False takes the numpy path")
+    pixel to white. ``use_native=True`` runs the luma, resize and /255 in
+    the native library (``native/``; raises if it cannot be built)."""
     if isinstance(path_or_array, (str, os.PathLike)):
         img = read_image(path_or_array)
     else:
@@ -155,6 +159,10 @@ def decode_inference_image(path_or_array, image_size: int = 512, *,
                     "float image values must be normalized to [0,1] "
                     f"(max={mx:g}); divide by 255 first or pass uint8")
             img = np.clip(np.rint(img * 255.0), 0, 255).astype(np.uint8)
+    if use_native:
+        from .. import native
+
+        return native.inference_preprocess(img, image_size)
     gray = _to_gray_uint8(img) if img.ndim == 3 else img
     gray = _resize_uint8(gray, image_size)
     return gray.astype(np.float32) / 255.0

@@ -15,18 +15,18 @@ Each stage runs the port's real CLI in a subprocess:
   5. export the best checkpoint to ONNX         (cli.export_onnx)
   6. evaluate the ONNX artifact                 (cli.evaluate; its L1
      against the train loop's best val loss)
-  7. serve the ONNX artifact over HTTP          (cli.serve)
-  8. drive the live API                         (cli.test_api --test all)
-  9. frontend proxy round trip                  (frontend/app.py /infer)
- 10. SIGTERM drain: the server exits 0
+  7. promotion gate against the shipped         (tools.crossval_artifact)
+     artifact on a fresh held-out seed
+  8. serve the ONNX artifact over HTTP          (cli.serve)
+  9. drive the live API                         (cli.test_api --test all)
+ 10. frontend proxy round trip                  (frontend/app.py /infer)
+ 11. SIGTERM drain: the server exits 0
 
 It prints ``PASS <stage> (<seconds>s)`` per stage and a final
-``E2E_SUMMARY {json}`` with each stage's seconds. The counterpart of the
-JAX package's ``scripts/e2e_lifecycle.py`` leaves out one of its stages,
-the promotion gate (``scripts/crossval_artifact.py``, ROADMAP Queue 1
-item 15). ``--device`` (default cuda) goes to every stage that runs the
-model; without ``--work_dir`` the run works in a temporary directory and
-removes it.
+``E2E_SUMMARY {json}`` with each stage's seconds and the gate's verdict:
+the stages of the JAX package's ``scripts/e2e_lifecycle.py``. ``--device``
+(default cuda) goes to every stage that runs the model; without
+``--work_dir`` the run works in a temporary directory and removes it.
 """
 
 from __future__ import annotations
@@ -112,7 +112,7 @@ class Lifecycle:
 
 
 def rehearse(lc: Lifecycle, *, device: str, size: int, epochs: int) -> dict:
-    """Stages 1-10; returns the summary."""
+    """Stages 1-11; returns the summary."""
     w = lc.work_dir
     data, sweep, models = (os.path.join(w, d) for d in ("data", "sweep", "models"))
     summary: dict = {"device": device, "size": size}
@@ -174,6 +174,15 @@ def rehearse(lc: Lifecycle, *, device: str, size: int, epochs: int) -> dict:
     if abs(onnx_l1 - best_val) >= max(0.02, 0.25 * best_val):
         raise SystemExit(f"FAIL evaluate_onnx: L1 {onnx_l1} vs train best val {best_val}")
     summary["onnx_l1"] = onnx_l1
+
+    # the promotion gate against the shipped artifact (a fresh held-out seed)
+    out = lc.run("crossval_gate", ["-m", f"{PKG}.tools.crossval_artifact", "--candidate",
+                                   onnx_path, "--n", "8", "--size", str(size),
+                                   "--batch_size", "4", "--device", device], 900)
+    gate = json.loads(out.strip().splitlines()[-1])
+    if gate["verdict"] not in ("promote", "keep_incumbent"):
+        raise SystemExit(f"FAIL crossval_gate: {gate}")
+    summary["gate_verdict"] = gate["verdict"]
 
     api_port, fe_port = _free_port(), _free_port()
     t0 = time.time()

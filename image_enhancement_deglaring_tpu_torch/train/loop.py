@@ -49,6 +49,7 @@ from ..modelio.params_import import (
 )
 from ..ops.conv_blocks import highest_precision
 from ..ops.metrics import batched_psnr_ssim, l1_loss
+from ..utils.profiling import start_trace, stop_trace
 from ..utils.pytree import flatten_tree, unflatten_tree
 from .checkpoint import restore_checkpoint, save_checkpoint
 from .lr_control import ReduceLROnPlateau
@@ -223,7 +224,7 @@ def train_model(model, train_loader, val_loader, *, epochs: int,
                 resume_from: str | None = None,
                 lr_controller: ReduceLROnPlateau | None = None,
                 watch_every: int = 0, profile_dir: str | None = None,
-                device_augment: bool = False,
+                profile_steps: int = 0, device_augment: bool = False,
                 resident: bool = False, prefetch: int = 2,
                 preempt_guard=None, handle_preemption: bool = True,
                 resident_segments: int = 8, device="cuda"):
@@ -250,12 +251,12 @@ def train_model(model, train_loader, val_loader, *, epochs: int,
     the segment count, and a mid-epoch checkpoint lands on a segment
     boundary. A mid-epoch checkpoint resumes only in the mode that wrote
     it. ``device_augment``: augment every batch on the device
-    (``ops.augment_device``). ``mesh`` and ``profile_dir`` belong to later
-    parts of the port and raise."""
+    (``ops.augment_device``). ``profile_dir`` with ``profile_steps > 0``:
+    a profiler trace (``utils.profiling``) of the first epoch's first
+    ``profile_steps`` steps, or of its whole resident epoch, written there.
+    ``mesh`` belongs to a later part of the port and raises."""
     if mesh is not None:
         _not_ported("mesh", 13, "data-parallel training over several GPUs")
-    if profile_dir is not None:
-        _not_ported("profile_dir", 15, "the training profiler")
     dev = resolve_device(device)
     os.makedirs(output_dir, exist_ok=True)
 
@@ -417,6 +418,10 @@ def train_model(model, train_loader, val_loader, *, epochs: int,
             # ------------------------------------------------------ train
             t0 = time.time()
             skip = resume_skip_steps if epoch == resume_mid_epoch else 0
+            # a trace of the first epoch's hot loop (the reference has no profiler)
+            prof = (start_trace(profile_dir)
+                    if profile_dir is not None and profile_steps > 0 and epoch == start_epoch
+                    else None)
             if resident:
                 # the epoch's plan, drawn once from (seed, epoch) and run in
                 # segments; a resume slices it from the saved boundary
@@ -432,6 +437,9 @@ def train_model(model, train_loader, val_loader, *, epochs: int,
                     if s < steps and guard is not None and guard.triggered:
                         preempted, mid_step = True, s
                         break
+                if prof is not None:
+                    stop_trace(prof, profile_dir)
+                    prof = None
                 if preempted:
                     _save_preempt(mid_step)
                     break
@@ -470,12 +478,18 @@ def train_model(model, train_loader, val_loader, *, epochs: int,
                     state, loss = train_step(state, x, y)
                     step_losses.append(loss)
                     step_sizes.append(x.shape[0])
+                    if prof is not None and i + 1 >= profile_steps:
+                        stop_trace(prof, profile_dir)
+                        prof = None
                     if guard is not None and guard.triggered:
                         preempted = True
                         mid_step = plan_skip + i + 1  # counted from the epoch's start
                         break
                 if plan_skip:  # one-shot: later epochs iterate in full
                     train_loader.set_skip_batches(0)
+                if prof is not None:  # the epoch was shorter than profile_steps
+                    stop_trace(prof, profile_dir)
+                    prof = None
                 if preempted:
                     _save_preempt(mid_step)
                     break

@@ -279,8 +279,16 @@ def test_decode_triptych_exact_at_no_resize(sd1):
         for g, w in zip(got, want):
             assert g.dtype == np.float32
             np.testing.assert_array_equal(g, w)
-    with pytest.raises(NotImplementedError, match="native"):
-        decode_triptych(list_image_paths(sd1)[0], 32, use_native=True)
+    # the native route at no resize: the JAX package's native numbers,
+    # which equal the numpy path's there
+    for path in list_image_paths(sd1)[:2]:
+        got = decode_triptych(path, 32, use_native=True)
+        want = jax_pipeline.decode_triptych(path, 32, use_native=True)
+        for g, n, w in zip(got, decode_triptych(path, 32), want):
+            np.testing.assert_array_equal(g, w)
+            np.testing.assert_array_equal(g, n)
+    with pytest.raises(RuntimeError, match="with_mask"):
+        decode_triptych(list_image_paths(sd1)[0], 32, with_mask=True, use_native=True)
 
 
 def test_decode_triptych_reads_a_jpeg_as_jax_does(sd1, tmp_path):
@@ -341,8 +349,11 @@ def test_optimized_augment_equals_jax_package():
         b = jax_augment.optimized_augment(img, tgt, np.random.default_rng(seed))
         for x, y in zip(a, b):
             np.testing.assert_array_equal(x, y)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        heavy_augment(img, tgt, np.random.default_rng(0))
+    for seed in range(40):  # the heavy stack too (tests/test_torch_port_augment.py: more)
+        a = heavy_augment(img, tgt, np.random.default_rng(seed))
+        b = jax_augment.heavy_augment(img, tgt, np.random.default_rng(seed))
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
 
 
 @pytest.mark.parametrize("workers", [0, 2])

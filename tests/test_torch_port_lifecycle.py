@@ -1,8 +1,8 @@
 """The port's lifecycle rehearsal (``tools/e2e_lifecycle.py``) on the CPU:
 synthesize -> validate -> sweep -> train at the sweep's best -> export ->
-evaluate the export -> serve -> ``cli.test_api --test all`` -> frontend
-proxy -> SIGTERM drain, each stage the port's CLI in its own process, at
-32x32 for 2 epochs (~30 s).
+evaluate the export -> the promotion gate -> serve -> ``cli.test_api
+--test all`` -> frontend proxy -> SIGTERM drain, each stage the port's CLI
+in its own process, at 32x32 for 2 epochs (~30 s).
 """
 
 import json
@@ -12,7 +12,7 @@ import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STAGES = ("make_synthetic", "check_dataset", "sweep", "train", "export_onnx", "evaluate_onnx",
-          "serve_up", "test_api_all", "frontend_proxy", "sigterm_drain")
+          "crossval_gate", "serve_up", "test_api_all", "frontend_proxy", "sigterm_drain")
 
 
 def test_lifecycle_rehearsal_on_the_cpu(tmp_path):
@@ -31,6 +31,7 @@ def test_lifecycle_rehearsal_on_the_cpu(tmp_path):
     assert set(summary["stage_seconds"]) == set(STAGES)
     assert summary["device"] == "cpu" and summary["onnx_bytes"] > 1_000_000
     assert summary["train_best_val_loss"] < 1.0
+    assert summary["gate_verdict"] in ("promote", "keep_incumbent")
     # the train stage took the sweep's winner (its results file, the
     # trainer's logged config)
     with open(tmp_path / "sweep" / "sweep_results.json") as f:

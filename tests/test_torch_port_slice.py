@@ -247,7 +247,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "          'models.optimized_unet', 'models.enhanced_unet', 'models.model_utils',\n"
         "          'data.jpeg', 'modelio.onnx_writer', 'modelio.onnx_exec', 'cli.export_onnx',\n"
         "          'cli.extract_weights', 'tools.e2e_lifecycle', 'ops.quant', 'parallel',\n"
-        "          'parallel.sweep', 'cli.sweep', 'utils.config', 'tools.sweep_resident_bench'):\n"
+        "          'parallel.sweep', 'cli.sweep', 'utils.config', 'tools.sweep_resident_bench',\n"
+        "          'data.cv_ops', 'data.augment', 'utils.profiling', 'tools.crossval_artifact',\n"
+        "          'tools.train_synthetic_demo', 'tools.train_roofline', 'native'):\n"
         "    assert pkg.__name__ + '.' + m in names, m\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'PIL', 'cv2', 'matplotlib',\n"

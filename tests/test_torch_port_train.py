@@ -495,8 +495,7 @@ def test_early_stop_after_patience(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--distributed"], 13), (["--n_devices", "2"], 13), (["--augment", "heavy"], 17),
-    (["--profile_dir", "p"], 15),
+    (["--distributed"], 13), (["--n_devices", "2"], 13),
 ])
 def test_cli_refuses_unported_flags_naming_their_queue_item(flags, item):
     with pytest.raises(SystemExit, match=f"item {item}"):
@@ -512,8 +511,6 @@ def test_cli_and_train_model_default_to_cuda(tmp_path):
         train_model(LightweightUNet(), [], [], epochs=1, output_dir=str(tmp_path))
     with pytest.raises(NotImplementedError, match="item 13"):
         train_model(LightweightUNet(), [], [], epochs=1, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 15"):
-        train_model(LightweightUNet(), [], [], epochs=1, profile_dir="p", device="cpu")
 
 
 # -------------------------------------------------- the kernels' grad guard
