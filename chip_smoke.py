@@ -206,7 +206,25 @@ Phases, each fatal on failure:
    batches 8/16/32; (f) ``tools.train_synthetic_demo`` cut to 32 + 8
    triptychs x 3 epochs; (g) the native decode (g++) against the numpy
    route: equal at identity size, within one uint8 step at a resize, ms
-   per triptych.
+   per triptych;
+16. data parallelism (``parallel.distributed``, one process per device;
+   the machine has one card): (a) ``cli.train --distributed
+   --num_processes 1 --process_id 0 --coordinator_address
+   127.0.0.1:<free port>`` (NCCL, a group of one) and the same run without
+   it, the production LightweightUNet from seeded init, bf16, 512x512,
+   batch 8, ``--resident_data``, 2 epochs of 12 steps on synthetic
+   triptychs, under deterministic algorithms: final weights equal bit for
+   bit, the last epoch's ms per step of both, the JAX CLI's single-process
+   warning; then the step's gradient all-reduce alone (NCCL, a group of
+   one, median of 50); (b) two ranks on the one card through
+   ``launch_local(..., backend="gloo")`` with CUDA tensors (NCCL refuses
+   two ranks on one GPU), f32 at 128x128, global batch 8, 2 epochs under
+   deterministic algorithms: the ranks equal bit for bit and equal to one
+   process within rtol 1e-5; (c) ``evaluate`` over the two ranks, bf16
+   with the kernels, 16 pages at 512x512 in batches of 8: |dPSNR| <= 0.01
+   dB against one rank, K1/K3 14/4 per forward (each rank's counts,
+   summed); (d) ``cli.train --n_devices 2`` prints the JAX CLI's clamp
+   message and trains on the one card.
 
 The line before the last is a JSON object with one entry per kernel, its
 launches also by path (each counted from 0 in its own run); the last
@@ -4578,6 +4596,287 @@ def slice_tools(card: str) -> dict:
     return paths
 
 
+# ----------------------------------------------------------------------
+# phase 16: data parallelism on the card (parallel.distributed, one process
+# per device). The machine has one H100: NCCL runs a group of one, and two
+# ranks share the card under Gloo, since NCCL refuses two ranks on one GPU.
+
+DP_SIZE, DP_BATCH, DP_TRAIN_N, DP_VAL_N = 512, 8, 96, 24     # 16a/16d
+DP_F32_SIZE, DP_F32_N, DP_F32_BATCH = 128, 16, 8             # 16b
+DP_EVAL_N, DP_EVAL_BATCH = 16, 8                             # 16c, at 512^2
+DP_RTOL = 1e-5                          # tests/test_torch_port_distributed.py
+DP_PSNR_GATE_DB = EVAL_F32_GATE["psnr"]  # phase 9's gate
+
+
+class _DPLoader:
+    """Fixed NHWC arrays in batches, dropping a ragged tail."""
+
+    def __init__(self, x, y, batch_size):
+        self.x, self.y, self.batch_size = x, y, batch_size
+
+    def __len__(self):
+        return len(self.x) // self.batch_size
+
+    @property
+    def num_samples(self):
+        return len(self.x)
+
+    def __iter__(self):
+        for i in range(len(self)):
+            s = slice(i * self.batch_size, (i + 1) * self.batch_size)
+            yield self.x[s], self.y[s]
+
+
+def _dp_summary(tree) -> dict:
+    from image_enhancement_deglaring_tpu_torch.utils import flatten_tree
+
+    leaves = {k: float(np.abs(np.asarray(v, np.float64)).sum())
+              for k, v in flatten_tree(tree).items()}
+    return {"abs_sum": sum(leaves.values()), "leaves": leaves}
+
+
+def _dp_f32_train(work: str, mesh=None) -> dict:
+    """16b's run: the production LightweightUNet from seeded init, f32,
+    under deterministic algorithms, 2 epochs over seeded triptychs; with
+    ``mesh`` each rank takes its half of every batch."""
+    from image_enhancement_deglaring_tpu_torch.models import LightweightUNet
+    from image_enhancement_deglaring_tpu_torch.parallel import distributed
+    from image_enhancement_deglaring_tpu_torch.train import train_model
+
+    x, y = triptych_batch(DP_F32_N, DP_F32_SIZE, seed=41)
+    loaders = [_DPLoader(x[:DP_F32_N // 2], y[:DP_F32_N // 2], DP_F32_BATCH),
+               _DPLoader(x[DP_F32_N // 2:], y[DP_F32_N // 2:], DP_F32_BATCH)]
+    if mesh is not None:
+        loaders = [distributed.LocalSliceLoader(ld) for ld in loaders]
+    model = LightweightUNet(dtype=torch.float32, generator=torch.Generator().manual_seed(0))
+    torch.use_deterministic_algorithms(True)
+    try:
+        best, _, val, state = train_model(
+            model, *loaders, epochs=2, lr=1e-3, save_every=100, progress=False,
+            validation_metrics_every=1, handle_preemption=False, output_dir=work, mesh=mesh,
+            device="cuda")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return {"best_val": float(val), "step": state.step, **_dp_summary(best)}
+
+
+def _dp_evaluate(data: str, mesh=None) -> tuple[dict, dict]:
+    """16c's run: ``evaluate`` on the production weights, bf16 with the
+    kernels, over the synthetic val set; its metrics and its launches,
+    counted from 0 just before it."""
+    from image_enhancement_deglaring_tpu_torch.data import make_eval_loader
+    from image_enhancement_deglaring_tpu_torch.eval import evaluate, load_model_for_eval
+
+    model, _ = load_model_for_eval(ONNX, compute_dtype=torch.bfloat16,
+                                   device=mesh.device if mesh is not None else "cuda")
+    loader = make_eval_loader(data, batch_size=DP_EVAL_BATCH, image_size=DP_SIZE,
+                              num_workers=EVAL_WORKERS)
+    _reset_launches()
+    metrics = evaluate(model, loader, batch_size=DP_EVAL_BATCH, progress=False, mesh=mesh)
+    return metrics, _launches()
+
+
+def _dp_rank(work: str, eval_data: str) -> None:
+    """One rank of 16b/16c (``parallel.distributed.launch_local`` over Gloo
+    on the one card): its training summary, evaluation and launches as JSON."""
+    from image_enhancement_deglaring_tpu_torch.parallel import distributed
+
+    mesh = distributed.global_mesh(device="cuda")  # Gloo ranks on the card
+    out = {"device": str(mesh.device), "backend": mesh.backend,
+           "train": _dp_f32_train(os.path.join(work, "ranks"), mesh)}
+    out["evaluate"], out["launches"] = _dp_evaluate(eval_data, mesh)
+    with open(os.path.join(work, f"rank{mesh.rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _dp_cli(argv: list) -> tuple[str, str]:
+    """``cli.train.main(argv)`` in this process, its stdout and stderr
+    echoed and returned."""
+    import contextlib
+    import io
+
+    from image_enhancement_deglaring_tpu_torch.cli import train as cli_train
+
+    class Tee(io.StringIO):
+        def __init__(self, echo):
+            super().__init__()
+            self.echo = echo
+
+        def write(self, text):
+            self.echo.write(text)
+            return super().write(text)
+
+    out, err = Tee(sys.__stdout__), Tee(sys.__stderr__)
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        cli_train.main(argv)
+    return out.getvalue(), err.getvalue()
+
+
+def _dp_ms_per_step(run_dir: str) -> float:
+    """The last epoch's ms per step from its train_images_per_sec."""
+    with open(os.path.join(run_dir, "logs", "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f if "train_images_per_sec" in line]
+    return 1000.0 * DP_BATCH / recs[-1]["train_images_per_sec"]
+
+
+def _dp_allreduce_ms(card: str) -> None:
+    """What the gradient all-reduce costs a step, NCCL in a group of one on
+    this card: the production model's bf16 step at 16a's shape with and
+    without it, in turns on the same state (CUDA events, median of 20
+    rounds after 5 warm ones), and ``average_gradients`` alone."""
+    from image_enhancement_deglaring_tpu_torch.models import LightweightUNet
+    from image_enhancement_deglaring_tpu_torch.parallel import distributed
+    from image_enhancement_deglaring_tpu_torch.parallel.mesh import make_mesh
+    from image_enhancement_deglaring_tpu_torch.train import (
+        TrainState,
+        make_optimizer,
+        make_train_step,
+    )
+    from image_enhancement_deglaring_tpu_torch.train.loop import average_gradients
+
+    def timed(fn) -> float:
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(b)
+
+    distributed.initialize(f"127.0.0.1:{distributed.free_port()}", 1, 0)
+    try:
+        model = LightweightUNet(dtype=torch.bfloat16,
+                                generator=torch.Generator().manual_seed(0)).to("cuda")
+        state = TrainState(model=model, optimizer=make_optimizer(model, TRAIN_LR, TRAIN_WD))
+        x, y = (torch.from_numpy(a).cuda() for a in triptych_batch(DP_BATCH, DP_SIZE, seed=33))
+        mesh = make_mesh()
+        steps = {"without": make_train_step(), "with": make_train_step(mesh=mesh)}
+        times = {name: [] for name in steps}
+        for r in range(25):
+            for name, step in steps.items():
+                ms = timed(lambda: step(state, x, y))
+                if r >= 5:
+                    times[name].append(ms)
+        params = list(model.parameters())
+        alone = [timed(lambda: average_gradients(params, mesh)) for _ in range(60)][10:]
+        n = sum(p.numel() for p in params)
+        med = {name: float(np.median(v)) for name, v in times.items()}
+        print(f"16a bf16 step at {DP_SIZE}^2 batch {DP_BATCH} on {card}, in turns over 20 rounds:"
+              f" median {med['without']:.4f} ms without the all-reduce, {med['with']:.4f} ms "
+              f"with it (NCCL, group of one), cost {med['with'] - med['without']:.4f} ms; "
+              f"average_gradients alone on {n} floats ({4 * n / 2**20:.2f} MiB): median "
+              f"{np.median(alone):.4f} ms, min {min(alone):.4f} ms over 50 calls", flush=True)
+    finally:
+        distributed.shutdown()
+
+
+def data_parallel(card: str) -> dict:
+    """Phase 16: (a) ``cli.train --distributed`` as a group of one on NCCL
+    against the same run without it, bit for bit, ms per step of both and
+    what the all-reduce costs a step, paired; (b) two ranks on the card under Gloo training f32
+    under deterministic algorithms: the ranks equal bit for bit and equal
+    to one process at the same global batch; (c) ``evaluate`` over the two
+    ranks against one, |dPSNR| <= 0.01 dB, their K1/K3 launches counted;
+    (d) ``cli.train --n_devices 2`` clamped to the one card. Returns the
+    launches of (c)."""
+    import shutil
+    import tempfile
+
+    from image_enhancement_deglaring_tpu_torch.data import generate_synthetic_sd1
+    from image_enhancement_deglaring_tpu_torch.parallel import distributed
+    from image_enhancement_deglaring_tpu_torch.utils import load_npz_tree
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    try:
+        t = time.perf_counter()
+        data = os.path.join(work, "data")
+        generate_synthetic_sd1(data, n_train=DP_TRAIN_N, n_val=DP_VAL_N, size=DP_SIZE, seed=31)
+        generate_synthetic_sd1(os.path.join(work, "eval"), n_train=0, n_val=DP_EVAL_N,
+                               size=DP_SIZE, seed=32)
+        eval_data = os.path.join(work, "eval", "val")
+        print(f"16 synthetic sets written ({DP_TRAIN_N + DP_VAL_N} + {DP_EVAL_N} triptychs at "
+              f"{DP_SIZE}^2) in {time.perf_counter() - t:.1f} s", flush=True)
+
+        # 16a: a group of one on NCCL against no group, under deterministic
+        # algorithms so that the two runs can agree bit for bit
+        common = ["--data_dir", data, "--epochs", "2", "--batch_size", str(DP_BATCH),
+                  "--resident_data", "--validation_metrics_every", "1", "--num_workers", "4"]
+        runs = {}
+        torch.use_deterministic_algorithms(True)
+        try:
+            for name, extra in (("plain", []), ("distributed", [
+                    "--distributed", "--num_processes", "1", "--process_id", "0",
+                    "--coordinator_address", f"127.0.0.1:{distributed.free_port()}"])):
+                out_dir = os.path.join(work, name)
+                text, err = _dp_cli(common + ["--output_dir", out_dir] + extra)
+                runs[name] = (out_dir, text, err)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        plain = load_npz_tree(os.path.join(runs["plain"][0], "model_weights.npz"))
+        dist_ = load_npz_tree(os.path.join(runs["distributed"][0], "model_weights.npz"))
+        from image_enhancement_deglaring_tpu_torch.utils import flatten_tree
+
+        fp, fd = flatten_tree(plain), flatten_tree(dist_)
+        differ = [k for k in fp if not np.array_equal(fp[k], fd[k])]
+        ms = {name: _dp_ms_per_step(d) for name, (d, _, _) in runs.items()}
+        print(f"16a cli.train bf16 {DP_SIZE}^2 batch {DP_BATCH} resident, 2 epochs of "
+              f"{DP_TRAIN_N // DP_BATCH} steps on {card}: last epoch {ms['plain']:.3f} ms/step "
+              f"without a group, {ms['distributed']:.3f} ms/step with --distributed (NCCL, one "
+              f"process); final weights: {len(fp) - len(differ)} of {len(fp)} leaves equal bit "
+              f"for bit", flush=True)
+        if differ or fp.keys() != fd.keys():
+            raise AssertionError(f"16a: --distributed changed the weights: {differ[:5]}")
+        if ("Distributed runtime: 1 process(es)" not in runs["distributed"][1]
+                or "resolved to a SINGLE process" not in runs["distributed"][2]):
+            raise AssertionError("16a: the group of one was not announced as the JAX CLI does")
+        _dp_allreduce_ms(card)
+
+        # 16b/16c: two ranks on the one card under Gloo, CUDA tensors
+        t = time.perf_counter()
+        distributed.launch_local(_dp_rank, 2, work, eval_data, device="cuda", backend="gloo")
+        ranks = [json.load(open(os.path.join(work, f"rank{r}.json"))) for r in (0, 1)]
+        t_ranks = time.perf_counter() - t
+        one = _dp_f32_train(os.path.join(work, "one"))
+        one_eval, _ = _dp_evaluate(eval_data)
+        r0, r1 = ranks
+        rel = {k: abs(r0["train"][k] - one[k]) / abs(one[k]) for k in ("best_val", "abs_sum")}
+        print(f"16b two ranks on {r0['device']} and {r1['device']} ({r0['backend']}), f32 "
+              f"{DP_F32_SIZE}^2, global batch {DP_F32_BATCH}, 2 epochs ({t_ranks:.1f} s with "
+              f"16c, two processes): ranks equal bit for bit "
+              f"{r0['train'] == r1['train']}; against one process best val "
+              f"{r0['train']['best_val']:.8f} vs {one['best_val']:.8f} (rel {rel['best_val']:.2e}),"
+              f" |params| sum rel {rel['abs_sum']:.2e} (gate {DP_RTOL})", flush=True)
+        if r0["train"] != r1["train"] or r0["train"]["step"] != one["step"]:
+            raise AssertionError("16b: the ranks disagree or stepped otherwise than one process")
+        if max(rel.values()) > DP_RTOL:
+            raise AssertionError(f"16b: two ranks vs one process beyond {DP_RTOL}: {rel}")
+        d_psnr = abs(r0["evaluate"]["psnr"] - one_eval["psnr"])
+        launches = {k: r0["launches"].get(k, 0) + r1["launches"].get(k, 0)
+                    for k in set(r0["launches"]) | set(r1["launches"])}
+        forwards = 2 * -(-DP_EVAL_N // DP_EVAL_BATCH)  # each rank runs every batch's half
+        print(f"16c evaluate bf16 with the kernels over two ranks: {fmt_metrics(r0['evaluate'])};"
+              f" one rank {fmt_metrics(one_eval)}; |dPSNR| {d_psnr:.5f} dB (gate "
+              f"{DP_PSNR_GATE_DB}); launches {launches} over {forwards} forwards", flush=True)
+        if r0["evaluate"] != r1["evaluate"] or d_psnr > DP_PSNR_GATE_DB:
+            raise AssertionError("16c: two-rank evaluation beyond its gate or ranks disagree")
+        if r0["evaluate"]["num_samples"] != DP_EVAL_N:
+            raise AssertionError(f"16c: {r0['evaluate']['num_samples']} samples")
+        _per_forward(launches, forwards, "16c")
+
+        # 16d: more devices asked for than the card count
+        text, _ = _dp_cli(["--data_dir", data, "--output_dir", os.path.join(work, "clamp"),
+                           "--epochs", "1", "--batch_size", str(DP_BATCH), "--resident_data",
+                           "--n_devices", "2"])
+        clamp = "requested --n_devices 2, but only 1 available; using 1"
+        trained = os.path.exists(os.path.join(work, "clamp", "model_weights.npz"))
+        print(f"16d cli.train --n_devices 2 on one card: clamp message printed "
+              f"{clamp in text}, trained on one {trained}", flush=True)
+        if clamp not in text or not trained:
+            raise AssertionError("16d: --n_devices 2 was not clamped to the one card")
+        return {"16c evaluate over two ranks": launches}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -4630,6 +4929,7 @@ def main() -> int:
     paths.update(phase("14 sweeps on one card", sweeps, card))
     paths.update(phase("15 heavy augmentation, profiler, tools, native decode", slice_tools,
                        card))
+    paths.update(phase("16 data parallelism on the card", data_parallel, card))
 
     src = "image_enhancement_deglaring_tpu_torch/csrc/"
     tpu = "image_enhancement_deglaring_tpu/ops/"

@@ -50,7 +50,7 @@ def main(argv=None):
     args = parse_args(argv)
     if args.data_parallel is not None:
         raise NotImplementedError(
-            "--data_parallel is not ported yet (ROADMAP.md Queue 1 item 13)")
+            "--data_parallel is not ported yet (ROADMAP.md Queue 1 item 13b)")
     import numpy as np
     import torch
 

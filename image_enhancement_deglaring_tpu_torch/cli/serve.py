@@ -68,7 +68,7 @@ def parse_args(argv=None):
 def _refuse_unported(args) -> None:
     """Flags whose parts of the port do not exist yet, with their queue item."""
     todo = [
-        (args.data_parallel is not None, "--data_parallel", 13),
+        (args.data_parallel is not None, "--data_parallel", "13b"),
     ]
     for bad, flag, item in todo:
         if bad:

@@ -16,7 +16,7 @@ one. ``--parallel_trials`` caps the trials that
 train at once in one group: their stacked state and activations share the
 card's memory (about 0.3 GiB per trial-image of batch at 512^2 in bf16).
 Several devices (``--n_devices > 1``, ``--distributed`` and its
-coordinator flags) raise naming ROADMAP Queue 1 item 13.
+coordinator flags) raise naming ROADMAP Queue 1 item 13b.
 """
 
 from __future__ import annotations
@@ -119,7 +119,7 @@ def main(argv=None):
             (args.n_devices > 1, f"--n_devices {args.n_devices}")]
     for bad, flag in todo:
         if bad:
-            raise SystemExit(f"{flag} is not ported yet (ROADMAP Queue 1 item 13)")
+            raise SystemExit(f"{flag} is not ported yet (ROADMAP Queue 1 item 13b)")
     import torch
 
     from .._device import resolve_device

@@ -6,9 +6,11 @@ with --test ping|infer|all, --url, --image flags).
 
 The JAX CLI's flags and output, on the standard library (``urllib``) and
 the port's image path instead of ``requests`` and PIL. ``--image`` may be
-a PNG or a JPEG; the answer is saved as the PNG the server sent, under the
-JAX CLI's name with a ``.png`` extension (PIL re-encodes it by the name's
-extension, a JPEG for a ``.jpg`` upload; the port has no JPEG encoder).
+a PNG or a JPEG; the answer is saved under the JAX CLI's name,
+``enhanced_<basename>``, in the format its extension names, as PIL's
+``save`` picks it: the PNG the server sent for ``.png``, and for ``.jpg``
+or ``.jpeg`` the quality-75 JPEG PIL writes (``data.jpeg_encode``, byte
+for byte). Another extension is refused before the request.
 """
 
 from __future__ import annotations
@@ -19,6 +21,11 @@ import json
 import os
 import urllib.error
 import urllib.request
+
+
+# the extensions PIL's save maps to its PNG and JPEG writers
+_PNG_EXTS = (".png", ".apng")
+_JPEG_EXTS = (".jpg", ".jpeg", ".jpe", ".jfif")
 
 
 def _call(url: str, *, data: bytes | None = None, headers: dict | None = None,
@@ -54,8 +61,14 @@ def test_ping(url: str) -> bool:
 
 def test_infer(url: str, image_path: str, out_dir: str = "test_output",
                timeout: float = 120.0) -> bool:
+    from ..data.jpeg_encode import encode_jpeg_gray
     from ..serve.imaging import decode_image
 
+    name = os.path.basename(image_path)
+    ext = os.path.splitext(name)[1].lower()
+    if ext not in _PNG_EXTS + _JPEG_EXTS:
+        raise ValueError(f"cannot save the answer as {name!r}: the port writes PNG "
+                         f"({', '.join(_PNG_EXTS)}) and JPEG ({', '.join(_JPEG_EXTS)}) files")
     with open(image_path, "rb") as f:
         body, headers = multipart_image(f.read(), os.path.basename(image_path))
     status, data = _call(f"{url}/infer", data=body, headers=headers, timeout=timeout)
@@ -65,10 +78,9 @@ def test_infer(url: str, image_path: str, out_dir: str = "test_output",
     png = base64.b64decode(json.loads(data)["image"])
     img = decode_image(png)
     os.makedirs(out_dir, exist_ok=True)
-    stem, ext = os.path.splitext(os.path.basename(image_path))
-    out = os.path.join(out_dir, f"enhanced_{stem}{ext if ext.lower() == '.png' else '.png'}")
+    out = os.path.join(out_dir, f"enhanced_{name}")
     with open(out, "wb") as f:
-        f.write(png)
+        f.write(png if ext in _PNG_EXTS else encode_jpeg_gray(img.pixels))
     h, w = img.pixels.shape[:2]
     print(f"Infer test: PASSED (output ({w}, {h}) {img.mode} saved to {out})")
     return True

@@ -11,14 +11,23 @@ JAX package's flat names, nested under ``params/`` and ``batch_stats/``
 for EnhancedUNet), and ``logs/metrics.jsonl``. ``--resident_data`` caches
 the decoded set on the device and augments there (``--augment optimized``
 becomes ``device``); ``--augment device`` alone augments streamed batches
-on the device. Flags of parts the port does not have yet raise and name
-the ROADMAP Queue 1 item that brings them.
+on the device.
+
+Data parallelism, one process per device (``parallel.distributed``):
+``--n_devices N`` starts N ranks on this machine from this command (one
+per card, clamped to the cards there are; with ``--device cpu``, N CPU
+processes under Gloo); ``--distributed`` joins a process group with
+``--coordinator_address host:port --num_processes N --process_id I`` (or
+torchrun's variables), one command per process. ``--batch_size`` is the
+global batch and must divide by the ranks; rank 0 writes the logs and
+checkpoints.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import sys
 
 
 def parse_args(argv=None):
@@ -59,9 +68,14 @@ def parse_args(argv=None):
     p.add_argument("--compute_dtype", type=str, default="bfloat16",
                    choices=["bfloat16", "float32"])
     p.add_argument("--n_devices", type=int, default=0,
-                   help="data-parallel devices (0 = all local; the port trains on one)")
-    p.add_argument("--distributed", action="store_true")
-    p.add_argument("--coordinator_address", type=str, default=None)
+                   help="data-parallel devices (0 = all local): one process per device")
+    p.add_argument("--distributed", action="store_true",
+                   help="join a process group (NCCL on cuda, Gloo on cpu) and train "
+                        "data-parallel over every rank; run the same command once per "
+                        "process — each feeds its slice of every batch, rank 0 writes "
+                        "checkpoints/logs")
+    p.add_argument("--coordinator_address", type=str, default=None,
+                   help="host:port of process 0 (or torchrun's MASTER_ADDR/MASTER_PORT)")
     p.add_argument("--num_processes", type=int, default=None)
     p.add_argument("--process_id", type=int, default=None)
     p.add_argument("--resume", type=str, default=None,
@@ -79,17 +93,14 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def _refuse_unported(args) -> None:
-    """Flags whose parts of the port do not exist yet, with their queue item."""
-    todo = [
-        (args.distributed or any(a is not None for a in (
-            args.coordinator_address, args.num_processes, args.process_id)),
-         "--distributed (and its coordinator flags)", 13),
-        (args.n_devices > 1, f"--n_devices {args.n_devices}", 13),
-    ]
-    for bad, flag, item in todo:
-        if bad:
-            raise SystemExit(f"{flag} is not ported yet (ROADMAP Queue 1 item {item})")
+def _local_devices(args) -> int:
+    """The devices ``--n_devices`` may take here: the cards, or on the CPU
+    as many processes as asked for."""
+    import torch
+
+    if torch.device(args.device).type == "cuda":
+        return torch.cuda.device_count()
+    return max(args.n_devices, 1)
 
 
 def main(argv=None):
@@ -101,10 +112,63 @@ def main(argv=None):
         # only LightweightUNet has block rematerialization: checked before
         # any decode, not silently dropped
         raise SystemExit("--remat is supported only for --model basic")
-    _refuse_unported(args)
     from ..utils.envfile import load_dotenv
 
     load_dotenv()  # reference parity: .env at train start (optimized_train.py:18-19)
+    from .._device import resolve_device
+    from ..parallel import distributed
+
+    resolve_device(args.device)
+    if args.distributed:
+        distributed.initialize(coordinator_address=args.coordinator_address,
+                               num_processes=args.num_processes, process_id=args.process_id,
+                               device=args.device)
+    elif any(a is not None for a in (args.coordinator_address, args.num_processes,
+                                     args.process_id)):
+        # without this, N hosts launched with coordinator flags but a
+        # forgotten --distributed would run N independent trainings
+        # writing one output_dir
+        raise SystemExit("--coordinator_address/--num_processes/--process_id require "
+                         "--distributed (refusing to fall back to an independent "
+                         "single-host run)")
+    if args.distributed:
+        world = distributed.process_count()
+        # what the runtime resolved to: N independent "distributed" runs
+        # writing one output_dir are worse than a loud warning
+        print(f"Distributed runtime: {world} process(es), {world} global device(s)")
+        if world == 1:
+            print("WARNING: --distributed resolved to a SINGLE process. If this is one host "
+                  "of several, the coordinator was not given — pass --coordinator_address/"
+                  "--num_processes/--process_id explicitly (explicit arguments fail loudly "
+                  "instead of degrading).", file=sys.stderr)
+        if args.n_devices > 1 or (world > 1 and args.n_devices):
+            raise SystemExit("--distributed spans the global mesh; --n_devices applies to "
+                             "single-host runs only")
+        if args.batch_size % world:
+            raise SystemExit(f"--batch_size {args.batch_size} (global) must divide by "
+                             f"{world} global devices")
+        try:
+            _train(args)
+        finally:
+            distributed.shutdown()
+        return
+    # clamp the request to the devices there are before checking the batch
+    # against it
+    available = _local_devices(args)
+    n_dev = min(args.n_devices or available, available)
+    if args.n_devices and args.n_devices > available:
+        print(f"requested --n_devices {args.n_devices}, but only {available} available; "
+              f"using {n_dev}")
+    if n_dev > 1:
+        if args.batch_size % n_dev:
+            raise SystemExit(f"--batch_size {args.batch_size} must divide by {n_dev} devices")
+        distributed.launch_local(_train, n_dev, args, device=args.device)
+    else:
+        _train(args)
+
+
+def _train(args) -> None:
+    """The run of one process: alone, or one rank of a process group."""
     import numpy as np
     import torch
 
@@ -112,10 +176,14 @@ def main(argv=None):
     from ..data import make_dataloaders
     from ..models import (EnhancedUNet, LightweightUNet, OptimizedUNet, count_parameters,
                           get_model_size_mb)
+    from ..parallel import distributed
     from ..train import PreemptionGuard, save_checkpoint, train_model
     from ..utils import ExperimentLogger, flatten_tree, set_seed
 
-    device = resolve_device(args.device)
+    mesh = (distributed.global_mesh(device=args.device)
+            if distributed.process_count() > 1 or args.distributed else None)
+    device = mesh.device if mesh is not None else resolve_device(args.device)
+    is_host0 = mesh is None or mesh.rank == 0
     generator = set_seed(args.seed)
     os.makedirs(args.output_dir, exist_ok=True)
 
@@ -128,16 +196,23 @@ def main(argv=None):
                              "stack is host-only (cv2 warps/CLAHE). Use --augment "
                              "optimized|device|none.")
         if augment == "optimized":
-            print("--resident_data: running the optimized augmentation stack on the "
-                  "device (same distributions, the device generator's stream)")
+            if is_host0:
+                print("--resident_data: running the optimized augmentation stack on the "
+                      "device (same distributions, the device generator's stream)")
             augment = "device"
     device_augment = augment == "device"
     train_loader, val_loader = make_dataloaders(
         args.data_dir, batch_size=args.batch_size, val_split=args.val_split, seed=args.seed,
         image_size=args.image_size, num_workers=args.num_workers,
         cache_images=args.cache_images, augment="none" if device_augment else augment)
-    print(f"Training samples: {train_loader.num_samples}, "
-          f"Validation samples: {val_loader.num_samples}")
+    if is_host0:
+        print(f"Training samples: {train_loader.num_samples}, "
+              f"Validation samples: {val_loader.num_samples}")
+    if mesh is not None and not args.resident_data:
+        # each rank feeds its slice of every (identically seeded) batch; the
+        # resident loaders stay global, every rank caching the whole set
+        train_loader = distributed.LocalSliceLoader(train_loader)
+        val_loader = distributed.LocalSliceLoader(val_loader)
 
     dtype = torch.bfloat16 if args.compute_dtype == "bfloat16" else torch.float32
     # the kernels are forward-only: training runs the composition
@@ -148,9 +223,10 @@ def main(argv=None):
     else:
         model = LightweightUNet(dtype=dtype, remat=args.remat, generator=generator)
 
+    # rank 0 owns the metrics stream
     logger = ExperimentLogger(os.path.join(args.output_dir, "logs"), use_wandb=args.use_wandb,
                               project=args.wandb_project, entity=args.wandb_entity,
-                              config=vars(args))
+                              config=vars(args)) if is_host0 else None
     guard = PreemptionGuard()
     with guard:
         best_params, best_model_state, best_val, _state = train_model(
@@ -163,15 +239,17 @@ def main(argv=None):
             profile_dir=args.profile_dir, profile_steps=args.profile_steps,
             device_augment=device_augment, resident=args.resident_data,
             prefetch=args.prefetch_factor, preempt_guard=guard,
-            resident_segments=args.resident_segments, device=device)
+            resident_segments=args.resident_segments, device=device, mesh=mesh)
     if guard.preempt_checkpoint is not None:
         # the exact-resume checkpoint is on disk; skip the final artifacts
         # (the grace window may not cover them) and exit 0
-        logger.finish()
-        print(f"Training preempted; resume with --resume {guard.preempt_checkpoint}",
-              flush=True)
+        if is_host0:
+            logger.finish()
+            print(f"Training preempted; resume with --resume {guard.preempt_checkpoint}",
+                  flush=True)
         return
-
+    if not is_host0:
+        return
     # best_model_state holds EnhancedUNet's BatchNorm statistics of the
     # same epoch: final_model must stay loadable
     save_checkpoint(os.path.join(args.output_dir, "final_model"), params=best_params,

@@ -49,12 +49,13 @@ def warp_affine(img: np.ndarray, m: np.ndarray, interpolation: int = INTER_LINEA
     inv = invert_affine(np.asarray(m, np.float64)).astype(np.float32)
     xs = np.arange(w, dtype=np.float64)[None, :]
     ys = np.arange(h, dtype=np.float32)[:, None]
-    # cv2 5 takes each row's offset in float32, then one fused multiply-add
-    # per pixel: the float32 product is exact in float64, so rounding the
-    # float64 sum once is the fma. At 512^2 the coordinates' last bit
-    # decides nearest-neighbour ties, so the order matters.
-    sx = (np.float64(inv[0, 0]) * xs + (inv[0, 1] * ys + inv[0, 2])).astype(np.float32)
-    sy = (np.float64(inv[1, 0]) * xs + (inv[1, 1] * ys + inv[1, 2])).astype(np.float32)
+    # cv2 5's vector loop takes each row's offset in float32, then one fused
+    # multiply-add per pixel: the float32 product is exact in float64, so
+    # rounding the float64 sum once is the fma. Its scalar tail (the last
+    # W % 16 columns) computes fma(x, m0, y * m1) + m2 instead. At 512^2 the
+    # coordinates' last bit decides nearest-neighbour ties, so the order
+    # matters.
+    sx, sy = (_coords(inv[k], xs, ys, w - w % _CV_VECTOR_COLS) for k in (0, 1))
     # one ring of zeros around the input: a tap outside it reads the border
     pad = np.zeros((h + 2, w + 2), np.float32)
     pad[1:-1, 1:-1] = img
@@ -75,11 +76,24 @@ def warp_affine(img: np.ndarray, m: np.ndarray, interpolation: int = INTER_LINEA
     iy = np.clip(y0.astype(np.int64), -1, h) + 1
     ix1 = np.clip(x0.astype(np.int64) + 1, -1, w) + 1
     iy1 = np.clip(y0.astype(np.int64) + 1, -1, h) + 1
-    # cv2 5's vector loop: three lerps a + t * (b - a), each one fma. Its
-    # scalar tail (the last W % 16 columns) rounds otherwise, up to ~4e-6.
+    # cv2 5's vector loop and its scalar tail alike: three lerps
+    # a + t * (b - a), each one fma
     top = _fma(fx, pad[iy, ix1] - pad[iy, ix], pad[iy, ix])
     bottom = _fma(fx, pad[iy1, ix1] - pad[iy1, ix], pad[iy1, ix])
     return _fma(fy, bottom - top, top)
+
+
+_CV_VECTOR_COLS = 16  # the columns one step of cv2 5's vector loop writes
+
+
+def _coords(row: np.ndarray, xs: np.ndarray, ys: np.ndarray, vector_cols: int) -> np.ndarray:
+    """One source coordinate ``row[0] * x + row[1] * y + row[2]`` per output
+    pixel, in float32, rounded as cv2 5 rounds it: columns below
+    ``vector_cols`` as its vector loop, the rest as its scalar tail."""
+    a, b, c = (np.float32(v) for v in row)
+    vec = (np.float64(a) * xs + (b * ys + c)).astype(np.float32)
+    tail = _fma(xs.astype(np.float32), a, b * ys) + c
+    return np.where(xs < vector_cols, vec, tail)
 
 
 def _fma(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:

@@ -62,8 +62,8 @@ def sliced_batch_count(num_samples: int, batch_size: int, world: int,
                        drop_last: bool) -> int:
     """Number of batches a ``world``-way sliced iteration yields: a batch
     with fewer rows than ``world`` is skipped, and a ragged tail survives
-    only with >= ``world`` rows. The rule of the multi-GPU loaders, which
-    come with the port's data-parallel training."""
+    only with >= ``world`` rows. ``_Loader.set_batch_slice`` and
+    ``parallel.distributed.LocalSliceLoader`` both count by it."""
     nb_full, tail = divmod(num_samples, batch_size)
     count = nb_full if batch_size >= world else 0
     if not drop_last and tail >= world:
@@ -84,11 +84,17 @@ class _Loader:
         self.seed = seed
         self.num_workers = num_workers
         self._epoch = 0
+        self._batch_slice: tuple[int, int] | None = None
         self._skip_batches = 0
 
     def __len__(self) -> int:
-        nb_full, tail = divmod(len(self.dataset), self.batch_size)
-        count = nb_full if self.drop_last else nb_full + (1 if tail else 0)
+        n = len(self.dataset)
+        if self._batch_slice is not None:
+            # mirrors _iter_batches' skip of sub-world batches
+            count = sliced_batch_count(n, self.batch_size, self._batch_slice[1], self.drop_last)
+        else:
+            nb_full, tail = divmod(n, self.batch_size)
+            count = nb_full if self.drop_last else nb_full + (1 if tail else 0)
         return max(0, count - self._skip_batches)
 
     @property
@@ -109,6 +115,17 @@ class _Loader:
             raise ValueError(f"skip_batches must be >= 0, got {k}")
         self._skip_batches = k
 
+    def set_batch_slice(self, rank: int, world: int) -> None:
+        """Decode only rows ``[rank * per, (rank + 1) * per)`` of every batch,
+        ``per = len(batch) // world`` (``parallel.distributed.
+        LocalSliceLoader``). The rows equal those of the decoded global batch
+        sliced, since the order is seeded per epoch and the augmentation per
+        index; a ragged final batch is cut to a multiple of ``world`` first,
+        and a batch of fewer than ``world`` rows is skipped."""
+        if not 0 <= rank < world:
+            raise ValueError(f"rank {rank} outside world {world}")
+        self._batch_slice = (rank, world)
+
     def __iter__(self):
         n = len(self.dataset)
         order = np.arange(n)
@@ -128,7 +145,13 @@ class _Loader:
         skip = self._skip_batches
         for start in range(0, len(order), self.batch_size):
             idx = order[start : start + self.batch_size]
-            if skip > 0:
+            if self._batch_slice is not None:
+                rank, world = self._batch_slice
+                per = len(idx) // world
+                if per == 0:
+                    continue
+                idx = idx[rank * per : (rank + 1) * per]
+            if skip > 0:  # counted in yielded batches, after the slice's skips
                 skip -= 1
                 continue
             samples = list(mapper(self.dataset.__getitem__, idx))

@@ -10,8 +10,14 @@ reference's evaluation semantics exactly (reference: evaluate.py:207-324):
 - avg PSNR/SSIM = sum over images / num_samples          (evaluate.py:310-311)
 
 Eager PyTorch needs no static batch shape, so a ragged final batch runs at
-its own size instead of padded and masked; each batch's scalars stay on the
-device until one stacked fetch at the end.
+its own size; each batch's scalars stay on the device until one stacked
+fetch at the end.
+
+Over several ranks (``mesh=``) every rank reads the same global batches,
+pads each to a multiple of the ranks, runs its rows and masks the padded
+ones; the per-batch L1 and per-image PSNR/SSIM sums are added over the
+ranks once at the end, so the result equals one process's. One process is
+the same loop over one rank, which pads nothing.
 """
 
 from __future__ import annotations
@@ -39,17 +45,20 @@ from ..ops.metrics import batched_psnr_ssim
 from ..utils.pytree import load_npz_tree
 
 
-def _eval_step(model, x, y):
-    """(batch-mean L1, per-image PSNR, per-image SSIM, raw prediction in
-    float32), so that visualizations don't pay a second forward pass."""
+def _eval_step(model, x, y, mask):
+    """(L1 sum over the real rows, per-image PSNR and SSIM zeroed on
+    padding, raw prediction in float32), so that visualizations don't pay
+    a second forward pass. ``mask`` is (B,) 1.0 on the real rows."""
     out = model(x).float()
     y = y.float()
-    l1 = torch.mean(torch.abs(out - y))
+    l1_sum = torch.sum(torch.abs(out - y).sum(dim=(1, 2, 3)) * mask)
     psnrs, ssims = batched_psnr_ssim(out, y, clip_pred=True)
-    return l1, psnrs, ssims, out
+    # where(), not *mask: a padded all-zero row can give psnr = inf
+    zero = torch.zeros_like(psnrs)
+    return l1_sum, torch.where(mask > 0, psnrs, zero), torch.where(mask > 0, ssims, zero), out
 
 
-def evaluate(model, val_loader, *, device="cuda", save_visualizations: bool = False,
+def evaluate(model, val_loader, *, device=None, save_visualizations: bool = False,
              visualizations_dir: str | None = None, max_vis_samples: int = 10,
              batch_size: int | None = None, progress: bool = True, mesh=None) -> dict:
     """Evaluate ``model`` (NHWC float in, NHWC float out) over ``val_loader``
@@ -60,22 +69,24 @@ def evaluate(model, val_loader, *, device="cuda", save_visualizations: bool = Fa
     Returns {'l1_loss', 'psnr', 'ssim', 'num_samples'} with the reference's
     averaging. ``device`` defaults to CUDA and raises without a card unless
     "cpu" is passed; the model is moved there. ``batch_size`` is the
-    largest batch the loader may yield. ``mesh=`` (multi-GPU evaluation)
-    raises until the port has it (ROADMAP.md Queue 1 item 13)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "multi-device evaluation (mesh=) is not ported yet (ROADMAP.md Queue 1 item 13)")
-    dev = resolve_device(device)
+    largest batch the loader may yield. ``mesh``: a ``parallel.mesh.
+    DataMesh``, which owns the device (a ``device`` naming another one
+    raises); every rank passes the same global loader (the module
+    docstring) and gets the same result; rank 0 writes the visualizations."""
+    from ..parallel.mesh import (DataMesh, all_reduce_sum, batch_sharding, fetch_replicated,
+                                 put_from_full, run_device)
+
+    dev = run_device(device, mesh)
     model = model.to(dev).eval()
-    num_batches = 0
-    total_samples = 0
-    vis_count = 0
+    ranks = mesh if mesh is not None else DataMesh(1, 0, dev)
+    world, rank = ranks.world, ranks.rank
+    num_batches = total_samples = vis_count = 0
     # per-batch reduced scalars stay ON DEVICE; one stacked fetch at the
     # end (a float() per batch would wait for every step in turn)
     batch_stats: list = []
 
     iterator = val_loader
-    if progress:
+    if progress and rank == 0:
         try:
             from tqdm import tqdm
 
@@ -91,24 +102,35 @@ def evaluate(model, val_loader, *, device="cuda", save_visualizations: bool = Fa
             raise ValueError(
                 f"loader batch ({b}) exceeds the compiled eval batch "
                 f"({batch_size}); pass batch_size >= the loader's batch size")
-        xt = torch.from_numpy(np.ascontiguousarray(x)).to(dev, non_blocking=True)
-        yt = torch.from_numpy(np.ascontiguousarray(y)).to(dev, non_blocking=True)
+        pad = -b % world
+        if pad:
+            x = np.concatenate([x, np.zeros((pad,) + x.shape[1:], x.dtype)])
+            y = np.concatenate([y, np.zeros((pad,) + y.shape[1:], y.dtype)])
+        mask = (np.arange(b + pad) < b).astype(np.float32)
+        xt, yt, mt = (put_from_full(a, batch_sharding(ranks)) for a in (x, y, mask))
         with torch.inference_mode():
-            l1, psnrs, ssims, out = _eval_step(model, xt, yt)
-            batch_stats.append(torch.stack([l1, psnrs.sum(), ssims.sum()]))
+            l1_sum, psnrs, ssims, out = _eval_step(model, xt, yt, mt)
+            batch_stats.append(torch.stack([l1_sum / float(b * np.prod(y.shape[1:])),
+                                            psnrs.sum(), ssims.sum()]))
         num_batches += 1
         total_samples += b
 
         if save_visualizations and visualizations_dir and vis_count < max_vis_samples:
-            vis_count = _save_visualizations(
-                x, y, out.cpu().numpy(), b, visualizations_dir, vis_count,
-                max_vis_samples, psnrs.cpu().numpy(), ssims.cpu().numpy(),
-            )
+            # over several ranks every rank gathers (a collective) and rank 0
+            # draws the global rows
+            pred = fetch_replicated(out, mesh)
+            ps, ss = fetch_replicated(psnrs, mesh), fetch_replicated(ssims, mesh)
+            if rank == 0:
+                _save_visualizations(x, y, pred, b, visualizations_dir, vis_count,
+                                     max_vis_samples, ps, ss)
+            vis_count = min(max_vis_samples, vis_count + b)
 
+    totals = np.zeros(3)
     if batch_stats:
-        totals = torch.stack(batch_stats).cpu().numpy().astype(np.float64).sum(axis=0)
-    else:
-        totals = np.zeros(3)
+        stacked = torch.stack(batch_stats).double()
+        if mesh is not None:
+            stacked = all_reduce_sum(stacked, mesh)
+        totals = stacked.cpu().numpy().sum(axis=0)
     return {
         "l1_loss": float(totals[0]) / max(num_batches, 1),
         "psnr": float(totals[1]) / max(total_samples, 1),

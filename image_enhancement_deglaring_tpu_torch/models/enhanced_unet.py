@@ -16,6 +16,11 @@ follows ``flax.linen.BatchNorm(momentum=0.9, epsilon=1e-5)``, not
 
 The running statistics are the buffers ``<module>.mean`` and
 ``<module>.var``: the JAX ``batch_stats`` collection under the same names.
+Inside ``synced_batch_stats(mesh)`` (the train step over several ranks)
+the batch statistics are those of the global batch, as JAX's step over
+its global mesh takes them: each rank's per-channel sums are added over
+the ranks (a differentiable all-reduce), so the running statistics move
+alike on every rank.
 Dropout(0.2) sits after the first BatchNorm of each residual block and of
 the bottleneck; it draws from the generator the caller passes, so a
 training run is a function of its seed.
@@ -24,12 +29,45 @@ training run is a function of its seed.
 from __future__ import annotations
 
 import contextlib
+import contextvars
 
 import torch
 from torch import nn
 
 from ..ops.conv_blocks import conv2d, highest_precision, max_pool_2x2, stat_mean
 from .unet import UpConv2x, _uniform
+
+
+_SYNC_MESH: contextvars.ContextVar = contextvars.ContextVar("synced_batch_stats", default=None)
+
+
+@contextlib.contextmanager
+def synced_batch_stats(mesh):
+    """Training-mode BatchNorm inside takes its statistics over the global
+    batch of ``mesh`` (``parallel.mesh.DataMesh``); None or a one-rank mesh
+    changes nothing."""
+    token = _SYNC_MESH.set(mesh if mesh is not None and mesh.world > 1 else None)
+    try:
+        yield
+    finally:
+        _SYNC_MESH.reset(token)
+
+
+def _batch_moments(xf: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-channel E[x] and E[x^2] of NHWC float32 ``xf`` over the batch,
+    or over the global batch inside :func:`synced_batch_stats`."""
+    mesh = _SYNC_MESH.get()
+    if mesh is None:
+        return (stat_mean(xf, (0, 1, 2)).reshape(-1),
+                stat_mean(xf.square(), (0, 1, 2)).reshape(-1))
+    from ..parallel.mesh import all_reduce_sum_autograd
+
+    # float64 sums on the CPU, as stat_mean accumulates there
+    acc = torch.float64 if xf.device.type == "cpu" else torch.float32
+    c = xf.shape[-1]
+    sums = torch.cat([xf.sum(dim=(0, 1, 2), dtype=acc), xf.square().sum(dim=(0, 1, 2), dtype=acc)])
+    total = all_reduce_sum_autograd(sums, mesh) / (xf.numel() // c * mesh.world)
+    return total[:c].float(), total[c:].float()
 
 
 class BatchNorm(nn.Module):
@@ -48,9 +86,8 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         xf = x.float()
         if train:
-            mean = stat_mean(xf, (0, 1, 2)).reshape(-1)
-            var = torch.clamp(stat_mean(xf.square(), (0, 1, 2)).reshape(-1) - mean.square(),
-                              min=0.0)
+            mean, mean2 = _batch_moments(xf)
+            var = torch.clamp(mean2 - mean.square(), min=0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.mean.copy_(m * self.mean + (1 - m) * mean)

@@ -1,7 +1,15 @@
-"""Hyperparameter sweeps on one card (``parallel.sweep``). The JAX
-package's ``parallel`` also holds the device mesh and the multi-process
-runtime; those come with ROADMAP Queue 1 item 13."""
+"""Data parallelism and hyperparameter sweeps.
 
+- ``parallel.mesh``: the 1-D data mesh over the ranks of a
+  ``torch.distributed`` group (one process per device) and its
+  collectives;
+- ``parallel.distributed``: joining the group (``initialize``), the
+  per-rank loader slice, and ``launch_local`` for N ranks from one command;
+- ``parallel.sweep``: hyperparameter sweeps on one card (the trial axis
+  over several cards is ROADMAP Queue 1 item 13b).
+"""
+
+from .mesh import batch_sharding, make_mesh, replicate, replicated_sharding, shard_batch
 from .sweep import (
     SearchSpace,
     Trial,
@@ -17,6 +25,11 @@ from .sweep import (
 )
 
 __all__ = [
+    "make_mesh",
+    "replicate",
+    "shard_batch",
+    "batch_sharding",
+    "replicated_sharding",
     "SearchSpace",
     "Trial",
     "VmappedTrialGroup",

@@ -23,7 +23,7 @@ grad-clip 1.0, image 512, 'basic' model). Here, as in the JAX package:
   patience; a journal of finished groups makes a preempted sweep resume to
   the identical result; W&B mirroring and the server-driven agent mode.
 
-One process on one device: ``mesh`` raises (ROADMAP Queue 1 item 13).
+One process on one device: ``mesh`` raises (ROADMAP Queue 1 item 13b).
 """
 
 from __future__ import annotations
@@ -179,7 +179,7 @@ class VmappedTrialGroup:
                  device="cuda"):
         if mesh is not None:
             raise NotImplementedError("a trial group over several devices (mesh=) is not "
-                                      "ported yet (ROADMAP Queue 1 item 13)")
+                                      "ported yet (ROADMAP Queue 1 item 13b)")
         self.trials = trials
         self.batch_size = trials[0].batch_size
         if any(t.batch_size != self.batch_size for t in trials):
@@ -478,7 +478,7 @@ class WandbSweepMirror:
 
 def _journal_bytes(path: str) -> bytes | None:
     """The sweep journal's bytes, None when there is none (one process: the
-    JAX package's host-0 broadcast comes with ROADMAP Queue 1 item 13)."""
+    JAX package's host-0 broadcast comes with ROADMAP Queue 1 item 13b)."""
     if not os.path.exists(path):
         return None
     with open(path, "rb") as f:
@@ -521,7 +521,7 @@ def run_sweep(model_factory, loader_factory, *, n_trials: int = 20,
         model_factory: () -> a module of the port's model families; every
             trial of a group starts from the returned module's parameters.
         loader_factory: (batch_size) -> (train_loader, val_loader).
-        mesh: several devices, ROADMAP Queue 1 item 13: raises.
+        mesh: several devices, ROADMAP Queue 1 item 13b: raises.
         max_parallel_trials: cap on how many trials train simultaneously in
             one group (bounds the stacked state's and activations' device
             memory); 0 = the whole same-batch-size group at once.
@@ -568,7 +568,7 @@ def run_sweep(model_factory, loader_factory, *, n_trials: int = 20,
     """
     if mesh is not None:
         raise NotImplementedError("a sweep over several devices (mesh=) is not ported yet "
-                                  "(ROADMAP Queue 1 item 13)")
+                                  "(ROADMAP Queue 1 item 13b)")
     dev = resolve_device(device)
     space = space or SearchSpace()
     rng = np.random.default_rng(seed)
@@ -941,7 +941,7 @@ def run_wandb_agent_sweep(model_factory, loader_factory, *,
     injection point for tests; default imports wandb."""
     if mesh is not None:
         raise NotImplementedError("a sweep over several devices (mesh=) is not ported yet "
-                                  "(ROADMAP Queue 1 item 13)")
+                                  "(ROADMAP Queue 1 item 13b)")
     wandb = wandb_module
     if wandb is None:
         import wandb  # noqa: F811 — ImportError surfaces to the CLI

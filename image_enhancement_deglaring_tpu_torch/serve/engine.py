@@ -74,10 +74,10 @@ class InferenceEngine:
         to ``device`` and put in eval mode. ``device`` defaults to CUDA and
         raises without a card unless "cpu" is passed. ``quantize``: None or
         "int8" (see the module docstring). ``mesh`` (multi-GPU serving) is a
-        later part of the port (ROADMAP.md Queue 1 item 13)."""
+        later part of the port (ROADMAP.md Queue 1 item 13b)."""
         if mesh is not None:
             raise NotImplementedError(
-                "multi-device serving (mesh=) is not ported yet (ROADMAP.md Queue 1 item 13)")
+                "multi-device serving (mesh=) is not ported yet (ROADMAP.md Queue 1 item 13b)")
         if quantize not in (None, "int8"):
             raise ValueError(f"unsupported quantize mode: {quantize!r}")
         self.device = resolve_device(device)

@@ -791,7 +791,7 @@ def create_server(model_path: str, *, host: str = "0.0.0.0", port: int = 4000,
 
     if mesh is not None:
         raise NotImplementedError(
-            "multi-device serving (mesh=) is not ported yet (ROADMAP.md Queue 1 item 13)")
+            "multi-device serving (mesh=) is not ported yet (ROADMAP.md Queue 1 item 13b)")
     dev = resolve_device(device)
     dtype = compute_dtype or torch.bfloat16
     if model_arch == "auto":

@@ -64,7 +64,7 @@ class TiledInference:
         the port."""
         if mesh is not None:
             raise NotImplementedError(
-                "multi-device tiling (mesh=) is not ported yet (ROADMAP.md Queue 1 item 13)")
+                "multi-device tiling (mesh=) is not ported yet (ROADMAP.md Queue 1 item 13b)")
         if not 0 <= overlap < tile:
             # overlap == tile -> stride 0 (range() crash per request);
             # overlap > tile -> negative stride silently leaves uncovered

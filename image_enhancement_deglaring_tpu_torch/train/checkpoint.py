@@ -15,6 +15,10 @@ checkpoint is a directory:
   counter, mid-epoch position), the JAX package's keys.
 
 npz holds no pickled objects, so reading a checkpoint runs no code.
+
+Over several processes rank 0 alone writes (``save_checkpoint`` returns
+the path on every rank and writes nothing elsewhere), and
+:func:`restore_checkpoint_all_hosts` reads on rank 0 and broadcasts.
 """
 
 from __future__ import annotations
@@ -37,8 +41,13 @@ def save_checkpoint(path: str, *, params: dict, opt_state: dict | None = None,
     ``params``: the JAX-named tree of arrays; ``opt_state``: optax's flat
     leaves (``export_jax_opt_state``); ``model_state``: the mutable
     collections ({"batch_stats": tree}), written when not empty. The directory is written beside
-    ``path`` and renamed into place, so a reader never sees half of it."""
+    ``path`` and renamed into place, so a reader never sees half of it. In a
+    process group only rank 0 writes."""
+    from ..parallel.distributed import process_index
+
     path = os.path.abspath(path)
+    if process_index() != 0:
+        return path
     parent = os.path.dirname(path)
     os.makedirs(parent, exist_ok=True)
     tmp = tempfile.mkdtemp(prefix=".ckpt-", dir=parent)
@@ -85,6 +94,64 @@ def restore_checkpoint(path: str):
         with open(meta_path) as f:
             meta = json.load(f)
     return item, meta
+
+
+def restore_checkpoint_all_hosts(path: str, *, params_template: dict,
+                                 opt_state_template: dict | None = None,
+                                 model_state_template: dict | None = None, mesh=None):
+    """``(item, meta)`` as :func:`restore_checkpoint` gives them, read by
+    rank 0 alone and broadcast, so every rank starts from the same state
+    even where ``path`` is a rank's local disk or missing elsewhere.
+
+    The templates (the current model's JAX-named trees and flat optimizer
+    leaves) fix the leaves each rank receives. A read failure on rank 0,
+    or a checkpoint whose trees do not match them, raises the same
+    RuntimeError on every rank instead of leaving the others waiting in
+    the next collective. One process: :func:`restore_checkpoint`."""
+    from ..parallel.distributed import process_count
+    from ..parallel.mesh import broadcast_arrays, broadcast_bytes, make_mesh
+
+    if process_count() == 1:
+        return restore_checkpoint(path)
+
+    mesh = mesh or make_mesh()
+    templates = {"params": flatten_tree(params_template)}
+    if opt_state_template is not None:
+        templates["opt_state"] = dict(opt_state_template)
+    if model_state_template:
+        templates["model_state"] = flatten_tree(model_state_template)
+    flat, meta, err, present = {}, None, "", []
+    if mesh.rank == 0:
+        try:
+            item, meta = restore_checkpoint(path)
+            for key, tmpl in templates.items():
+                if key not in item:
+                    if key == "model_state":
+                        continue  # the loop keeps the model's own statistics
+                    raise KeyError(f"checkpoint has no '{key}' tree")
+                got = item[key] if key == "opt_state" else flatten_tree(item[key])
+                if {k: np.shape(v) for k, v in got.items()} != {
+                        k: np.shape(v) for k, v in tmpl.items()}:
+                    raise ValueError(f"checkpoint '{key}' does not match the current model/"
+                                     f"optimizer ({len(got)} leaves vs {len(tmpl)} expected — "
+                                     "resumed with a different --model?)")
+                flat[key] = got
+                present.append(key)
+        except Exception as e:  # broadcast the failure, raise on every rank
+            err = f"{type(e).__name__}: {e}"
+    payload = json.dumps({"err": err} if err else {"meta": meta, "present": present})
+    decoded = json.loads(broadcast_bytes(payload.encode() if mesh.rank == 0 else None, mesh))
+    if "err" in decoded:
+        raise RuntimeError(f"multi-process resume: rank 0 could not restore {path}: "
+                           f"{decoded['err']}")
+    item = {}
+    for key in decoded["present"]:
+        names = sorted(templates[key])
+        leaves = broadcast_arrays([flat[key][k] for k in names] if mesh.rank == 0 else None,
+                                  [templates[key][k] for k in names], mesh)
+        tree = dict(zip(names, leaves))
+        item[key] = tree if key == "opt_state" else unflatten_tree(tree)
+    return item, decoded["meta"]
 
 
 def restore_params(path: str) -> dict:

@@ -23,6 +23,25 @@ On the card:
   (``TrainState.generator``), saved in every checkpoint, so a resumed run
   continues the stream.
 
+Over several GPUs (``mesh=``, a ``parallel.mesh.DataMesh``; one process
+per device), as JAX's step over its global mesh:
+- each rank steps on its rows of every global batch; the gradients are
+  summed over the ranks and divided by their number before the clip, which
+  gives the global batch's mean gradient, so the clip and AdamW run alike
+  on every rank; rank 0's initial weights are broadcast first;
+- BatchNorm takes its statistics over the global batch (``models.
+  enhanced_unet.synced_batch_stats``);
+- the training loss and the validation metrics are those of the global
+  batch (sums and counts added over the ranks once per epoch, padded rows
+  masked); the PSNR/SSIM subset is the global batch's first rows;
+- rank 0 alone prints, logs, plots and writes checkpoints; a resume is read
+  by rank 0 and broadcast (``restore_checkpoint_all_hosts``), as is the
+  best-model bar; a signal on any rank stops every rank at the next epoch
+  (or resident segment) boundary (``preemption_agreed``);
+- each rank's generator is seeded from (seed, rank), so ranks draw
+  different augmentations and dropout masks, and each rank's state is
+  saved (``rng_by_rank``) for an exact resume at the same world size.
+
 The CUDA kernels are forward-only, as the TPU kernels are, and their
 wrappers refuse to run under autograd: train a model built with
 ``pallas_gn=False, fused_blocks=False``.
@@ -31,6 +50,7 @@ wrappers refuse to run under autograd: train a model built with
 from __future__ import annotations
 
 import contextlib
+import json
 import os
 import time
 from dataclasses import dataclass, field
@@ -47,11 +67,12 @@ from ..modelio.params_import import (
     load_jax_opt_state,
     load_jax_params,
 )
+from ..models.enhanced_unet import synced_batch_stats
 from ..ops.conv_blocks import highest_precision
 from ..ops.metrics import batched_psnr_ssim, l1_loss
 from ..utils.profiling import start_trace, stop_trace
 from ..utils.pytree import flatten_tree, unflatten_tree
-from .checkpoint import restore_checkpoint, save_checkpoint
+from .checkpoint import restore_checkpoint, restore_checkpoint_all_hosts, save_checkpoint
 from .lr_control import ReduceLROnPlateau
 from .preempt import PreemptionGuard, preemption_agreed
 
@@ -110,10 +131,27 @@ def clip_grad_norm_(params, max_norm: float) -> torch.Tensor:
     return norm
 
 
-def make_step_body(*, stateful: bool = False, augment_fn=None):
+def average_gradients(params, mesh) -> None:
+    """Each gradient becomes its sum over the ranks divided by their number
+    (one all-reduce over one flat buffer, after the backward): with equal
+    rows per rank, the mean gradient of the global batch."""
+    from ..parallel.mesh import all_reduce_sum
+
+    grads = [p.grad for p in params if p.grad is not None]
+    flat = all_reduce_sum(torch.cat([g.reshape(-1) for g in grads]), mesh).div_(mesh.world)
+    for g, v in zip(grads, flat.split([g.numel() for g in grads])):
+        g.copy_(v.view_as(g))
+
+
+def make_step_body(*, stateful: bool = False, augment_fn=None, mesh=None):
     """The (state, x, y) -> (state, loss) step: forward in the model's
     dtype, float32 L1 on its float32 output, backward, the clip and
     AdamW's update. ``loss`` stays on the device.
+
+    ``mesh`` (several ranks): ``x, y`` are this rank's rows of the global
+    batch, the gradients are averaged over the ranks before the clip
+    (:func:`average_gradients`), BatchNorm normalizes with the global
+    batch's statistics, and ``loss`` is this rank's mean.
 
     ``augment_fn(generator, x, y) -> (x, y)`` (``ops.augment_device``)
     augments the batch first, drawing from ``state.generator``.
@@ -129,14 +167,17 @@ def make_step_body(*, stateful: bool = False, augment_fn=None):
         if augment_fn is not None:
             x, y = augment_fn(state.generator, x, y)
         exact = getattr(model, "dtype", torch.float32) == torch.float32
-        with highest_precision() if exact else contextlib.nullcontext():
+        params = [p for g in opt.param_groups for p in g["params"]]
+        with (highest_precision() if exact else contextlib.nullcontext(),
+              synced_batch_stats(mesh)):
             out = model(x, train=True, generator=state.generator) if stateful else model(x)
             loss = l1_loss(out, y)
             loss.backward()
+            if mesh is not None and mesh.in_group:  # a group of one still reduces
+                average_gradients(params, mesh)
             if opt.clip_grad_norm > 0:
                 with torch.no_grad():
-                    clip_grad_norm_([p for g in opt.param_groups for p in g["params"]],
-                                    opt.clip_grad_norm)
+                    clip_grad_norm_(params, opt.clip_grad_norm)
             opt.step()
         state.step += 1
         return state, loss.detach()
@@ -144,12 +185,24 @@ def make_step_body(*, stateful: bool = False, augment_fn=None):
     return step_body
 
 
-def make_val_body(metric_subset: int = 4, *, with_metrics: bool = True):
+def _subset_rows(metric_subset: int, b: int, mesh) -> int:
+    """How many of this rank's ``b`` rows lie among the global batch's first
+    ``metric_subset`` (rank r's rows are the global rows [r*b, (r+1)*b))."""
+    if mesh is None or mesh.world == 1:
+        return min(metric_subset, b)
+    k = min(metric_subset, b * mesh.world)
+    return min(max(k - mesh.rank * b, 0), b)
+
+
+def make_val_body(metric_subset: int = 4, *, with_metrics: bool = True, mesh=None):
     """(model, x, y, mask) -> (batch L1, subset PSNR mean, subset SSIM mean,
     prediction), under ``no_grad``. ``mask`` is (B,) 1.0 for real samples
     and 0.0 for padding. The metrics are taken on the clipped prediction of
     the first <= ``metric_subset`` images, the loss on the raw one;
-    ``with_metrics=False`` skips the metrics (they return 0.0)."""
+    ``with_metrics=False`` skips the metrics (they return 0.0). Under
+    ``mesh`` the batch is this rank's rows and every value is this rank's:
+    the subset is those of its rows among the global batch's first
+    ``metric_subset`` (:func:`val_row`, :func:`global_val_rows`)."""
 
     def val_step(model, x, y, mask):
         model.eval()
@@ -162,7 +215,10 @@ def make_val_body(metric_subset: int = 4, *, with_metrics: bool = True):
             if not with_metrics:
                 zero = torch.zeros((), dtype=torch.float32, device=out.device)
                 return loss, zero, zero, out
-            k = min(metric_subset, x.shape[0])
+            k = _subset_rows(metric_subset, x.shape[0], mesh)
+            if k == 0:
+                zero = torch.zeros((), dtype=torch.float32, device=out.device)
+                return loss, zero, zero, out
             psnrs, ssims = batched_psnr_ssim(out[:k], yf[:k], clip_pred=True)
             mk = mask.float()[:k]
             mk_n = torch.clamp(mk.sum(), min=1.0)
@@ -177,6 +233,38 @@ def make_val_body(metric_subset: int = 4, *, with_metrics: bool = True):
 
 # the JAX package jits each body into its step; eager PyTorch runs the body
 make_train_step, make_val_step = make_step_body, make_val_body
+
+
+def val_row(loss, psnr, ssim, mask, metric_subset: int = 4, mesh=None) -> torch.Tensor:
+    """One validation batch's row on the device: [L1, subset PSNR, subset
+    SSIM, real samples], and over several ranks the real samples of this
+    rank's share of the subset."""
+    row = [loss, psnr, ssim, mask.float().sum()]
+    if mesh is not None and mesh.world > 1:
+        row.append(mask.float()[:_subset_rows(metric_subset, mask.shape[0], mesh)].sum())
+    return torch.stack(row)
+
+
+def global_val_rows(rows: np.ndarray, mesh) -> np.ndarray:
+    """Every rank's (batches, 5) :func:`val_row` rows -> the global batches'
+    [L1, PSNR, SSIM, real samples, subset samples]: L1 weighted by real
+    samples, PSNR and SSIM by the subset's real samples, added over the
+    ranks (one all-reduce). One process: the rows as they are."""
+    if mesh is None or mesh.world == 1 or rows.size == 0:
+        return rows
+    from ..parallel.mesh import all_reduce_sum
+
+    loss, psnr, ssim, n, k = rows.T
+    sums = torch.from_numpy(np.stack([loss * n, psnr * np.maximum(k, 1), ssim * np.maximum(k, 1),
+                                      n, k], axis=1))
+    loss, psnr, ssim, n, k = all_reduce_sum(sums, mesh).numpy().T
+    return np.stack([np.where(n > 0, loss / np.maximum(n, 1), 0.0), psnr / np.maximum(k, 1),
+                     ssim / np.maximum(k, 1), n, k], axis=1)
+
+
+def _rank_seed(seed: int, rank: int) -> int:
+    """One 63-bit generator seed from (seed, rank)."""
+    return int(np.random.SeedSequence([seed, rank]).generate_state(1, np.uint64)[0] >> 1)
 
 
 class _PaddedValLoader:
@@ -202,10 +290,6 @@ class _PaddedValLoader:
             yield x, y, mask
 
 
-def _not_ported(flag: str, item: int, what: str):
-    raise NotImplementedError(f"{flag}: {what} is not ported yet (ROADMAP Queue 1 item {item})")
-
-
 def _host_memory_bytes() -> int:
     """A CPU device's budget for a resident cache: the host's memory."""
     return os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
@@ -227,7 +311,7 @@ def train_model(model, train_loader, val_loader, *, epochs: int,
                 profile_steps: int = 0, device_augment: bool = False,
                 resident: bool = False, prefetch: int = 2,
                 preempt_guard=None, handle_preemption: bool = True,
-                resident_segments: int = 8, device="cuda"):
+                resident_segments: int = 8, device=None):
     """Train ``model`` (any of the port's families, moved to ``device``) in
     place; returns (best_params, best_model_state, best_val_loss,
     final_state) as the JAX package does: best_params is the JAX-named tree
@@ -254,10 +338,18 @@ def train_model(model, train_loader, val_loader, *, epochs: int,
     (``ops.augment_device``). ``profile_dir`` with ``profile_steps > 0``:
     a profiler trace (``utils.profiling``) of the first epoch's first
     ``profile_steps`` steps, or of its whole resident epoch, written there.
-    ``mesh`` belongs to a later part of the port and raises."""
-    if mesh is not None:
-        _not_ported("mesh", 13, "data-parallel training over several GPUs")
-    dev = resolve_device(device)
+
+    ``mesh``: a ``parallel.mesh.DataMesh`` of several ranks (the module
+    docstring), which owns the device: a ``device`` naming another raises. The streaming loaders
+    yield this rank's rows (``parallel.distributed.LocalSliceLoader``); the
+    resident ones are global, identical on every rank. The returned values
+    are the same on every rank."""
+    world = 1 if mesh is None else mesh.world
+    is_host0 = mesh is None or mesh.rank == 0
+    from ..parallel.mesh import run_device
+
+    dev = run_device(device, mesh)
+    say = print if is_host0 else (lambda *a, **k: None)
     os.makedirs(output_dir, exist_ok=True)
 
     if not (len(val_loader) or len(train_loader)):
@@ -267,6 +359,10 @@ def train_model(model, train_loader, val_loader, *, epochs: int,
         load_jax_params(model, unflatten_tree(
             {k: np.asarray(v, np.float32) for k, v in flatten_tree(init_params).items()}))
     stateful = next(model.buffers(), None) is not None
+    if world > 1:
+        from ..parallel.mesh import all_gather_array, replicate
+
+        replicate(model, mesh)  # every rank starts from rank 0's weights
 
     def model_state() -> dict:
         return {"batch_stats": export_jax_batch_stats(model)} if stateful else {}
@@ -274,21 +370,38 @@ def train_model(model, train_loader, val_loader, *, epochs: int,
     if resume_state is not None:
         state = resume_state
     else:
+        gen_seed = seed if world == 1 else _rank_seed(seed, mesh.rank)
         state = TrainState(model=model,
                            optimizer=make_optimizer(model, lr, weight_decay, clip_grad_norm),
-                           generator=torch.Generator(device=dev).manual_seed(seed))
+                           generator=torch.Generator(device=dev).manual_seed(gen_seed))
     clip = state.optimizer.clip_grad_norm > 0
 
     resumed_stale_epochs = 0
     resume_mid_epoch, resume_skip_steps = -1, 0
     if resume_from is not None:
-        item, meta = restore_checkpoint(resume_from)
+        if world > 1:
+            # rank 0 reads, every rank receives: a rank-local read of a
+            # missing or lagging directory would crash some ranks and leave
+            # the rest waiting in the next collective
+            item, meta = restore_checkpoint_all_hosts(
+                resume_from, params_template=export_jax_params(model),
+                opt_state_template=export_jax_opt_state(state.optimizer, model, clip=clip),
+                model_state_template=model_state(), mesh=mesh)
+        else:
+            item, meta = restore_checkpoint(resume_from)
         load_jax_params(model, item["params"], item.get("model_state", {}).get("batch_stats"))
         load_jax_opt_state(state.optimizer, model, item["opt_state"])
         if meta.get("step") is not None:
             state.step = int(meta["step"])
-        if meta.get("rng") is not None:
-            state.generator.set_state(torch.tensor(meta["rng"], dtype=torch.uint8))
+        rng = meta.get("rng")
+        if world > 1:
+            # each rank's own stream where the run had this many ranks; else
+            # rank 0 continues the saved one and the others keep (seed, rank)
+            by_rank = meta.get("rng_by_rank") or []
+            rng = (by_rank[mesh.rank] if len(by_rank) == world
+                   else rng if mesh.rank == 0 else None)
+        if rng is not None:
+            state.generator.set_state(torch.tensor(rng, dtype=torch.uint8))
         resumed_stale_epochs = int(meta.get("epochs_without_improvement", 0))
         if meta.get("mid_epoch"):
             if "resident" in meta and bool(meta["resident"]) != resident:
@@ -308,16 +421,16 @@ def train_model(model, train_loader, val_loader, *, epochs: int,
             lr_controller = ReduceLROnPlateau(lr, factor=plateau_factor,
                                               patience=plateau_patience)
             lr_controller.load_state_dict(meta["lr_state"])
-        print(f"Resumed from {resume_from} at epoch {start_epoch}")
+        say(f"Resumed from {resume_from} at epoch {start_epoch}")
 
     augment_fn = None
     if device_augment:
         from ..ops.augment_device import device_augment_batch
 
         augment_fn = device_augment_batch
-    train_step = make_train_step(stateful=stateful, augment_fn=augment_fn)
-    val_step_metrics = make_val_step()
-    val_step_plain = make_val_step(with_metrics=False)
+    train_step = make_train_step(stateful=stateful, augment_fn=augment_fn, mesh=mesh)
+    val_step_metrics = make_val_step(mesh=mesh)
+    val_step_plain = make_val_step(with_metrics=False, mesh=mesh)
     val_static_b = int(getattr(val_loader, "batch_size", 0) or 0)
     if not val_static_b:  # a loader without batch_size: its first batch says
         val_static_b = next(iter(val_loader if len(val_loader) else train_loader))[0].shape[0]
@@ -330,21 +443,28 @@ def train_model(model, train_loader, val_loader, *, epochs: int,
         from .resident import (batch_val_cache, cache_on_device, make_train_epoch_segmented,
                                make_val_epoch)
 
+        # the resident loaders are global: every rank caches the whole set
+        # and takes its rows of each planned batch
         train_batch = int(getattr(train_loader, "batch_size", 0)
                           or next(iter(train_loader))[0].shape[0])
         workers = getattr(train_loader, "num_workers", 8)
         budget = None if dev.type == "cuda" else _host_memory_bytes()
         rd_train = cache_on_device(train_loader, dtype=input_dtype, num_workers=workers,
                                    device=dev, device_bytes=budget)
+        if min(train_batch, rd_train.n) % world:
+            raise ValueError(f"resident training: the step batch {min(train_batch, rd_train.n)} "
+                             f"must divide by {world} ranks")
         res_plan_fn, res_segment_fn = make_train_epoch_segmented(
-            batch_size=train_batch, stateful=stateful, augment_fn=augment_fn)
+            batch_size=train_batch, stateful=stateful, augment_fn=augment_fn, mesh=mesh)
         val_batches = None
         if int(getattr(val_loader, "num_samples", len(val_loader)) or 0):
             rd_val = cache_on_device(val_loader, dtype=input_dtype, num_workers=workers,
                                      device=dev, device_bytes=budget)
-            val_batches = batch_val_cache(rd_val, val_static_b)
-            val_epoch_metrics = make_val_epoch()
-            val_epoch_plain = make_val_epoch(with_metrics=False)
+            # padded to a multiple of the ranks; each rank takes its columns
+            res_val_b = -(-val_static_b // world) * world
+            val_batches = batch_val_cache(rd_val, res_val_b, mesh=mesh)
+            val_epoch_metrics = make_val_epoch(mesh=mesh)
+            val_epoch_plain = make_val_epoch(with_metrics=False, mesh=mesh)
 
     scheduler = lr_controller or ReduceLROnPlateau(lr, factor=plateau_factor,
                                                    patience=plateau_patience)
@@ -357,7 +477,9 @@ def train_model(model, train_loader, val_loader, *, epochs: int,
         # epoch after the resume would always "improve" on inf and
         # overwrite a better checkpoint
         best_dir = os.path.join(output_dir, "best_model")
-        if os.path.isdir(best_dir):
+        # over several ranks only rank 0 reads (output_dir may be its local
+        # disk); the bar and its trees are broadcast below
+        if is_host0 and os.path.isdir(best_dir):
             def shapes(tree):
                 return {k: np.shape(v) for k, v in flatten_tree(tree).items()}
 
@@ -378,14 +500,23 @@ def train_model(model, train_loader, val_loader, *, epochs: int,
             except (OSError, ValueError, KeyError) as e:  # corrupt best: start afresh
                 print(f"Resume: could not read {best_dir} ({e}); best-model tracking "
                       "restarts")
+        if world > 1:
+            best_val_loss, best_params, best_model_state = _broadcast_best(
+                best_val_loss, best_params, best_model_state, export_jax_params(model),
+                model_state(), mesh)
     epochs_without_improvement = resumed_stale_epochs
     warned_no_val = False
     history = {"train_loss": [], "val_loss": []}
 
     def _resume_extra():
-        return {"lr_state": scheduler.state_dict(), "step": int(state.step),
-                "rng": state.generator.get_state().tolist(),
-                "epochs_without_improvement": epochs_without_improvement}
+        # a collective over several ranks: every rank reaches each save
+        extra = {"lr_state": scheduler.state_dict(), "step": int(state.step),
+                 "rng": state.generator.get_state().tolist(),
+                 "epochs_without_improvement": epochs_without_improvement}
+        if world > 1:
+            extra["rng_by_rank"] = all_gather_array(
+                state.generator.get_state().numpy(), mesh).tolist()
+        return extra
 
     def _save(name, *, val, extra):
         return save_checkpoint(os.path.join(output_dir, name),
@@ -403,8 +534,8 @@ def train_model(model, train_loader, val_loader, *, epochs: int,
         path = _save("preempt_checkpoint", val=best_val_loss, extra=extra)
         if guard is not None:
             guard.preempt_checkpoint = path
-        print(f"Preempted: exact state saved to {path} — continue with --resume {path}",
-              flush=True)
+        say(f"Preempted: exact state saved to {path} — continue with --resume {path}",
+            flush=True)
 
     guard = preempt_guard
     own_guard = False
@@ -432,11 +563,16 @@ def train_model(model, train_loader, val_loader, *, epochs: int,
                 while s < steps:
                     e = min(s + seg_len, steps)
                     state, seg_losses = res_segment_fn(state, rd_train.x, rd_train.y, idx[s:e])
-                    parts.append(seg_losses.double().cpu())  # one fetch per segment
+                    parts.append(_global_losses(seg_losses, mesh))  # one fetch per segment
                     s = e
-                    if s < steps and guard is not None and guard.triggered:
-                        preempted, mid_step = True, s
-                        break
+                    if s < steps and guard is not None:
+                        # every rank reaches a segment boundary in lock step
+                        trig = guard.triggered
+                        if world > 1:
+                            trig = preemption_agreed(trig, mesh)
+                        if trig:
+                            preempted, mid_step = True, s
+                            break
                 if prof is not None:
                     stop_trace(prof, profile_dir)
                     prof = None
@@ -461,7 +597,7 @@ def train_model(model, train_loader, val_loader, *, epochs: int,
                     planned_steps = None
                 it = DevicePrefetcher(train_loader, device=dev, prefetch=prefetch,
                                       input_dtype=input_dtype)
-                if progress:
+                if progress and is_host0:
                     try:
                         from tqdm import tqdm
 
@@ -481,7 +617,9 @@ def train_model(model, train_loader, val_loader, *, epochs: int,
                     if prof is not None and i + 1 >= profile_steps:
                         stop_trace(prof, profile_dir)
                         prof = None
-                    if guard is not None and guard.triggered:
+                    # one process reacts after every step; several agree at the
+                    # epoch's end (preemption_agreed), where all arrive together
+                    if guard is not None and guard.triggered and world == 1:
                         preempted = True
                         mid_step = plan_skip + i + 1  # counted from the epoch's start
                         break
@@ -499,10 +637,10 @@ def train_model(model, train_loader, val_loader, *, epochs: int,
                         f"{planned_steps} (skip={skip}, plan_skip={bool(plan_skip)}) — the "
                         f"loader's set_skip_batches len/iter contract is violated or batches "
                         f"were dropped")
-                n_seen = sum(step_sizes)
+                n_seen = sum(step_sizes) * world  # every rank steps on as many rows
                 if step_losses:  # one fetch per epoch, not one sync per step
-                    losses_np = torch.stack(step_losses).double().cpu().numpy()
-                    running = float(losses_np @ np.asarray(step_sizes, np.float64))
+                    losses_np = _global_losses(torch.stack(step_losses), mesh).numpy()
+                    running = float(losses_np @ np.asarray(step_sizes, np.float64)) * world
                 else:
                     running = 0.0
                 train_loss = running / max(n_seen, 1)
@@ -520,7 +658,8 @@ def train_model(model, train_loader, val_loader, *, epochs: int,
             if resident:
                 if val_batches is not None:
                     val_epoch = val_epoch_metrics if calc_metrics else val_epoch_plain
-                    vs = val_epoch(model, *val_batches).double().cpu().numpy()
+                    vs = global_val_rows(val_epoch(model, *val_batches).double().cpu().numpy(),
+                                         mesh)
                     if log_images:
                         x, y = val_batches[0][0], val_batches[1][0]
                         first_val = (x, y, val_step_plain(model, x, y, val_batches[2][0])[3])
@@ -531,11 +670,11 @@ def train_model(model, train_loader, val_loader, *, epochs: int,
                         DevicePrefetcher(padded_val, device=dev, prefetch=prefetch,
                                          input_dtype=input_dtype)):
                     loss, psnr, ssim, out = val_step(model, x, y, mask)
-                    val_stats.append(torch.stack([loss, psnr, ssim, mask.float().sum()]))
+                    val_stats.append(val_row(loss, psnr, ssim, mask, mesh=mesh))
                     if log_images and batch_idx == 0:
-                        first_val = (x, y, out)
+                        first_val = (x, y, out)  # this rank's rows
                 if val_stats:
-                    vs = torch.stack(val_stats).double().cpu().numpy()
+                    vs = global_val_rows(torch.stack(val_stats).double().cpu().numpy(), mesh)
             if first_val is not None:
                 x, y, out = first_val
                 k = min(2, out.shape[0])
@@ -560,7 +699,7 @@ def train_model(model, train_loader, val_loader, *, epochs: int,
                 val_psnr = val_ssim = 0.0
                 if not warned_no_val:
                     warned_no_val = True
-                    print("Warning: validation loader is empty — using the train loss for "
+                    say("Warning: validation loader is empty — using the train loss for "
                           "LR scheduling, early stopping, and best-model tracking")
             history["val_loss"].append(val_loss)
 
@@ -573,7 +712,7 @@ def train_model(model, train_loader, val_loader, *, epochs: int,
             if calc_metrics:
                 msg += f", PSNR: {val_psnr:.2f}, SSIM: {val_ssim:.4f}"
             msg += f", LR: {new_lr:.6f} ({time.time() - t0:.1f}s)"
-            print(msg, flush=True)
+            say(msg, flush=True)
 
             if logger is not None:
                 rec = {"epoch": epoch + 1, "train_loss": train_loss, "val_loss": val_loss,
@@ -591,7 +730,7 @@ def train_model(model, train_loader, val_loader, *, epochs: int,
                 best_val_loss = val_loss
                 best_params, best_model_state = export_jax_params(model), model_state()
                 _save("best_model", val=val_loss, extra=_resume_extra())
-                print(f"New best model with validation loss: {val_loss:.4f}")
+                say(f"New best model with validation loss: {val_loss:.4f}")
                 if logger is not None:
                     summary = {"best_val_loss": best_val_loss, "best_epoch": epoch + 1}
                     if calc_metrics:
@@ -601,7 +740,7 @@ def train_model(model, train_loader, val_loader, *, epochs: int,
                     logger.save(os.path.join(output_dir, "best_model"))
             else:
                 epochs_without_improvement += 1
-                print(f"No improvement for {epochs_without_improvement} epochs "
+                say(f"No improvement for {epochs_without_improvement} epochs "
                       f"(best: {best_val_loss:.4f}, current: {val_loss:.4f})")
                 if logger is not None:
                     logger.log({"epochs_without_improvement": epochs_without_improvement},
@@ -615,13 +754,14 @@ def train_model(model, train_loader, val_loader, *, epochs: int,
                     logger.save(path)
 
             if epochs_without_improvement >= patience:
-                print(f"Early stopping triggered after {patience} epochs without improvement")
+                say(f"Early stopping triggered after {patience} epochs without improvement")
                 if logger is not None:
                     logger.set_summary(early_stopped=True, early_stopping_epoch=epoch + 1)
                 break
 
-            # a signal that landed outside the step loop (val, checkpoints)
-            if guard is not None and preemption_agreed(guard.triggered):
+            # a signal that landed outside the step loop (val, checkpoints),
+            # and over several ranks the only check: uniform on every rank
+            if guard is not None and preemption_agreed(guard.triggered, mesh):
                 guard.triggered = True
                 preempted = True
                 _save_preempt()
@@ -629,10 +769,42 @@ def train_model(model, train_loader, val_loader, *, epochs: int,
     finally:
         if own_guard:
             guard.__exit__(None, None, None)
-    _plot_losses(history, output_dir)
+    if is_host0:
+        _plot_losses(history, output_dir)
     if best_params is None:
         best_params, best_model_state = export_jax_params(model), model_state()
     return best_params, best_model_state, best_val_loss, state
+
+
+def _global_losses(losses: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's per-step mean losses -> the global batches' (the mean of
+    the ranks' means: equal rows per rank), float64 on the host."""
+    if mesh is not None and mesh.world > 1:
+        from ..parallel.mesh import all_reduce_sum
+
+        losses = all_reduce_sum(losses.double().clone(), mesh) / mesh.world
+    return losses.double().cpu()
+
+
+def _broadcast_best(val: float, params, model_state, params_template: dict,
+                    state_template: dict, mesh):
+    """Rank 0's best-model bar (its val loss, params and statistics, or
+    none) on every rank, over the current model's trees."""
+    from ..parallel.mesh import broadcast_arrays, broadcast_bytes
+
+    have = mesh.rank == 0 and params is not None
+    head = json.loads(broadcast_bytes(
+        json.dumps([have, val if have else None]).encode() if mesh.rank == 0 else None, mesh))
+    if not head[0]:
+        return float("inf"), None, None
+    out = []
+    for tree, tmpl in ((params, params_template), (model_state, state_template)):
+        names = sorted(flatten_tree(tmpl))
+        src = flatten_tree(tree) if mesh.rank == 0 else None
+        leaves = broadcast_arrays([src[k] for k in names] if src is not None else None,
+                                  [flatten_tree(tmpl)[k] for k in names], mesh)
+        out.append(unflatten_tree(dict(zip(names, leaves))) if names else {})
+    return float(head[1]), out[0], out[1]
 
 
 def _plot_losses(history: dict, output_dir: str) -> None:

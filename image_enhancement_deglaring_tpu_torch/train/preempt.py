@@ -1,11 +1,13 @@
-"""Preemption-safe training, single process.
+"""Preemption-safe training.
 
 Counterpart of ``image_enhancement_deglaring_tpu.train.preempt``: SIGTERM
 or SIGINT sets a flag instead of killing the process; the train loop
 checks it after every step, writes a mid-epoch checkpoint with the exact
 step position (``epoch_step``), and returns, so ``resume_from`` that
-checkpoint continues as if nothing had happened. The host-uniform
-decision of a multi-process run comes with the port's multi-GPU part.
+checkpoint continues as if nothing had happened. Over several processes
+the signal may reach one rank only, so the loop asks
+:func:`preemption_agreed` at epoch (and resident segment) boundaries,
+where every rank arrives in lock step.
 """
 
 from __future__ import annotations
@@ -54,6 +56,15 @@ class PreemptionGuard:
         return False
 
 
-def preemption_agreed(local: bool) -> bool:
-    """The preemption decision of all processes. One process: its own flag."""
-    return local
+def preemption_agreed(local: bool, mesh=None) -> bool:
+    """True on every rank if any rank saw a signal: a MAX all-reduce of the
+    local flags over ``mesh`` (by default the process group's mesh). One
+    process: its own flag. A collective: every rank must call it at the
+    same point."""
+    from ..parallel.distributed import process_count
+
+    if process_count() == 1:
+        return bool(local)
+    from ..parallel.mesh import all_reduce_max, make_mesh
+
+    return all_reduce_max(1.0 if local else 0.0, mesh or make_mesh()) > 0.0

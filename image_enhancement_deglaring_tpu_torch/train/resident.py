@@ -16,6 +16,13 @@ sequence and generator stream.
 Capacity: SD1 at full scale (1,536 pairs at 512^2, bf16 inputs and f32
 targets) is 1,536 * 512^2 * 6 B = 2.25 GiB, about 3 % of an 80 GB card.
 ``cache_on_device`` refuses a cache above half of the device's memory.
+
+Over several ranks (``mesh=``) every rank holds the whole cache, decoded
+from the global loader: 2.25 GiB per device at SD1 scale, where JAX's
+sharded cache holds 1/D of it per chip. Every rank draws the same plan
+from (seed, epoch) and takes its rows ``[r * per, (r + 1) * per)`` of each
+planned batch, the rows JAX's sharded batch puts on its devices, so the
+global batches are JAX's and no rank gathers from another.
 """
 
 from __future__ import annotations
@@ -27,7 +34,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
-from .loop import make_step_body, make_val_body
+from .loop import make_step_body, make_val_body, val_row
 
 
 class ResidentData(NamedTuple):
@@ -86,13 +93,13 @@ def cache_on_device(source, *, dtype: torch.dtype | None = None, sharding=None,
     the device. ``dtype`` casts the input cache only (bf16 when the model's
     first op is that cast); targets stay float32. The cache must fit in half
     of ``device_bytes``, by default the CUDA device's own memory (a CPU
-    device needs the argument). ``sharding=`` and several processes belong
-    to the multi-GPU part of the port and raise."""
-    if sharding is not None or (torch.distributed.is_available()
-                                and torch.distributed.is_initialized()
-                                and torch.distributed.get_world_size() > 1):
-        raise NotImplementedError("a resident cache over several devices or processes is not "
-                                  "ported yet (ROADMAP.md Queue 1 item 13)")
+    device needs the argument). Over several ranks ``source`` is the global
+    loader and each rank caches all of it (the module docstring), so the
+    check counts the whole cache on every device; ``sharding=`` (JAX's
+    sharded cache) raises."""
+    if sharding is not None:
+        raise ValueError("cache_on_device(sharding=): every rank of the port caches the whole "
+                         "set on its own device (train_model(mesh=)); pass no sharding")
     dev = resolve_device(device)
     ds = getattr(source, "dataset", source)
     if getattr(ds, "augment", "none") != "none":
@@ -144,14 +151,24 @@ def epoch_batch_plan(seed: int, epoch: int, n_real: int, batch_size: int, *,
     return perm[: steps * bs].reshape(steps, bs)
 
 
-def _make_segment_fn(body):
+def _rank_columns(a: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's block of axis 1 (the batch axis of a plan or of batched
+    val tensors): ``[r * per, (r + 1) * per)``."""
+    if mesh is None or mesh.world == 1:
+        return a
+    per = a.shape[1] // mesh.world
+    return a[:, mesh.rank * per:(mesh.rank + 1) * per]
+
+
+def _make_segment_fn(body, mesh=None):
     """The one gather-and-step loop both epoch shapes share: each row of
-    ``idx`` gathers its batch from the resident tensors and runs ``body``;
-    the losses stay on the device, stacked."""
+    ``idx`` gathers its batch (under ``mesh``, this rank's part of it) from
+    the resident tensors and runs ``body``; the losses stay on the device,
+    stacked."""
 
     def segment(state, x, y, idx):
         losses = []
-        for row in idx:  # a device tensor's rows: no host sync
+        for row in _rank_columns(idx, mesh):  # a device tensor's rows: no host sync
             state, loss = body(state, x.index_select(0, row), y.index_select(0, row))
             losses.append(loss)
         return state, torch.stack(losses)
@@ -160,12 +177,13 @@ def _make_segment_fn(body):
 
 
 def make_train_epoch(*, batch_size: int, stateful: bool = False, augment_fn=None,
-                     shuffle: bool = True):
+                     shuffle: bool = True, mesh=None):
     """``train_epoch(state, x, y, seed, epoch, n_real) -> (state, losses)``:
     one epoch over the resident tensors, ``losses`` shaped (steps,) on the
-    device. ``shuffle=False`` runs the samples in order (the parity checks
-    against the per-step loop)."""
-    segment = _make_segment_fn(make_step_body(stateful=stateful, augment_fn=augment_fn))
+    device (under ``mesh``, this rank's). ``shuffle=False`` runs the samples
+    in order (the parity checks against the per-step loop)."""
+    segment = _make_segment_fn(make_step_body(stateful=stateful, augment_fn=augment_fn,
+                                              mesh=mesh), mesh)
 
     def train_epoch(state, x, y, seed: int, epoch: int, n_real: int):
         idx = epoch_batch_plan(seed, epoch, n_real, batch_size, shuffle=shuffle,
@@ -176,14 +194,16 @@ def make_train_epoch(*, batch_size: int, stateful: bool = False, augment_fn=None
 
 
 def make_train_epoch_segmented(*, batch_size: int, stateful: bool = False, augment_fn=None,
-                               shuffle: bool = True):
+                               shuffle: bool = True, mesh=None):
     """``(plan, segment)``: ``plan(seed, epoch, n_real, device)`` is the
     epoch's batch plan (:func:`epoch_batch_plan`) and ``segment(state, x,
     y, idx_block) -> (state, losses)`` trains the rows of a slice of it.
     Segments run back to back take the steps of one whole epoch, so the
     caller can check for preemption between them; a mid-epoch checkpoint at
-    a segment boundary resumes by slicing the same plan from there."""
-    segment = _make_segment_fn(make_step_body(stateful=stateful, augment_fn=augment_fn))
+    a segment boundary resumes by slicing the same plan from there. Under
+    ``mesh`` each rank trains its rows of every planned batch."""
+    segment = _make_segment_fn(make_step_body(stateful=stateful, augment_fn=augment_fn,
+                                              mesh=mesh), mesh)
 
     def plan(seed: int, epoch: int, n_real: int, device="cuda"):
         return epoch_batch_plan(seed, epoch, n_real, batch_size, shuffle=shuffle,
@@ -192,11 +212,12 @@ def make_train_epoch_segmented(*, batch_size: int, stateful: bool = False, augme
     return plan, segment
 
 
-def batch_val_cache(data: ResidentData, batch_size: int
+def batch_val_cache(data: ResidentData, batch_size: int, mesh=None
                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """A resident validation cache as (xb, yb, masks): (VB, batch_size, H,
     W, C) batches padded with zero rows, and (VB, batch_size) masks that
-    are 1.0 on the real samples, the resident form of the padded loader."""
+    are 1.0 on the real samples, the resident form of the padded loader.
+    Under ``mesh`` each is this rank's block of the batch axis."""
     n = data.n
     vb = max(1, -(-n // batch_size))
     total = vb * batch_size
@@ -207,21 +228,22 @@ def batch_val_cache(data: ResidentData, batch_size: int
         return a[:total].reshape((vb, batch_size) + tuple(a.shape[1:]))
 
     mask = (torch.arange(total, device=data.x.device) < n).float().reshape(vb, batch_size)
-    return rebatch(data.x), rebatch(data.y), mask
+    return tuple(_rank_columns(a, mesh) for a in (rebatch(data.x), rebatch(data.y), mask))
 
 
-def make_val_epoch(metric_subset: int = 4, *, with_metrics: bool = True):
+def make_val_epoch(metric_subset: int = 4, *, with_metrics: bool = True, mesh=None):
     """``val_epoch(model, xb, yb, masks) -> (VB, 4)``: the validation body
     over every batch of :func:`batch_val_cache`, rows of [masked L1, subset
     PSNR, subset SSIM, real-sample count] stacked on the device for one
-    fetch."""
-    body = make_val_body(metric_subset, with_metrics=with_metrics)
+    fetch; under ``mesh`` (VB, 5) rows of this rank's (``loop.val_row``,
+    for ``loop.global_val_rows``)."""
+    body = make_val_body(metric_subset, with_metrics=with_metrics, mesh=mesh)
 
     def val_epoch(model, xb, yb, masks):
         rows = []
         for x, y, m in zip(xb, yb, masks):
             loss, psnr, ssim, _ = body(model, x, y, m)
-            rows.append(torch.stack([loss, psnr, ssim, m.sum()]))
+            rows.append(val_row(loss, psnr, ssim, m, metric_subset, mesh))
         return torch.stack(rows)
 
     return val_epoch

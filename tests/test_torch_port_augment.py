@@ -2,12 +2,13 @@
 
 - ``data.cv_ops``, the port's numpy copies of the cv2 operations that
   ``heavy_augment`` calls, against cv2 5.0.0: ``getRotationMatrix2D``
-  equal; ``warpAffine`` bilinear within 1e-5 (bit for bit where the width
-  is a multiple of 16, cv2's vector loop; its scalar tail rounds
-  otherwise), nearest bit for bit; the 3x3 Gaussian blur and CLAHE bit for
-  bit, CLAHE also at sizes that are no multiple of its 8x8 grid.
+  equal; ``warpAffine`` bilinear and nearest bit for bit, also at widths
+  that are no multiple of 16 (cv2's scalar tail); the 3x3 Gaussian blur
+  and CLAHE bit for bit, CLAHE also at sizes that are no multiple of its
+  8x8 grid.
 - ``heavy_augment`` against the JAX package's on the same
-  ``np.random.default_rng`` seeds (200 at 64x64, 3 at 512x512): equal
+  ``np.random.default_rng`` seeds (200 at 64x64, 100 at 53x53, 3 at
+  512x512): equal
   arrays and the generator left in the same state; the heavy loaders'
   batches equal JAX's; ``cli.train --augment heavy`` trains.
 - ``train_model(profile_dir=)`` writes a trace and trains bit for bit as
@@ -74,28 +75,21 @@ def test_rotation_matrix_equals_cv2(center, angle, scale):
 
 @pytest.mark.parametrize("h,w", [(64, 64), (37, 53), (512, 512)])
 def test_warp_affine_against_cv2(h, w):
-    """Bilinear within 1e-5 (bit for bit at widths that are multiples of
-    16) and nearest bit for bit, constant-0 border, on random float32
-    images and the affine draws of heavy augmentation."""
+    """Bilinear and nearest bit for bit, constant-0 border, on random
+    float32 images and the affine draws of heavy augmentation, at widths
+    that are multiples of 16 and at 53, whose last 5 columns cv2 5 computes
+    in its scalar tail."""
     rng = np.random.default_rng(h * 1000 + w)
-    worst, differing = 0.0, []
     for _ in range(6 if h < 512 else 2):
         img = rng.random((h, w), dtype=np.float32)
         m = _affine_matrix(rng, h, w)
-        want = cv2.warpAffine(img, m, (w, h), flags=cv2.INTER_LINEAR,
-                              borderMode=cv2.BORDER_CONSTANT, borderValue=0)
-        got = cv_ops.warp_affine(img, m, cv_ops.INTER_LINEAR)
-        assert got.dtype == np.float32 and got.shape == (h, w)
-        worst = max(worst, float(np.abs(got - want).max()))
-        if w % 16 == 0:
+        for flag, interp in ((cv2.INTER_LINEAR, cv_ops.INTER_LINEAR),
+                             (cv2.INTER_NEAREST, cv_ops.INTER_NEAREST)):
+            want = cv2.warpAffine(img, m, (w, h), flags=flag,
+                                  borderMode=cv2.BORDER_CONSTANT, borderValue=0)
+            got = cv_ops.warp_affine(img, m, interp)
+            assert got.dtype == np.float32 and got.shape == (h, w)
             np.testing.assert_array_equal(got, want)
-        want = cv2.warpAffine(img, m, (w, h), flags=cv2.INTER_NEAREST,
-                              borderMode=cv2.BORDER_CONSTANT, borderValue=0)
-        differing.append(int((cv_ops.warp_affine(img, m, cv_ops.INTER_NEAREST) != want).sum()))
-    print(f"warp {h}x{w}: bilinear max |diff| {worst:.3g}; nearest pixels differing "
-          f"per warp {differing}")
-    assert worst <= 1e-5
-    assert differing == [0] * len(differing)
 
 
 @pytest.mark.parametrize("h,w", [(64, 64), (37, 53), (3, 5)])
@@ -124,7 +118,7 @@ def test_clahe_equals_cv2_bit_for_bit(h, w):
 # -------------------------------------------------------------- heavy stack
 
 
-@pytest.mark.parametrize("size,seeds", [(64, range(200)), (512, range(3))])
+@pytest.mark.parametrize("size,seeds", [(64, range(200)), (53, range(100)), (512, range(3))])
 def test_heavy_augment_equals_jax_on_the_same_seeds(size, seeds):
     data = np.random.default_rng(size)
     img = data.random((size, size), dtype=np.float32)

@@ -38,6 +38,7 @@ from image_enhancement_deglaring_tpu_torch.cli import check_dataset as check_cli
 from image_enhancement_deglaring_tpu_torch.cli import evaluate as eval_cli
 from image_enhancement_deglaring_tpu_torch.cli import make_synthetic as synth_cli
 from image_enhancement_deglaring_tpu_torch.cli import split_image as split_cli
+from image_enhancement_deglaring_tpu_torch.parallel import make_mesh
 from image_enhancement_deglaring_tpu_torch.cli import train as train_cli
 from image_enhancement_deglaring_tpu_torch.data import generate_synthetic_sd1, make_eval_loader
 from image_enhancement_deglaring_tpu_torch.data import png, validate
@@ -149,9 +150,17 @@ def test_evaluate_rejects_a_batch_larger_than_batch_size(narrow):
 
 def test_evaluate_refuses_mesh_and_defaults_to_cuda(narrow):
     _, model = narrow
-    with pytest.raises(NotImplementedError, match="item 13"):
-        evaluate(model, _batches(), device="cpu", mesh=object(), progress=False)
+    # a one-process mesh changes nothing; several ranks are held in
+    # tests/test_torch_port_distributed.py
+    mesh = make_mesh(device="cpu")
+    assert evaluate(model, _batches(), mesh=mesh, progress=False) == evaluate(
+        model, _batches(), device="cpu", progress=False)
+    # the mesh owns the device: another one named beside it raises
+    with pytest.raises(ValueError, match="disagrees with the mesh"):
+        evaluate(model, _batches(), mesh=mesh, device="cuda", progress=False)
     if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            evaluate(model, _batches(), mesh=make_mesh(), progress=False)
         with pytest.raises(RuntimeError, match="CUDA"):
             evaluate(model, _batches(), progress=False)
 
@@ -282,7 +291,8 @@ def test_cli_evaluate_parser_and_refusals(tmp_path):
     bad = tmp_path / "weights.bin"
     bad.write_bytes(b"")
     for argv, match in ((["--model_path", str(bad)], "cannot determine the artifact format"),
-                        (["--n_devices", "2"], "item 13")):
+                        # checked before any rank starts, as the JAX CLI checks it
+                        (["--n_devices", "2"], "cannot determine the artifact format")):
         with pytest.raises(SystemExit, match=match):
             eval_cli.main(argv + ["--device", "cpu"])
     with pytest.raises(SystemExit, match="cannot determine the artifact format") as want:

@@ -1,4 +1,5 @@
-"""The port's JPEG decoder (``data/jpeg.py``) against PIL, on the CPU.
+"""The port's JPEG decoder (``data/jpeg.py``) and its gray encoder
+(``data/jpeg_encode.py``) against PIL, on the CPU.
 
 PIL 12.1.0 decodes with libjpeg-turbo 3.1.3 (the jpeg62 API, fancy
 upsampling, the integer IDCT). Every case holds ``decode_jpeg`` to
@@ -26,7 +27,10 @@ upsampling, the integer IDCT). Every case holds ``decode_jpeg`` to
   corrupt coefficients where ``jidctint.c`` does not); the port answers
   with pixels of PIL's shape or a ValueError;
 - ``tests/fixtures/jpeg/manifest.json`` against PIL, and the port against
-  the manifest (the card's machine checks the port against it too).
+  the manifest (the card's machine checks the port against it too);
+- ``encode_jpeg_gray`` byte for byte against ``Image.fromarray(a,
+  "L").save(buf, "JPEG")`` (quality 75) on noise, flat and smooth images at
+  sizes that are and are not multiples of 8, and read back by PIL.
 """
 
 import hashlib
@@ -44,6 +48,7 @@ from PIL import Image
 
 from image_enhancement_deglaring_tpu_torch.data import jpeg
 from image_enhancement_deglaring_tpu_torch.data.jpeg import decode_jpeg
+from image_enhancement_deglaring_tpu_torch.data.jpeg_encode import encode_jpeg_gray
 from image_enhancement_deglaring_tpu_torch.serve.imaging import to_luma
 
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures")
@@ -403,7 +408,40 @@ def test_fixture_manifest_equals_pil_and_the_port():
 
 def test_jpeg_module_imports_neither_pil_nor_cv2():
     code = ("import sys; import image_enhancement_deglaring_tpu_torch.data.jpeg; "
+            "import image_enhancement_deglaring_tpu_torch.data.jpeg_encode; "
             "bad = [m for m in ('PIL', 'cv2', 'jax', 'torch') if m in sys.modules]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], check=True,
                    cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+# ------------------------------------------------------------ the encoder
+
+
+def _gray(kind: str, h: int, w: int) -> np.ndarray:
+    rng = np.random.default_rng(h * 1000 + w)
+    if kind == "noise":
+        return rng.integers(0, 256, (h, w), dtype=np.uint8)
+    if kind == "flat":
+        return np.full((h, w), 255, np.uint8)
+    yy, xx = np.mgrid[:h, :w]
+    return np.clip((np.sin(xx / 7.0) + np.cos(yy / 5.0)) * 60 + 128, 0, 255).astype(np.uint8)
+
+
+@pytest.mark.parametrize("h,w", [(1, 1), (8, 8), (37, 53), (64, 64), (3, 200), (160, 160)])
+@pytest.mark.parametrize("kind", ["noise", "flat", "smooth"])
+def test_encode_jpeg_gray_equals_pil_byte_for_byte(kind, h, w):
+    a = _gray(kind, h, w)
+    buf = io.BytesIO()
+    Image.fromarray(a, "L").save(buf, "JPEG")
+    got = encode_jpeg_gray(a)
+    assert got == buf.getvalue()
+    with Image.open(io.BytesIO(got)) as im:
+        assert im.mode == "L" and im.size == (w, h)
+
+
+def test_encode_jpeg_gray_refuses_what_it_cannot_write():
+    for bad in (np.zeros((4, 4), np.float32), np.zeros((4, 4, 3), np.uint8),
+                np.zeros((0, 4), np.uint8)):
+        with pytest.raises(ValueError, match="uint8"):
+            encode_jpeg_gray(bad)

@@ -41,6 +41,7 @@ from image_enhancement_deglaring_tpu_torch.eval import load_model_for_eval
 from image_enhancement_deglaring_tpu_torch.modelio import export_jax_batch_stats, export_jax_params
 from image_enhancement_deglaring_tpu_torch.models import EnhancedUNet, LightweightUNet
 from image_enhancement_deglaring_tpu_torch.ops.augment_device import device_augment_batch
+from image_enhancement_deglaring_tpu_torch.parallel import batch_sharding, make_mesh
 from image_enhancement_deglaring_tpu_torch.train import (
     TrainState,
     make_optimizer,
@@ -217,8 +218,11 @@ def test_cache_refusals(toy_data):
     cache_on_device(ArrayLoader(x, y, 4), device="cpu", device_bytes=2 * need)
     with pytest.raises(ValueError, match="device_bytes"):
         cache_on_device(ArrayLoader(x, y, 4), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        cache_on_device(ArrayLoader(x, y, 4), device="cpu", device_bytes=CPU, sharding=object())
+    # each rank caches the whole set (train_model(mesh=)): JAX's sharded
+    # cache has no counterpart and its argument is refused
+    with pytest.raises(ValueError, match="sharding"):
+        cache_on_device(ArrayLoader(x, y, 4), device="cpu", device_bytes=CPU,
+                        sharding=batch_sharding(make_mesh(device="cpu")))
     with pytest.raises(ValueError, match="empty"):
         cache_on_device(ArrayLoader(x[:0], y[:0], 4), device="cpu", device_bytes=CPU)
 

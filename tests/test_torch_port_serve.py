@@ -45,6 +45,7 @@ from PIL import Image
 
 from image_enhancement_deglaring_tpu.cli import enhance as jax_enhance_cli
 from image_enhancement_deglaring_tpu.cli import serve as jax_serve_cli
+from image_enhancement_deglaring_tpu.cli import test_api as jax_test_api_cli
 from image_enhancement_deglaring_tpu.data import pipeline as jax_pipeline
 from image_enhancement_deglaring_tpu.eval import load_model_for_eval as jax_load_model_for_eval
 from image_enhancement_deglaring_tpu.modelio import detect_model_arch as jax_detect_model_arch
@@ -781,6 +782,19 @@ def test_cli_test_api_and_load_tool_against_the_port_server(servers, tmp_path, c
     assert test_api_cli.test_infer(url, path, out_dir=str(tmp_path))
     with Image.open(tmp_path / "enhanced_photo_noise.png") as im:
         assert im.mode == "L" and im.size == (160, 160)
+    # a JPEG upload's answer is saved as the JPEG the JAX CLI's PIL writes
+    path = os.path.join(FIXTURES, "photo_noise.jpg")
+    assert test_api_cli.test_infer(url, path, out_dir=str(tmp_path / "port"))
+    assert jax_test_api_cli.test_infer(url, path, out_dir=str(tmp_path / "jax"))
+    got = (tmp_path / "port" / "enhanced_photo_noise.jpg").read_bytes()
+    assert got == (tmp_path / "jax" / "enhanced_photo_noise.jpg").read_bytes()
+    assert got[:2] == b"\xff\xd8"
+    # an extension neither PNG nor JPEG is refused, naming the two
+    odd = tmp_path / "photo_noise.bmp"
+    odd.write_bytes(b"unused")
+    capsys.readouterr()
+    assert test_api_cli.main(["--test", "infer", "--url", url, "--image", str(odd)]) == 1
+    assert "PNG" in capsys.readouterr().out
     assert test_api_cli.main(["--test", "ping", "--url", "http://127.0.0.1:9"]) == 1
     capsys.readouterr()
     assert load_test_api.main(["--url", url, "--size", "64", "--requests", "6",

@@ -50,6 +50,7 @@ from image_enhancement_deglaring_tpu.train.loop import make_val_step as jax_val_
 from image_enhancement_deglaring_tpu.train.loop import train_model as jax_train_model
 from image_enhancement_deglaring_tpu.utils import ExperimentLogger as JaxLogger
 from image_enhancement_deglaring_tpu.utils.pytree import load_npz_tree as jax_load_npz
+from image_enhancement_deglaring_tpu_torch.cli import sweep as sweep_cli
 from image_enhancement_deglaring_tpu_torch.cli import train as port_cli
 from image_enhancement_deglaring_tpu_torch.data import generate_synthetic_sd1, make_dataloaders
 from image_enhancement_deglaring_tpu_torch.modelio import (
@@ -62,6 +63,7 @@ from image_enhancement_deglaring_tpu_torch.models import LightweightUNet
 from image_enhancement_deglaring_tpu_torch.ops import dec1
 from image_enhancement_deglaring_tpu_torch.ops import fused_kernels as fk
 from image_enhancement_deglaring_tpu_torch.ops import metrics
+from image_enhancement_deglaring_tpu_torch.parallel import make_mesh
 from image_enhancement_deglaring_tpu_torch.train import (
     ReduceLROnPlateau,
     TrainState,
@@ -498,8 +500,11 @@ def test_early_stop_after_patience(tmp_path, capsys):
     (["--distributed"], 13), (["--n_devices", "2"], 13),
 ])
 def test_cli_refuses_unported_flags_naming_their_queue_item(flags, item):
-    with pytest.raises(SystemExit, match=f"item {item}"):
-        port_cli.main(["--data_dir", "unused", "--device", "cpu", *flags])
+    """cli.train takes these flags now (item 13's training half,
+    tests/test_torch_port_distributed.py); the sweep CLI still refuses
+    them, naming item 13b, before it reads any data."""
+    with pytest.raises(SystemExit, match=f"item {item}b"):
+        sweep_cli.main(["--data_dir", "unused", "--device", "cpu", *flags])
 
 
 def test_cli_and_train_model_default_to_cuda(tmp_path):
@@ -509,8 +514,12 @@ def test_cli_and_train_model_default_to_cuda(tmp_path):
         port_cli.main(["--data_dir", str(tmp_path)])
     with pytest.raises(RuntimeError, match="CUDA"):
         train_model(LightweightUNet(), [], [], epochs=1, output_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        train_model(LightweightUNet(), [], [], epochs=1, mesh=object(), device="cpu")
+    # a mesh's device is CUDA unless the CPU is asked for, and the mesh
+    # owns the device: another one named beside it raises
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_model(LightweightUNet(), [], [], epochs=1, mesh=make_mesh())
+    with pytest.raises(ValueError, match="disagrees with the mesh"):
+        train_model(LightweightUNet(), [], [], epochs=1, mesh=make_mesh(), device="cpu")
 
 
 # -------------------------------------------------- the kernels' grad guard
