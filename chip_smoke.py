@@ -224,19 +224,46 @@ Phases, each fatal on failure:
    with the kernels, 16 pages at 512x512 in batches of 8: |dPSNR| <= 0.01
    dB against one rank, K1/K3 14/4 per forward (each rank's counts,
    summed); (d) ``cli.train --n_devices 2`` prints the JAX CLI's clamp
-   message and trains on the one card.
+   message and trains on the one card;
+17. serving and sweeps over several devices (the machine has one card):
+   (a) ``InferenceEngine`` over a ``LocalMesh`` of two replicas on cuda:0
+   (every card on a machine with more), bf16 with the kernels at 512x512:
+   8 frames and a ragged 3, each replica's slice equal bit for bit to one
+   engine's forward at its rows and >= 45 dB of one engine's forward of
+   the whole bucket, buckets multiples of the mesh size, K1/K3 14/4 per
+   replica forward, img/s at bucket 64 of no mesh, a one-replica mesh and
+   the two replicas in turns (the split's cost, not scaling); (b)
+   ``create_server(mode="both", mesh=)``: 32 pages over 8 connections and
+   a 1200x900 tile request >= 45 dB of one engine / tiler, K1/K3 per
+   replica forward; (c) ``cli.enhance`` / ``cli.serve --data_parallel 2``
+   print the JAX CLIs' clamp message and run on one card; (d)
+   ``run_sweep(mesh=)`` over two Gloo ranks on the card (f32 128x128, the
+   production LightweightUNet, 4 trials x 2 epochs, deterministic
+   algorithms) against one process: the best trial, per-trial best val
+   losses within rtol 1e-5, rank 0 alone writing, a preempted sweep resumed
+   from rank 0's journal equal to the uninterrupted one; (e) ``cli.sweep
+   --distributed`` as an NCCL group of one against the same run without
+   it, bit for bit.
 
 The line before the last is a JSON object with one entry per kernel, its
 launches also by path (each counted from 0 in its own run); the last
 line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 without the package beside it, the script exits non-zero and prints no
 result.
+
+``--soak SECONDS`` repeats phases 15 and 16 until SECONDS have passed,
+before phase 17, under the state the earlier phases leave, printing each
+pass and the live threads: a search for an intermittent native crash in
+that stretch. A fatal signal prints every thread's Python stack
+(``faulthandler``).
 """
 
 from __future__ import annotations
 
+import argparse
 import base64
 import contextlib
+import faulthandler
 import functools
 import json
 import math
@@ -4357,10 +4384,12 @@ def profiled_serving(card: str, work: str) -> dict:
                 h.setLevel(logging.CRITICAL)
         return servers[-1]
 
-    tmp_env = {"TMPDIR": os.path.join(work, "serve_traces")}
-    os.makedirs(tmp_env["TMPDIR"], exist_ok=True)
+    # the captures' default directory (under tempfile.gettempdir()) inside
+    # work; the process environment stays as it is, since other threads run
+    traces = os.path.join(work, "serve_traces")
+    os.makedirs(traces, exist_ok=True)
     with mock.patch.object(serve_pkg, "create_server", capture), \
-            mock.patch.dict(os.environ, tmp_env), mock.patch("tempfile.tempdir", None):
+            mock.patch("tempfile.tempdir", traces):
         thread = threading.Thread(target=cli_serve.main, args=([
             "--model_path", ONNX, "--host", "127.0.0.1", "--port", str(port),
             "--profile_port", str(trace_port), "--log_dir", os.path.join(work, "serve_logs"),
@@ -4877,7 +4906,460 @@ def data_parallel(card: str) -> dict:
         shutil.rmtree(work, ignore_errors=True)
 
 
-def main() -> int:
+# phase 17: serving and sweeps over several devices. Serving runs in one
+# process over a LocalMesh (one model replica per device, each batch split
+# over them); sweeps run one process per device (the trial axis split over
+# the ranks of a DataMesh). The machine has one H100: the serving mesh
+# puts two replicas on cuda:0 (the cost of the split, not scaling), and
+# the sweep's two ranks share the card under Gloo (NCCL refuses two ranks
+# on one GPU), as 16b/16c do.
+
+MESH_SIZE, MESH_MAX_BATCH, MESH_RATE_BUCKET = 512, 64, 64                  # 17a
+MESH_RATE_ROUNDS, MESH_RATE_CALLS, MESH_SUBMIT_FRAMES = 6, 4, 256
+MESH_HTTP_PAGES, MESH_TILE_SIZE = 32, (900, 1200)                          # 17b
+MESH_SWEEP_SIZE, MESH_SWEEP_TRAIN, MESH_SWEEP_VAL = 128, 32, 16            # 17d
+MESH_SWEEP = dict(n_trials=4, max_epochs=2, min_iter=1, eta=2, method="random", seed=17)
+MESH_RESUME = dict(n_trials=2, max_epochs=1, min_iter=1, eta=2, method="random", seed=7,
+                   max_parallel_trials=1)
+MESH_SWEEP_RTOL = 1e-5             # tests/test_distributed.py's two-host sweep
+MESH_CLI_FLAGS = ["--method", "random", "--sweep_count", "4", "--max_epochs", "2",
+                  "--early_stop_min_iter", "1", "--eta", "2", "--image_size", "128",
+                  "--num_workers", "4"]                                      # 17e
+
+
+def _mesh_devices() -> tuple:
+    """Every card, or two replicas on cuda:0 on a machine with one."""
+    n = torch.cuda.device_count()
+    return tuple(torch.device("cuda", i) for i in range(n)) if n > 1 else (
+        torch.device("cuda", 0),) * 2
+
+
+class _Tee:
+    """Stdout echoed to the console and kept (``text``)."""
+
+    def __init__(self):
+        import io
+
+        self.buf = io.StringIO()
+
+    def write(self, text):
+        sys.__stdout__.write(text)
+        return self.buf.write(text)
+
+    def flush(self):
+        sys.__stdout__.flush()
+
+    @property
+    def text(self) -> str:
+        return self.buf.getvalue()
+
+
+def _record_buckets(engine) -> list:
+    """The row counts of every batch ``engine`` launches from now on."""
+    seen, step = [], engine._step
+    engine._step = lambda batch: (seen.append(batch.shape[0]), step(batch))[1]
+    return seen
+
+
+def mesh_engine(card: str, mesh) -> tuple[dict, object]:
+    """17a: ``InferenceEngine(mesh=)`` against one engine on the production
+    weights, bf16 with the kernels: answers, buckets, launches, img/s in
+    turns. Returns (launches, the single engine)."""
+    from image_enhancement_deglaring_tpu_torch.eval import load_model_for_eval
+    from image_enhancement_deglaring_tpu_torch.parallel import LocalMesh
+    from image_enhancement_deglaring_tpu_torch.serve.engine import InferenceEngine
+
+    model, _ = load_model_for_eval(ONNX, compute_dtype=torch.bfloat16, device="cuda")
+    kw = dict(image_size=MESH_SIZE, max_batch_size=MESH_MAX_BATCH, compute_dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    engines = {"no mesh": InferenceEngine(model, device="cuda", **kw),
+               "1-replica mesh": InferenceEngine(model, mesh=LocalMesh(mesh.devices[:1]), **kw),
+               f"{mesh.size}-replica mesh": InferenceEngine(model, mesh=mesh, **kw)}
+    t_warm = time.perf_counter() - t0
+    solo, eng = engines["no mesh"], engines[f"{mesh.size}-replica mesh"]
+    print(f"17a three engines (bf16, {MESH_SIZE}^2, max batch {MESH_MAX_BATCH}) built and warmed "
+          f"in {t_warm:.1f} s; mesh {[str(d) for d in mesh.devices]}", flush=True)
+
+    frames = make_frames(8, MESH_SIZE, seed=171)
+    buckets = _record_buckets(eng)
+    results = []
+    for batch in (frames, frames[:3]):
+        _reset_launches()
+        got = eng.infer_batch(batch)
+        counts = _launches()
+        want = solo.infer_batch(batch)
+        bucket = buckets[-1]
+        _per_forward(counts, mesh.size, f"17a batch {len(batch)} (bucket {bucket})")
+        # each replica's slice is one engine's forward at bucket / n rows:
+        # the same weights and kernels on the same shapes, so bit for bit
+        rows = bucket // mesh.size
+        padded = np.concatenate([batch, np.zeros((bucket - len(batch),) + batch.shape[1:],
+                                                 np.uint8)])
+        sliced = np.concatenate([solo.infer_batch(padded[i * rows:(i + 1) * rows])
+                                 for i in range(mesh.size)])[:len(batch)]
+        exact = bool(np.array_equal(got, sliced))
+        levels = int(np.abs(got.astype(np.int16) - want).max())
+        worst = min(psnr_u8(g, w) for g, w in zip(got, want))
+        results.append((len(batch), bucket, levels, worst, counts))
+        print(f"17a infer_batch of {len(batch)} on the {mesh.size}-replica mesh: bucket {bucket}, "
+              f"{rows} rows per replica, equal bit for bit to one engine's forwards of {rows} "
+              f"rows {exact}; against one engine's one forward of {bucket}: max "
+              f"{levels} levels, min PSNR {worst:.2f} dB (bf16 convs at another batch); "
+              f"launches {counts} ({mesh.size} replica forwards)", flush=True)
+        if got.shape != batch.shape or not exact or worst < HTTP_PSNR_GATE_DB:
+            raise AssertionError(f"17a the mesh's answers: bit for bit {exact}, {worst:.2f} dB")
+    if any(b % mesh.size for b in buckets):
+        raise AssertionError(f"17a buckets {buckets} not multiples of {mesh.size}")
+
+    # img/s at bucket 64, in turns (the first round warms): infer_batch (one
+    # synchronous call at a time) and submit (the collector feeding every
+    # replica, up to 4 batches in flight)
+    big = make_frames(MESH_RATE_BUCKET, MESH_SIZE, seed=172)
+    rates = {name: [] for name in engines}
+    stream = {name: [] for name in engines}
+    for r in range(MESH_RATE_ROUNDS):
+        for name, e in engines.items():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(MESH_RATE_CALLS):
+                e.infer_batch(big)
+            if r:
+                rates[name].append(MESH_RATE_CALLS * MESH_RATE_BUCKET / (time.perf_counter() - t))
+            t = time.perf_counter()
+            futs = [e.submit(big[i % MESH_RATE_BUCKET]) for i in range(MESH_SUBMIT_FRAMES)]
+            for f in futs:
+                f.result(timeout=300)
+            if r:
+                stream[name].append(MESH_SUBMIT_FRAMES / (time.perf_counter() - t))
+    for e in engines.values():
+        e.stop()
+    print(f"17a img/s at bucket {MESH_RATE_BUCKET} on {card}, in turns, median of "
+          f"{MESH_RATE_ROUNDS - 1} rounds: infer_batch ({MESH_RATE_CALLS} calls) "
+          + ", ".join(f"{k} {np.median(v):.1f}" for k, v in rates.items())
+          + f"; submit ({MESH_SUBMIT_FRAMES} frames, one collector thread) "
+          + ", ".join(f"{k} {np.median(v):.1f}" for k, v in stream.items())
+          + (" (two replicas on one card: the cost of the split, not scaling)"
+             if mesh.devices[0] == mesh.devices[-1] else ""), flush=True)
+    return {"17a engine over the mesh": {k: sum(c[4][k] for c in results)
+                                         for k in results[0][4]}}, solo
+
+
+def mesh_server(card: str, mesh, solo) -> dict:
+    """17b: ``create_server(mode="both", mesh=)``: 8 connections post 512^2
+    pages, then one 1200x900 tile request; answers >= 45 dB of the single
+    engine and a single tiler (phase 8's gate: bf16 convs at other batch
+    sizes round apart), the buckets multiples of the mesh size, K1/K3 14/4
+    per replica forward. Returns the launches."""
+    import tempfile
+
+    from image_enhancement_deglaring_tpu_torch.serve.http_server import create_server
+    from image_enhancement_deglaring_tpu_torch.serve.tiling import TiledInference
+
+    server = create_server(ONNX, host="127.0.0.1", port=_free_port(), mode="both",
+                           max_batch_size=8, compute_dtype=torch.bfloat16, image_size=MESH_SIZE,
+                           log_dir=tempfile.mkdtemp(prefix="chip_smoke_mesh_api_"), mesh=mesh)
+    thread = _start(server)
+    try:
+        buckets = _record_buckets(server.engine)
+        pages = make_frames(MESH_HTTP_PAGES, MESH_SIZE, seed=173)
+        bodies = [("/infer", *_png_upload(p)) for p in pages]
+        b0 = server.engine.stats()["batches_dispatched"]
+        _reset_launches()
+        answers, lat, wall = _post_all(server.port, bodies, HTTP_CONNECTIONS)
+        counts = _launches()
+        batches = server.engine.stats()["batches_dispatched"] - b0
+        _per_forward(counts, mesh.size * batches, "17b resize traffic")
+        pairs = [(_answer_pixels(a), w) for a, w in zip(answers, solo.infer_batch(pages))]
+        levels = max(int(np.abs(g.astype(np.int16) - w).max()) for g, w in pairs)
+        worst = _gate("17b resize answers against one engine", pairs)
+        tile_img = make_frames(1, MESH_TILE_SIZE[0], seed=174, w=MESH_TILE_SIZE[1])[0]
+        _reset_launches()
+        (tile_answer,), _, _ = _post_all(server.port, [("/infer?mode=tile",
+                                                         *_png_upload(tile_img))], 1)
+        tile_counts = _launches()
+        tiler = server.tiler
+        chunks = -(-tiler.num_tiles(*MESH_TILE_SIZE) // tiler.max_tiles_per_batch)
+        _per_forward(tile_counts, mesh.size * chunks, "17b tile request")
+        one_tiler = TiledInference(solo._model, tile=MESH_SIZE, compute_dtype=torch.bfloat16,
+                                   device="cuda")
+        tile_pair = (_answer_pixels(tile_answer), one_tiler(tile_img))
+        tile_levels = int(np.abs(tile_pair[0].astype(np.int16) - tile_pair[1]).max())
+        tile_worst = _gate("17b tile answer against one tiler", [tile_pair])
+        stats = _get_json(server.port, "/stats")[1]
+    finally:
+        _stop(server, thread)
+    p50, p95, p99 = _percentiles_ms(lat)
+    print(f"17b create_server(mode='both', mesh of {mesh.size}) on {card}: {len(bodies)} /infer "
+          f"over {HTTP_CONNECTIONS} connections, {len(bodies) / wall:.1f} req/s, p50/p95/p99 "
+          f"{p50:.2f} / {p95:.2f} / {p99:.2f} ms, {batches} batches, buckets "
+          f"{sorted(set(buckets))}, against one engine max {levels} levels, min PSNR "
+          f"{worst:.2f} dB; one {MESH_TILE_SIZE[1]}x{MESH_TILE_SIZE[0]} tile request "
+          f"({tiler.num_tiles(*MESH_TILE_SIZE)} tiles, buckets {sorted(tiler._buckets_seen)}): "
+          f"{tile_levels} levels, {tile_worst:.2f} dB from one tiler; "
+          f"/stats requests_served {stats['requests_served']}, mean_batch_fill "
+          f"{stats['mean_batch_fill']}; launches {counts} + {tile_counts}", flush=True)
+    if any(b % mesh.size for b in buckets) or any(b % mesh.size for b in tiler._buckets_seen):
+        raise AssertionError(f"17b buckets {buckets} / {tiler._buckets_seen} not multiples of "
+                             f"{mesh.size}")
+    return {"17b server over the mesh": {k: counts[k] + tile_counts[k] for k in counts}}
+
+
+def mesh_clis(card: str, work: str) -> None:
+    """17c: ``cli.enhance --data_parallel 2`` and ``cli.serve --data_parallel
+    2`` resolve as the JAX CLIs do: on one card the clamp message, then
+    one device (the enhanced files equal the plain run's bit for bit)."""
+    from image_enhancement_deglaring_tpu_torch.cli import enhance as cli_enhance
+    from image_enhancement_deglaring_tpu_torch.cli import serve as cli_serve
+    from image_enhancement_deglaring_tpu_torch.data.png import decode_png, write_png
+
+    n = torch.cuda.device_count()
+    want = ("requested --data_parallel 2, but only 1 device(s) available; using 1"
+            if n == 1 else "data-parallel over 2 chips")
+    inp = os.path.join(work, "pages")
+    os.makedirs(inp)
+    for i, page in enumerate(make_frames(3, MESH_SIZE, seed=175)):
+        write_png(os.path.join(inp, f"page_{i}.png"), page)
+    outs = {}
+    for name, extra in (("plain", []), ("dp", ["--data_parallel", "2"])):
+        tee = _Tee()
+        with contextlib.redirect_stdout(tee):
+            cli_enhance.main(["--input", inp, "--output_dir", os.path.join(work, name),
+                              "--model_path", ONNX, "--batch_size", "3", *extra])
+        outs[name] = tee.text
+    same = all(np.array_equal(decode_png(open(os.path.join(work, "plain", f), "rb").read()),
+                              decode_png(open(os.path.join(work, "dp", f), "rb").read()))
+               for f in os.listdir(os.path.join(work, "plain")))
+    print(f"17c cli.enhance --data_parallel 2 on {n} card(s): '{want}' printed "
+          f"{want in outs['dp']}; 3 pages equal to the run without it {same}", flush=True)
+    if want not in outs["dp"] or (n == 1 and not same):
+        raise AssertionError(f"17c cli.enhance: {outs['dp'][-2000:]}")
+
+    import image_enhancement_deglaring_tpu_torch.serve as serve_pkg
+
+    servers, real = [], serve_pkg.create_server
+
+    def capture(*a, **k):
+        servers.append(real(*a, **k))
+        return servers[-1]
+
+    port, tee = _free_port(), _Tee()
+    with mock.patch.object(serve_pkg, "create_server", capture), contextlib.redirect_stdout(tee):
+        thread = threading.Thread(target=cli_serve.main, args=([
+            "--model_path", ONNX, "--host", "127.0.0.1", "--port", str(port), "--data_parallel",
+            "2", "--log_dir", os.path.join(work, "serve_logs")],), daemon=True)
+        thread.start()
+        deadline = time.time() + 180
+        while not servers or _ping(port) is not True:
+            if time.time() > deadline or not thread.is_alive():
+                raise AssertionError(f"17c cli.serve --data_parallel 2 never answered: {tee.text}")
+            time.sleep(0.1)
+        (answer,), _, _ = _post_all(port, [("/infer", *_png_upload(
+            make_frames(1, MESH_SIZE, seed=176)[0]))], 1)
+        server = servers[0]
+        loop = server._server.get_loop()
+        loop.call_soon_threadsafe(server._server.close)
+        thread.join(timeout=60)
+    mesh = server.engine.mesh
+    print(f"17c cli.serve --data_parallel 2 on {n} card(s): '{want}' printed {want in tee.text}, "
+          f"engine mesh {None if mesh is None else mesh.size}, /infer answered {answer[0]}",
+          flush=True)
+    if want not in tee.text or answer[0] != 200 or (mesh is None) != (n == 1):
+        raise AssertionError(f"17c cli.serve: {tee.text[-2000:]}")
+
+
+def _png_upload(img: np.ndarray) -> tuple:
+    """(body, headers) of a multipart /infer upload of ``img`` as a PNG."""
+    from image_enhancement_deglaring_tpu_torch.data.png import encode_png
+    from image_enhancement_deglaring_tpu_torch.tools.load_test_api import multipart_body
+
+    return multipart_body(encode_png(img))
+
+
+class _MeshTrig:
+    """A preemption guard that reads as triggered from its n+1-th read on
+    (every rank reads it at the same points)."""
+
+    def __init__(self, n):
+        self.n, self.c = n, 0
+
+    @property
+    def triggered(self):
+        self.c += 1
+        return self.c > self.n
+
+
+def _mesh_sweep_model():
+    from image_enhancement_deglaring_tpu_torch.models import LightweightUNet
+
+    return LightweightUNet(dtype=torch.float32, generator=torch.Generator().manual_seed(17))
+
+
+def _mesh_sweep_loaders(bs):
+    x, y = triptych_batch(MESH_SWEEP_TRAIN + MESH_SWEEP_VAL, MESH_SWEEP_SIZE, seed=177)
+    n = MESH_SWEEP_TRAIN
+    return _DPLoader(x[:n], y[:n], bs), _DPLoader(x[n:], y[n:], bs)
+
+
+def _mesh_sweep(out_dir: str, mesh=None, **kw) -> dict:
+    from image_enhancement_deglaring_tpu_torch.parallel import SearchSpace, run_sweep
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        return run_sweep(_mesh_sweep_model, _mesh_sweep_loaders, mesh=mesh, output_dir=out_dir,
+                         space=SearchSpace(batch_sizes=(8,)), device="cuda", **kw)
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def _mesh_sweep_rank(work: str) -> None:
+    """One rank of 17d (``launch_local`` over Gloo on the one card): the
+    sweep, and a preempted sweep resumed from rank 0's journal, per-rank
+    directories; what it saw as JSON."""
+    from image_enhancement_deglaring_tpu_torch.parallel import distributed
+
+    mesh = distributed.global_mesh(device="cuda")
+    r = mesh.rank
+    t = time.perf_counter()
+    res = _mesh_sweep(os.path.join(work, f"sweep_r{r}"), mesh, **MESH_SWEEP)
+    secs = time.perf_counter() - t
+    full = _mesh_sweep(os.path.join(work, f"full_r{r}"), mesh, **MESH_RESUME)
+    pre_dir = os.path.join(work, f"pre_r{r}")
+    pre = _mesh_sweep(pre_dir, mesh, preempt_guard=_MeshTrig(3), **MESH_RESUME)
+    journal = os.path.exists(os.path.join(pre_dir, "sweep_journal.jsonl"))
+    resumed = _mesh_sweep(pre_dir, mesh, resume=True, **MESH_RESUME)
+    files = {f: os.path.exists(os.path.join(work, f"sweep_r{r}", f))
+             for f in ("sweep_results.json", "sweep_journal.jsonl", "best_trial_params.npz")}
+    out = {"device": str(mesh.device), "backend": mesh.backend, "seconds": secs,
+           "result": res, "files": files, "preempted": pre["preempted"],
+           "pre_trials": len(pre["trials"]), "journal_local": journal,
+           "resumed_equal": resumed["trials"] == full["trials"] and resumed["best"] == full["best"],
+           "resumed_results": os.path.exists(os.path.join(pre_dir, "sweep_results.json"))}
+    with open(os.path.join(work, f"rank{r}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def mesh_sweeps(card: str, work: str) -> None:
+    """17d: ``run_sweep(mesh=)`` over two Gloo ranks on the card against one
+    process: the best trial, per-trial best val losses within rtol 1e-5,
+    rank 0 alone writes, and a sweep preempted then resumed from rank 0's
+    journal equals the uninterrupted one."""
+    from image_enhancement_deglaring_tpu_torch.parallel import distributed
+
+    t = time.perf_counter()
+    distributed.launch_local(_mesh_sweep_rank, 2, work, device="cuda", backend="gloo")
+    t_ranks = time.perf_counter() - t
+    r0, r1 = (json.load(open(os.path.join(work, f"rank{r}.json"))) for r in (0, 1))
+    t = time.perf_counter()
+    one = _mesh_sweep(os.path.join(work, "one"), None, **MESH_SWEEP)
+    t_one = time.perf_counter() - t
+    got = [x["best_val_loss"] for x in r0["result"]["trials"]]
+    want = [x["best_val_loss"] for x in one["trials"]]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    print(f"17d run_sweep over two ranks on {r0['device']} and {r1['device']} ({r0['backend']}), "
+          f"production LightweightUNet f32 {MESH_SWEEP_SIZE}^2, {MESH_SWEEP['n_trials']} trials x "
+          f"{MESH_SWEEP['max_epochs']} epochs, halving forced to mask: {r0['seconds']:.1f} s "
+          f"(both phases {t_ranks:.1f} s with the ranks' start) vs one process {t_one:.1f} s on "
+          f"{card}; best trial {r0['result']['best']['trial_id']} vs "
+          f"{one['best']['trial_id']}; per-trial best val rel diff max {rel:.2e} (gate "
+          f"{MESH_SWEEP_RTOL}); ranks agree {r0['result'] == r1['result']}; files rank 0 "
+          f"{r0['files']}, rank 1 {r1['files']}", flush=True)
+    print(f"17d preempted after {r0['pre_trials']} journaled group(s), journal on rank 0 only "
+          f"{r0['journal_local'] and not r1['journal_local']}; resumed equals uninterrupted "
+          f"{r0['resumed_equal']} / {r1['resumed_equal']}; results file on rank 0 only "
+          f"{r0['resumed_results'] and not r1['resumed_results']}", flush=True)
+    if (r0["result"] != r1["result"] or r0["result"]["best"]["trial_id"] != one["best"]["trial_id"]
+            or rel > MESH_SWEEP_RTOL):
+        raise AssertionError("17d two ranks against one process")
+    if not all(r0["files"].values()) or any(r1["files"].values()):
+        raise AssertionError(f"17d files: rank 0 {r0['files']}, rank 1 {r1['files']}")
+    if not (r0["preempted"] and r1["preempted"] and r0["journal_local"]
+            and not r1["journal_local"] and r0["resumed_equal"] and r1["resumed_equal"]
+            and r0["resumed_results"] and not r1["resumed_results"]):
+        raise AssertionError(f"17d preempt and resume: {r0} / {r1}")
+
+
+def mesh_sweep_cli(card: str, work: str) -> None:
+    """17e: ``cli.sweep --distributed`` as an NCCL group of one against the
+    same sweep without it, each in a process of its own as a user runs
+    it: the results and the best trial's weights equal bit for bit."""
+    from image_enhancement_deglaring_tpu_torch.parallel import distributed
+
+    data = os.path.join(work, "data")
+    write_triptychs(data, 24, 128, seed=178)
+    outs = {}
+    for name, extra in (("plain", []), ("distributed", [
+            "--distributed", "--num_processes", "1", "--process_id", "0",
+            "--coordinator_address", f"127.0.0.1:{distributed.free_port()}"])):
+        out = os.path.join(work, name)
+        t = time.perf_counter()
+        proc = _sweep_cli(["--data_dir", data, "--output_dir", out, *MESH_CLI_FLAGS, *extra],
+                          os.path.join(work, f"{name}.log"))
+        rc = proc.wait(timeout=600)
+        text = open(os.path.join(work, f"{name}.log")).read()
+        if rc != 0:
+            raise AssertionError(f"17e cli.sweep {name} rc {rc}: {text[-3000:]}")
+        outs[name] = (json.load(open(os.path.join(out, "sweep_results.json"))),
+                      dict(np.load(os.path.join(out, "best_trial_params.npz"))),
+                      time.perf_counter() - t, text)
+    (res_p, w_p, s_p, _), (res_d, w_d, s_d, text_d) = outs["plain"], outs["distributed"]
+    same_w = w_p.keys() == w_d.keys() and all(np.array_equal(w_p[k], w_d[k]) for k in w_p)
+    print(f"17e cli.sweep {' '.join(MESH_CLI_FLAGS)} (bf16) on {card}: without a group "
+          f"{s_p:.1f} s, --distributed (NCCL, one process) {s_d:.1f} s; results equal "
+          f"{res_p == res_d}, best_trial_params.npz equal bit for bit {same_w}; best trial "
+          f"{res_d['best']['trial_id']}", flush=True)
+    if res_p != res_d or not same_w or "Distributed runtime: 1 process(es)" not in text_d:
+        raise AssertionError("17e --distributed changed the sweep")
+
+
+def serving_and_sweeps_over_devices(card: str) -> dict:
+    """Phase 17: (a) the engine over a LocalMesh, (b) the server over it, (c)
+    the CLIs' --data_parallel, (d) run_sweep over two ranks, (e) cli.sweep
+    --distributed. Returns the launches of (a) and (b) by path."""
+    import shutil
+    import tempfile
+
+    from image_enhancement_deglaring_tpu_torch.parallel import LocalMesh
+
+    mesh = LocalMesh(_mesh_devices())
+    work = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+
+    def timed(label, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        print(f"phase {label}: {time.perf_counter() - t:.1f} s", flush=True)
+        return out
+
+    try:
+        paths, solo = timed("17a", mesh_engine, card, mesh)
+        paths.update(timed("17b", mesh_server, card, mesh, solo))
+        timed("17c", mesh_clis, card, os.path.join(work, "clis"))
+        timed("17d", mesh_sweeps, card, os.path.join(work, "sweeps"))
+        timed("17e", mesh_sweep_cli, card, os.path.join(work, "cli_sweep"))
+        return paths
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def soak(card: str, seconds: float) -> None:
+    """Phases 15 and 16 again until ``seconds`` have passed (at least once);
+    their launches count on no path."""
+    t0, passes = time.perf_counter(), 0
+    while not passes or time.perf_counter() - t0 < seconds:
+        passes += 1
+        slice_tools(card)
+        data_parallel(card)
+        names = sorted(t.name for t in threading.enumerate())
+        print(f"soak pass {passes} done at {time.perf_counter() - t0:.1f} s; "
+              f"{len(names)} threads: {names}", flush=True)
+
+
+def main(argv: list | None = None) -> int:
+    parser = argparse.ArgumentParser(description="Smoke test of the PyTorch/CUDA port on one GPU.")
+    parser.add_argument("--soak", type=float, default=0.0, metavar="SECONDS",
+                        help="repeat phases 15 and 16 for SECONDS before phase 17")
+    args = parser.parse_args(argv)
+    # a fatal signal (a native crash) prints every thread's Python stack
+    faulthandler.enable(all_threads=True)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 1
@@ -4930,6 +5412,10 @@ def main() -> int:
     paths.update(phase("15 heavy augmentation, profiler, tools, native decode", slice_tools,
                        card))
     paths.update(phase("16 data parallelism on the card", data_parallel, card))
+    if args.soak > 0:
+        phase("15-16 soak", soak, card, args.soak)
+    paths.update(phase("17 serving and sweeps over several devices",
+                       serving_and_sweeps_over_devices, card))
 
     src = "image_enhancement_deglaring_tpu_torch/csrc/"
     tpu = "image_enhancement_deglaring_tpu/ops/"

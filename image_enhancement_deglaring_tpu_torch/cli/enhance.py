@@ -11,8 +11,10 @@ Images (PNG or JPEG) are read by the port's image path (``serve.imaging``,
 ``data.jpeg``) and written as PNG. ``--visualize`` writes each
 ``<stem>_comparison.png`` beside its output: the input's luma and the
 output side by side as one gray PNG, the panel titles in ``tEXt`` chunks
-(the card's machine has no matplotlib). ``--data_parallel`` raises
-NotImplementedError naming its ROADMAP.md Queue 1 item.
+(the card's machine has no matplotlib). ``--data_parallel [N]`` splits
+the work over N local cards with ``cli.serve``'s resolver: resize mode runs
+the engine over them with ``--batch_size`` rounded up to a multiple of N,
+tile mode the tiler.
 """
 
 from __future__ import annotations
@@ -40,7 +42,8 @@ def parse_args(argv=None):
                         "size, i.e. < --image_size)")
     p.add_argument("--data_parallel", type=int, nargs="?", const=0,
                    default=None, metavar="N",
-                   help="shard work across N local devices (not ported yet)")
+                   help="split work across N local devices (omit N = every "
+                        "local device), as cli.serve --data_parallel")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to run on (cuda, or cpu)")
     return p.parse_args(argv)
@@ -48,9 +51,6 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.data_parallel is not None:
-        raise NotImplementedError(
-            "--data_parallel is not ported yet (ROADMAP.md Queue 1 item 13b)")
     import numpy as np
     import torch
 
@@ -67,17 +67,23 @@ def main(argv=None):
     size_mb = sum(np.asarray(p).nbytes for p in flatten_tree(params).values()) / (1024 * 1024)
     print(f"Model loaded successfully - Size: {size_mb:.2f} MB")
 
-    batch_size = max(1, args.batch_size)
+    from .serve import build_serving_mesh
+
+    mesh, batch_size = build_serving_mesh(args.data_parallel, max(1, args.batch_size),
+                                          args.device)
+    if mesh is not None:
+        print(f"batch inference data-parallel over {mesh.size} chips (batch {batch_size})")
+    device = args.device if mesh is None else None
     if args.mode == "tile":
         tiler = TiledInference(model, tile=args.image_size, overlap=args.tile_overlap,
-                               compute_dtype=torch.float32, device=args.device)
+                               compute_dtype=torch.float32, mesh=mesh, device=device)
         if args.batch_size > 1:
             print("Note: tile mode batches each image's tiles internally; "
                   "--batch_size is ignored")
     else:
         engine = InferenceEngine(model, image_size=args.image_size,
                                  max_batch_size=batch_size, compute_dtype=torch.float32,
-                                 warmup=False, device=args.device)
+                                 warmup=False, mesh=mesh, device=device)
 
     if os.path.isfile(args.input):
         files = [args.input]

@@ -1,16 +1,18 @@
-"""Serving CLI: the HTTP API backed by the batched engine on one GPU
+"""Serving CLI: the HTTP API backed by the batched engine on the GPU
 (replaces `uvicorn api.app:app`, reference: api/app.py:221-222).
 
     python -m image_enhancement_deglaring_tpu_torch.cli.serve \
         [--model_path deploy/models/best_model.onnx] [--port 4000] \
-        [--mode resize|tile|both] [--device cuda]
+        [--mode resize|tile|both] [--data_parallel [N]] [--device cuda]
 
 The same flags and defaults as the JAX CLI, plus ``--device`` (default
 ``cuda``; without a card that raises unless ``--device cpu`` is given).
+``--data_parallel [N]`` serves over N local cards (every card without N;
+clamped to the cards there are) from this one process: one model replica
+per card, each batch split over them (``parallel.mesh.LocalMesh``).
 ``--workers N`` runs N HTTP worker processes (``serve.ipc``) in front of
-the engine that this process owns. Usage errors, and flags whose parts of
-the port do not exist yet (NotImplementedError naming their ROADMAP.md
-Queue 1 item), fail before the model loads.
+the engine that this process owns. Usage errors fail before the model
+loads.
 """
 
 from __future__ import annotations
@@ -54,8 +56,9 @@ def parse_args(argv=None):
                         "from a same-family checkpoint on this filesystem")
     p.add_argument("--data_parallel", type=int, nargs="?", const=0,
                    default=None, metavar="N",
-                   help="shard request batches across N local devices "
-                        "(not ported yet)")
+                   help="split request batches across N local devices (omit "
+                        "N = every local device): one model replica per device, "
+                        "batch buckets snap to multiples of N. Default: one device")
     p.add_argument("--log_dir", type=str, default=None)
     p.add_argument("--profile_port", type=int, default=0,
                    help="profiler capture port (0 = off): GET "
@@ -65,14 +68,34 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def _refuse_unported(args) -> None:
-    """Flags whose parts of the port do not exist yet, with their queue item."""
-    todo = [
-        (args.data_parallel is not None, "--data_parallel", "13b"),
-    ]
-    for bad, flag, item in todo:
-        if bad:
-            raise NotImplementedError(f"{flag} is not ported yet (ROADMAP.md Queue 1 item {item})")
+def build_serving_mesh(data_parallel: int | None, max_batch_size: int, device="cuda"):
+    """Resolve --data_parallel into (mesh, max_batch_size), as the JAX CLI.
+
+    ``None`` = off; ``0`` = every local device; ``N`` = N devices (clamped
+    to what exists, loudly). A resolved 1 serves on one device without a
+    mesh. ``max_batch_size`` rounds UP to a mesh multiple (the engine
+    requires divisibility)."""
+    if data_parallel is None:
+        return None, max_batch_size
+    import torch
+
+    from ..parallel.distributed import local_device_count
+    from ..parallel.mesh import make_local_mesh
+
+    avail = local_device_count(device, data_parallel)
+    n = data_parallel or avail
+    if n > avail:
+        print(f"requested --data_parallel {n}, but only {avail} "
+              f"device(s) available; using {avail}")
+        n = avail
+    if n <= 1:
+        print("--data_parallel resolved to 1 device; serving single-chip")
+        return None, max_batch_size
+    snapped = -(-max_batch_size // n) * n
+    if snapped != max_batch_size:
+        print(f"--max_batch_size {max_batch_size} rounded up to {snapped} "
+              f"(must be a multiple of the {n}-chip serving mesh)")
+    return make_local_mesh(n, device=torch.device(device).type), snapped
 
 
 def main(argv=None):
@@ -86,7 +109,6 @@ def main(argv=None):
             # worker processes proxy frames only; /reload would 404 on them
             raise SystemExit("--allow_reload requires --workers 1 "
                              "(the engine process owns the weights)")
-    _refuse_unported(args)
     import torch
 
     from ..serve import create_server
@@ -102,13 +124,18 @@ def main(argv=None):
               f"(a *.pt.trace.json for TensorBoard / chrome://tracing)", flush=True)
 
     dtype = torch.bfloat16 if args.compute_dtype == "bfloat16" else torch.float32
+    mesh, max_batch = build_serving_mesh(args.data_parallel, args.max_batch_size, args.device)
+    if mesh is not None:
+        print(f"serving data-parallel over {mesh.size} chips "
+              f"(batch buckets snap to multiples of {mesh.size})")
     server = create_server(
         args.model_path, host=args.host, port=args.port, mode=args.mode,
-        model_arch=args.model, max_batch_size=args.max_batch_size,
+        model_arch=args.model, max_batch_size=max_batch,
         batch_timeout_ms=args.batch_timeout_ms, compute_dtype=dtype,
         tile_overlap=args.tile_overlap, log_dir=args.log_dir,
         image_size=args.image_size, quantize=args.quantize,
-        allow_reload=args.allow_reload, device=args.device,
+        allow_reload=args.allow_reload, mesh=mesh,
+        device=args.device if mesh is None else None,
     )
     if args.workers > 1:
         import signal

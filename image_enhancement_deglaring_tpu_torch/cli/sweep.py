@@ -15,14 +15,19 @@ reaches the same val losses and the resumed sweep equals an uninterrupted
 one. ``--parallel_trials`` caps the trials that
 train at once in one group: their stacked state and activations share the
 card's memory (about 0.3 GiB per trial-image of batch at 512^2 in bf16).
-Several devices (``--n_devices > 1``, ``--distributed`` and its
-coordinator flags) raise naming ROADMAP Queue 1 item 13b.
+Several devices split each group's trial axis over one process per device
+(``parallel.sweep``): ``--n_devices N`` starts N ranks on this machine
+from this command (0, the default, takes every local card; a request for
+more than there are is clamped; on the CPU N Gloo processes), and
+``--distributed --coordinator_address H:P --num_processes N --process_id
+I`` runs once per process (or under torchrun). Rank 0 writes the files.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import sys
 
 
 def parse_args(argv=None):
@@ -70,8 +75,13 @@ def parse_args(argv=None):
                         "whole sweep and run every epoch from there; the optimized "
                         "augmentation stack runs on the device")
     p.add_argument("--n_devices", type=int, default=0,
-                   help="trial-parallel devices (0 = all local; the port sweeps on one)")
-    p.add_argument("--distributed", action="store_true")
+                   help="trial-parallel devices (0 = all local): one process per device, "
+                        "each group's trial axis split over them")
+    p.add_argument("--distributed", action="store_true",
+                   help="join a process group (torch.distributed) and split each group's "
+                        "trial axis over every rank of it; launch the same command once "
+                        "per process. Every rank loads the same data; rank 0 writes the "
+                        "results and artifacts")
     p.add_argument("--coordinator_address", type=str, default=None)
     p.add_argument("--num_processes", type=int, default=None)
     p.add_argument("--process_id", type=int, default=None)
@@ -113,23 +123,67 @@ def main(argv=None):
         # the journal lives in the sweep's output dir; resuming INTO a
         # different dir would split it from the artifacts it indexes
         args.output_dir = args.resume
-    todo = [(args.distributed or any(a is not None for a in (
-                args.coordinator_address, args.num_processes, args.process_id)),
-             "--distributed (and its coordinator flags)"),
-            (args.n_devices > 1, f"--n_devices {args.n_devices}")]
-    for bad, flag in todo:
-        if bad:
-            raise SystemExit(f"{flag} is not ported yet (ROADMAP Queue 1 item 13b)")
+    from ..parallel import distributed
+
+    if args.distributed:
+        if args.method == "wandb":
+            raise SystemExit("--method wandb runs trials sequentially from server proposals; "
+                             "it does not compose with --distributed (use --method tpe for "
+                             "multi-host lock-step sweeps)")
+        distributed.initialize(coordinator_address=args.coordinator_address,
+                               num_processes=args.num_processes, process_id=args.process_id,
+                               device=args.device)
+    elif any(a is not None for a in (args.coordinator_address, args.num_processes,
+                                     args.process_id)):
+        # explicit coordinator flags without --distributed would run N
+        # INDEPENDENT sweeps writing one shared output_dir
+        raise SystemExit("--coordinator_address/--num_processes/--process_id require "
+                         "--distributed (refusing to fall back to an independent "
+                         "single-host sweep)")
+    if args.distributed:
+        try:
+            world = distributed.process_count()
+            print(f"Distributed runtime: {world} process(es), {world} global device(s)")
+            if world == 1:
+                print("WARNING: --distributed resolved to a SINGLE process. If this is one "
+                      "host of a pod, pass --coordinator_address/--num_processes/--process_id "
+                      "explicitly.", file=sys.stderr)
+            if world > 1 and args.n_devices:
+                raise SystemExit("--distributed spans the global mesh; --n_devices applies "
+                                 "to single-host runs only")
+            _sweep(args)
+        finally:
+            distributed.shutdown()
+        return
+    # clamp like cli.train: a silently smaller mesh would leave the
+    # operator believing more trial parallelism is active than is
+    available = distributed.local_device_count(args.device, args.n_devices)
+    n_dev = min(args.n_devices or available, available)
+    if args.n_devices and args.n_devices > available:
+        print(f"requested --n_devices {args.n_devices}, but only {available} available; "
+              f"using {n_dev}")
+    if n_dev > 1:
+        distributed.launch_local(_sweep, n_dev, args, device=args.device)
+    else:
+        _sweep(args)
+
+
+def _sweep(args) -> None:
+    """The sweep of one process: alone, or one rank of a process group."""
     import torch
 
     from .._device import resolve_device
     from ..data import make_dataloaders
+    from ..parallel import distributed
     from ..data.pipeline import list_image_paths, seeded_split
     from ..models import EnhancedUNet, LightweightUNet, OptimizedUNet
     from ..parallel.sweep import SearchSpace, run_sweep
     from ..utils import ExperimentLogger, set_seed
 
-    device = resolve_device(args.device)
+    mesh = (distributed.global_mesh(device=args.device)
+            if distributed.process_count() > 1 or args.distributed else None)
+    device = mesh.device if mesh is not None else resolve_device(args.device)
+    is_host0 = mesh is None or mesh.rank == 0
     if device.type == "cuda":
         # a group re-run after a preemption must reach the journaled run's
         # val losses: cuDNN's default weight-gradient algorithms may sum in
@@ -158,8 +212,9 @@ def main(argv=None):
                 augment="none" if args.resident_data else "optimized")
         return loaders_cache[batch_size]
 
+    # rank 0 owns the telemetry (every rank computes the same results)
     wandb_mirror = None
-    if args.use_wandb:
+    if args.use_wandb and is_host0:
         try:
             from ..parallel.sweep import WandbSweepMirror
 
@@ -168,7 +223,8 @@ def main(argv=None):
         except Exception as e:  # wandb missing/unconfigured: JSONL only
             print(f"wandb unavailable ({e}); sweep telemetry stays local")
 
-    logger = ExperimentLogger(f"{args.output_dir}/sweep_logs", config=vars(args))
+    logger = (ExperimentLogger(f"{args.output_dir}/sweep_logs", config=vars(args))
+              if is_host0 else None)
 
     # restrict sampled batch sizes to those the train split can fill: a
     # sampled bs > split size would train ZERO steps per epoch (drop_last)
@@ -179,8 +235,9 @@ def main(argv=None):
         raise SystemExit(f"train split has only {n_train} images — below the smallest "
                          f"sweep batch size {min(space.batch_sizes)}")
     if usable != space.batch_sizes:
-        print(f"Note: train split has {n_train} images; restricting sweep batch sizes "
-              f"to {usable}")
+        if is_host0:
+            print(f"Note: train split has {n_train} images; restricting sweep batch sizes "
+                  f"to {usable}")
         space = SearchSpace(batch_sizes=usable)
 
     dtype = torch.bfloat16 if args.compute_dtype == "bfloat16" else torch.float32
@@ -206,13 +263,15 @@ def main(argv=None):
                 seed=args.seed, output_dir=args.output_dir, space=space, logger=logger,
                 project=args.wandb_project, entity=args.wandb_entity,
                 early_stop_patience=args.early_stop_patience, prefetch=args.prefetch_factor,
-                sweep_id=args.wandb_sweep_id, device=device)
+                sweep_id=args.wandb_sweep_id, mesh=mesh, device=device)
         except Exception as e:
             raise SystemExit(
                 f"--method wandb needs a reachable, authenticated W&B server "
                 f"({type(e).__name__}: {e}). Air-gapped or offline, use --method tpe — "
                 f"same Bayesian family, local proposals, trials in lock-step groups.")
         best = result["best"]
+        if not is_host0:
+            return
         print(f"Sweep {result['sweep_id']} completed (server-driven). "
               + ("No trial reached a finite validation loss" if best is None else
                  f"Best trial: id={best['trial_id']} batch_size={best['batch_size']} "
@@ -244,7 +303,9 @@ def main(argv=None):
             resident=args.resident_data, augment_fn=augment_fn, halving=args.halving,
             early_stop_patience=args.early_stop_patience, prefetch=args.prefetch_factor,
             preempt_guard=guard, resume=args.resume is not None, fingerprint=fingerprint,
-            device=device)
+            mesh=mesh, device=device)
+    if not is_host0:
+        return
     if result.get("preempted"):
         # exit 0: a drained preemption is a clean stop, not a failure
         print(f"Sweep preempted: {len(result['trials'])} finished trial(s) journaled in "

@@ -93,16 +93,6 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def _local_devices(args) -> int:
-    """The devices ``--n_devices`` may take here: the cards, or on the CPU
-    as many processes as asked for."""
-    import torch
-
-    if torch.device(args.device).type == "cuda":
-        return torch.cuda.device_count()
-    return max(args.n_devices, 1)
-
-
 def main(argv=None):
     args = parse_args(argv)
     if args.use_amp and args.compute_dtype == "float32":
@@ -154,7 +144,7 @@ def main(argv=None):
         return
     # clamp the request to the devices there are before checking the batch
     # against it
-    available = _local_devices(args)
+    available = distributed.local_device_count(args.device, args.n_devices)
     n_dev = min(args.n_devices or available, available)
     if args.n_devices and args.n_devices > available:
         print(f"requested --n_devices {args.n_devices}, but only {available} available; "

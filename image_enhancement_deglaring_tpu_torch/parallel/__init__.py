@@ -1,15 +1,16 @@
-"""Data parallelism and hyperparameter sweeps.
+"""Data parallelism, the serving mesh and hyperparameter sweeps.
 
 - ``parallel.mesh``: the 1-D data mesh over the ranks of a
   ``torch.distributed`` group (one process per device) and its
-  collectives;
+  collectives, and the serving mesh (``LocalMesh``: the local cards of
+  one process, one model replica each);
 - ``parallel.distributed``: joining the group (``initialize``), the
   per-rank loader slice, and ``launch_local`` for N ranks from one command;
-- ``parallel.sweep``: hyperparameter sweeps on one card (the trial axis
-  over several cards is ROADMAP Queue 1 item 13b).
+- ``parallel.sweep``: hyperparameter sweeps, the trial axis of a group
+  split over the ranks of a data mesh.
 """
 
-from .mesh import batch_sharding, make_mesh, replicate, replicated_sharding, shard_batch
+from .mesh import LocalMesh, batch_sharding, make_local_mesh, make_mesh, replicate
 from .sweep import (
     SearchSpace,
     Trial,
@@ -25,11 +26,11 @@ from .sweep import (
 )
 
 __all__ = [
+    "LocalMesh",
+    "make_local_mesh",
     "make_mesh",
     "replicate",
-    "shard_batch",
     "batch_sharding",
-    "replicated_sharding",
     "SearchSpace",
     "Trial",
     "VmappedTrialGroup",

@@ -99,6 +99,15 @@ def global_mesh(*, device=None):
     return make_mesh(device=device)
 
 
+def local_device_count(device, requested: int) -> int:
+    """The devices a command may take on this machine (``--n_devices``,
+    ``--data_parallel``): the cards, or on the CPU as many processes or
+    replicas as ``requested``."""
+    if torch.device(device).type == "cuda":
+        return torch.cuda.device_count()
+    return max(requested, 1)
+
+
 def process_batch_slice(global_batch: int) -> tuple[int, int]:
     """[start, end) of this rank's slice of a global batch."""
     n_proc = process_count()

@@ -24,6 +24,15 @@ device (Gloo reduces CUDA tensors through the host itself).
 
 A ``mesh=None`` call anywhere in the port is one process on one device,
 exactly as before.
+
+Serving takes another mesh, :class:`LocalMesh`: the devices of this one
+process, one model replica on each, no process group and no collective.
+JAX's serving mesh spans the local chips of one process too (``cli.serve
+--data_parallel`` clamps to the local device count). PyTorch launches are
+asynchronous, so the engine's one collector thread feeds every card; ranks
+splitting each request batch would need follower ranks in lock step and
+collectives issued from the engine's and the tiler's threads at once,
+which NCCL does not order.
 """
 
 from __future__ import annotations
@@ -57,11 +66,10 @@ class DataMesh:
 
 
 class Sharding(NamedTuple):
-    """JAX's name for how an array lies on a mesh: its leading (batch) axis
-    split over the ranks, or every rank holding all of it."""
+    """JAX's name for how an array lies on a mesh: here, its leading (batch)
+    axis split over the ranks."""
 
     mesh: DataMesh
-    replicated: bool = False
 
 
 def local_device(rank: int, device=None) -> torch.device:
@@ -110,13 +118,62 @@ def run_device(device, mesh: DataMesh | None) -> torch.device:
     return resolve_device(mesh.device)
 
 
+@dataclass(frozen=True)
+class LocalMesh:
+    """Devices of this process that serving splits each batch over, in
+    order: slice ``i`` of a batch runs on ``devices[i]``. A device may
+    repeat (two replicas on one card: the split's cost, without the
+    scaling). Not a process group: nothing here is a collective, unlike
+    :class:`DataMesh` (see the module docstring for why)."""
+
+    devices: tuple
+
+    def __post_init__(self):
+        devs = tuple(torch.device(d) for d in self.devices)
+        if not devs or len({d.type for d in devs}) != 1:
+            raise ValueError(f"LocalMesh needs one or more devices of one type, got {devs}")
+        object.__setattr__(self, "devices", devs)
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+
+def make_local_mesh(n: int, *, device="cuda") -> LocalMesh:
+    """``cuda:0 ... cuda:n-1`` (raises when ``n`` exceeds the card count),
+    or with ``device="cpu"`` ``n`` replicas on the CPU."""
+    dev = torch.device(device)
+    if n < 1:
+        raise ValueError(f"make_local_mesh({n}): need at least one device")
+    if dev.type == "cpu":
+        return LocalMesh((dev,) * n)
+    have = torch.cuda.device_count()
+    if dev.type != "cuda" or n > have:
+        raise ValueError(f"make_local_mesh({n}, device={device!r}): {have} CUDA device(s) here")
+    return LocalMesh(tuple(torch.device("cuda", i) for i in range(n)))
+
+
+def replica_devices(device, mesh: LocalMesh | None) -> tuple[torch.device, ...]:
+    """The devices a serving entry point runs its replicas on: ``device``
+    alone (default CUDA, which raises without a card), or ``mesh``'s, which
+    own the choice: a ``device`` of another type, or naming a device the
+    mesh lacks, raises."""
+    from .._device import resolve_device
+
+    if mesh is None:
+        return (resolve_device("cuda" if device is None else device),)
+    if device is not None:
+        want = torch.device(device)
+        if want.type != mesh.devices[0].type or (want.index is not None
+                                                  and want not in mesh.devices):
+            raise ValueError(f"device={want} disagrees with the mesh's devices {mesh.devices}; "
+                             "the mesh owns the devices: pass one or the other")
+    return tuple(resolve_device(d) for d in mesh.devices)
+
+
 def batch_sharding(mesh: DataMesh) -> Sharding:
     """The leading (batch) axis split over the ranks."""
     return Sharding(mesh)
-
-
-def replicated_sharding(mesh: DataMesh) -> Sharding:
-    return Sharding(mesh, replicated=True)
 
 
 def comm_device(mesh: DataMesh) -> torch.device:
@@ -175,6 +232,28 @@ def all_gather_array(a: np.ndarray, mesh: DataMesh) -> np.ndarray:
     return np.stack([o.cpu().numpy() for o in out])
 
 
+def all_gather_rows(t: torch.Tensor, mesh: DataMesh | None) -> torch.Tensor:
+    """Every rank's ``t`` (same shape and dtype on each) concatenated on the
+    leading axis in rank order, on ``t``'s device, on every rank. One
+    process: ``t``."""
+    if mesh is None or mesh.world == 1:
+        return t
+    src = t.detach().to(comm_device(mesh)).contiguous()
+    out = [torch.empty_like(src) for _ in range(mesh.world)]
+    dist.all_gather(out, src)
+    return torch.cat(out).to(t.device)
+
+
+def broadcast_from(t: torch.Tensor, src: int, mesh: DataMesh) -> torch.Tensor:
+    """Rank ``src``'s ``t`` on every rank, on ``t``'s device; the others pass
+    a tensor of its shape and dtype, which is left as it was."""
+    if mesh.world == 1:
+        return t
+    buf = t.detach().to(comm_device(mesh)).clone().contiguous()
+    dist.broadcast(buf, src=src)
+    return buf.to(t.device)
+
+
 def broadcast_bytes(payload: bytes | None, mesh: DataMesh) -> bytes:
     """Rank 0's ``payload`` on every rank (the others pass None): its
     length first, so every rank sizes the same buffer."""
@@ -223,32 +302,17 @@ def replicate(module_or_tree, mesh: DataMesh):
     return broadcast_arrays([a], [a], mesh)[0]
 
 
-def put_global_batch(batch, sharding: Sharding):
-    """This rank's rows of a global batch, on its device: under a batch
-    sharding ``batch`` already holds them (the loader sliced it, JAX's
-    multi-host input convention); under a replicated one every rank passes
-    the same full batch."""
-    return tuple(torch.as_tensor(np.ascontiguousarray(x)).to(sharding.mesh.device)
-                 for x in batch)
-
-
 def put_from_full(x, sharding: Sharding) -> torch.Tensor:
     """An array every rank holds in full, placed on the mesh: this rank's
-    rows under a batch sharding, all of it under a replicated one."""
+    rows, on its device."""
     mesh = sharding.mesh
     x = torch.as_tensor(np.ascontiguousarray(x))
-    if not sharding.replicated and mesh.world > 1:
+    if mesh.world > 1:
         if x.shape[0] % mesh.world:
             raise ValueError(f"leading axis {x.shape[0]} not divisible by {mesh.world} ranks")
         per = x.shape[0] // mesh.world
         x = x[mesh.rank * per:(mesh.rank + 1) * per]
     return x.to(mesh.device)
-
-
-def shard_batch(batch, mesh: DataMesh):
-    """Place a tuple of NHWC arrays, this rank's rows of each global batch,
-    on the rank's device."""
-    return put_global_batch(batch, batch_sharding(mesh))
 
 
 def fetch_replicated(t, mesh: DataMesh | None = None) -> np.ndarray:
@@ -259,9 +323,3 @@ def fetch_replicated(t, mesh: DataMesh | None = None) -> np.ndarray:
         return a
     g = all_gather_array(a, mesh)
     return g.reshape((-1,) + g.shape[2:])
-
-
-def local_rows(t) -> np.ndarray:
-    """This rank's rows of a batch-sharded array, as numpy: rank 0's rows
-    are the global rows ``[0, per)``."""
-    return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)

@@ -1,4 +1,4 @@
-"""Hyperparameter sweeps on one card.
+"""Hyperparameter sweeps, on one card or with the trial axis over ranks.
 
 Counterpart of ``image_enhancement_deglaring_tpu.parallel.sweep``. The
 reference runs a W&B Bayesian sweep with Hyperband early termination, one
@@ -23,7 +23,15 @@ grad-clip 1.0, image 512, 'basic' model). Here, as in the JAX package:
   patience; a journal of finished groups makes a preempted sweep resume to
   the identical result; W&B mirroring and the server-driven agent mode.
 
-One process on one device: ``mesh`` raises (ROADMAP Queue 1 item 13b).
+With ``mesh=`` (a ``parallel.mesh.DataMesh``: one process per device in a
+process group) a group's trial axis is split over the ranks, as the JAX
+package shards it over its mesh: the physical axis is padded to a multiple
+of the world size (padded slots train a copy of trial 0), rank ``r`` holds
+slots ``[r * k, (r + 1) * k)``, every rank trains its slots on the same
+batches (the data is replicated) and the losses are all-gathered, so every
+rank runs the same seeded proposer, ranking and halving. Rank 0 alone
+writes the journal, the results, the best trial's parameters and the W&B
+mirror.
 """
 
 from __future__ import annotations
@@ -38,7 +46,6 @@ import numpy as np
 import torch
 from torch.func import functional_call, stack_module_state, vmap
 
-from .._device import resolve_device
 from ..data.dataset import DevicePrefetcher
 from ..modelio.params_import import _export_tree
 from ..models.model_utils import get_model_size_mb
@@ -49,6 +56,7 @@ from ..train.lr_control import ReduceLROnPlateau
 from ..train.preempt import preemption_agreed
 from ..train.resident import _make_segment_fn, batch_val_cache, cache_on_device, epoch_batch_plan
 from ..utils.pytree import flatten_tree
+from .mesh import all_gather_rows, broadcast_bytes, broadcast_from, run_device
 
 # AdamW as the trainer's ClippedAdamW (train.loop) builds it
 BETA1, BETA2, EPS = 0.9, 0.999, 1e-8
@@ -157,8 +165,9 @@ def _epoch_seed(seed: int, epoch: int) -> int:
 
 
 class VmappedTrialGroup:
-    """Train N same-batch-size trials in lock step on one device: their
-    state stacked on a trial axis, one trial's forward under ``vmap``.
+    """Train N same-batch-size trials in lock step on one device (or, over
+    a mesh, this rank's share of them): their state stacked on a trial
+    axis, one trial's forward under ``vmap``.
 
     Every trial starts from ``model``'s own parameters and buffers (the
     factory's seeded module: the JAX group starts every trial from
@@ -171,21 +180,35 @@ class VmappedTrialGroup:
     ``lrs``/``wds`` are (K,) float64 tensors on the device: the update
     forms ``1 - lr * wd`` and ``lr / (1 - beta1^t)`` in float64 and applies
     them in float32, as ``torch.optim.AdamW`` does with its Python floats,
-    so a group of one equals the trainer's ``ClippedAdamW`` step."""
+    so a group of one equals the trainer's ``ClippedAdamW`` step.
+
+    ``mesh``: a ``parallel.mesh.DataMesh``; this rank holds K = (the trial
+    count padded to a multiple of its world) / world slots (see the module
+    docstring), the epochs return every live trial's value on every rank,
+    and ``snapshot_of`` is a collective."""
 
     def __init__(self, model, trials: list[Trial], *, clip_grad_norm: float = 1.0,
                  mesh=None, seed: int = 42, plateau_patience: int = 5,
                  plateau_factor: float = 0.5, augment_fn=None, prefetch: int = 2,
-                 device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError("a trial group over several devices (mesh=) is not "
-                                      "ported yet (ROADMAP Queue 1 item 13b)")
+                 device=None):
         self.trials = trials
         self.batch_size = trials[0].batch_size
         if any(t.batch_size != self.batch_size for t in trials):
             raise ValueError("VmappedTrialGroup trials must share one batch size")
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = run_device(device, mesh)
         self.model = model.to(self.device)
+        self._world = mesh.world if mesh is not None else 1
+        self._rank = mesh.rank if mesh is not None else 0
+        # the physical trial axis, padded to a multiple of the world (padded
+        # slots train trial 0's lr/wd and are never read back); this rank's
+        # slots are [_first, _first + _k); live trial i sits in _slots[i]
+        n = len(trials)
+        self._set_layout(-(-n // self._world) * self._world)
+        self._slots = list(range(n))
+        pad = self._n_phys - n
+        self._lrs_full = np.array([t.lr for t in trials] + [trials[0].lr] * pad, np.float64)
+        self._wds_full = np.array([t.wd for t in trials] + [trials[0].wd] * pad, np.float64)
         self.seed = seed
         self.clip = float(clip_grad_norm)
         self.augment_fn = augment_fn
@@ -196,7 +219,7 @@ class VmappedTrialGroup:
         dtype = getattr(model, "dtype", torch.float32)
         self._input_dtype = torch.bfloat16 if dtype == torch.bfloat16 else None
         self._exact = dtype == torch.float32
-        params, buffers = stack_module_state([self.model] * len(trials))
+        params, buffers = stack_module_state([self.model] * self._k)
         self.params = {k: v.detach() for k, v in params.items()}
         # non-trainable state (EnhancedUNet's BatchNorm statistics) travels
         # stacked per trial, as the JAX group's model_state
@@ -206,10 +229,7 @@ class VmappedTrialGroup:
                           "exp_avg_sq": {k: torch.zeros_like(v)
                                          for k, v in self.params.items()}}
         self.step = 0  # AdamW's count: every slot steps together
-        self.lrs = torch.tensor([t.lr for t in trials], dtype=torch.float64,
-                                device=self.device)
-        self.wds = torch.tensor([t.wd for t in trials], dtype=torch.float64,
-                                device=self.device)
+        self.lrs, self.wds = self._local(self._lrs_full), self._local(self._wds_full)
         self.schedulers = [
             ReduceLROnPlateau(t.lr, factor=plateau_factor, patience=plateau_patience)
             for t in trials
@@ -244,6 +264,21 @@ class VmappedTrialGroup:
         self._val = vmap(trial_val, in_dims=(0, 0, None, None))
         self._val_masked = vmap(trial_val_masked_sum, in_dims=(0, 0, None, None, None))
         self._segment = _make_segment_fn(lambda g, x, y: (g, g._train_step(x, y)))
+
+    def _set_layout(self, n_phys: int) -> None:
+        self._n_phys = n_phys
+        self._k = n_phys // self._world
+        self._first = self._rank * self._k
+
+    def _local(self, full: np.ndarray) -> torch.Tensor:
+        """This rank's slots of a host (n_phys,) array, float64 on the device."""
+        return torch.tensor(full[self._first:self._first + self._k], dtype=torch.float64,
+                            device=self.device)
+
+    def _live(self, local: torch.Tensor) -> np.ndarray:
+        """Every live trial's value, from each rank's (K,) per-slot values
+        (one all-gather over a mesh)."""
+        return all_gather_rows(local, self.mesh).cpu().numpy()[self._slots]
 
     def _precision(self):
         """float32 models train at full precision (TF32 off), as the trainer."""
@@ -308,7 +343,7 @@ class VmappedTrialGroup:
                                       input_dtype=self._input_dtype)]
         if not per_batch:
             return np.zeros(len(self.trials))
-        return torch.stack(per_batch).mean(dim=0).cpu().numpy()
+        return self._live(torch.stack(per_batch).mean(dim=0))
 
     def val_epoch(self, val_loader) -> np.ndarray:
         """Each trial's sample-weighted mean L1 over ragged host batches."""
@@ -322,7 +357,7 @@ class VmappedTrialGroup:
         if not per_batch:
             return np.zeros(len(self.trials))
         w = torch.tensor(weights, dtype=torch.float32, device=self.device)
-        return (torch.stack(per_batch).T @ w / w.sum()).cpu().numpy()
+        return self._live(torch.stack(per_batch).T @ w / w.sum())
 
     def train_epoch_resident(self, data, epoch: int, *, shuffle: bool = True) -> np.ndarray:
         """One epoch over a device-resident cache (``train.resident``
@@ -334,7 +369,7 @@ class VmappedTrialGroup:
                                device=data.x.device)
         self.generator.manual_seed(_epoch_seed(self.seed, epoch))
         _, losses = self._segment(self, data.x, data.y, idx)
-        return losses.mean(dim=0).cpu().numpy()
+        return self._live(losses.mean(dim=0))
 
     def val_epoch_resident(self, val_batches, n_real: int) -> np.ndarray:
         """The validation set from ``train.resident.batch_val_cache``'s
@@ -345,38 +380,64 @@ class VmappedTrialGroup:
         with torch.no_grad(), self._precision():
             for x, y, m in zip(xb, yb, masks):
                 acc = acc + self._val_masked(self.params, self.model_state, x, y, m)
-        return acc.cpu().numpy() / max(n_real, 1)
+        return self._live(acc) / max(n_real, 1)
 
     def step_schedulers(self, val_losses: np.ndarray) -> None:
-        self.lrs = torch.tensor([s.step(float(v)) for s, v in zip(self.schedulers, val_losses)],
-                                dtype=torch.float64, device=self.device)
+        self._lrs_full[self._slots] = [s.step(float(v))
+                                       for s, v in zip(self.schedulers, val_losses)]
+        self.lrs = self._local(self._lrs_full)
 
-    def keep(self, indices: list[int]) -> None:
-        """Drop all but ``indices`` (halving, patience): the survivors are
-        gathered into smaller stacked tensors. Trials are independent (their
-        own clip, BatchNorm statistics and AdamW state; one shared batch and
-        random draw whatever the group's size), so a survivor trains on as it
-        would beside the dropped trials, up to the rounding of a grouped conv
-        of another size: the JAX package's mask mode, which keeps them
-        computing so that nothing recompiles, gives the same results, and
-        eager torch compiles nothing."""
-        survivors = torch.tensor(indices, dtype=torch.long, device=self.device)
+    def keep(self, indices: list[int], *, mode: str = "compact") -> None:
+        """Drop all but ``indices`` (halving, patience).
+
+        ``mode="mask"`` retires slots without moving any state: the dropped
+        ones keep training, unread. ``mode="compact"`` gathers the
+        survivors' parameters, buffers and AdamW moments into smaller
+        stacked tensors, padded again to a multiple of the world (over a
+        mesh every rank gathers every slot, then takes its new ones).
+        Trials are independent (their own clip, BatchNorm statistics and
+        AdamW state; one shared batch and random draw whatever the group's
+        size), so a survivor trains on as it would beside the dropped
+        trials either way, up to the rounding of a grouped conv of another
+        size."""
+        survivors = [self._slots[i] for i in indices]
+        self.trials = [self.trials[i] for i in indices]
+        self.schedulers = [self.schedulers[i] for i in indices]
+        if mode == "mask":
+            self._slots = survivors
+            return
+        n_new = -(-len(survivors) // self._world) * self._world
+        order = survivors + survivors[:1] * (n_new - len(survivors))
+        self._set_layout(n_new)
+        mine = torch.tensor(order[self._first:self._first + self._k], dtype=torch.long,
+                            device=self.device)
 
         def take(tree: dict) -> dict:
-            return {k: v.index_select(0, survivors) for k, v in tree.items()}
+            return {k: all_gather_rows(v, self.mesh).index_select(0, mine)
+                    for k, v in tree.items()}
 
         self.params = take(self.params)
         self.model_state = take(self.model_state)
         self.opt_state = {k: take(v) for k, v in self.opt_state.items()}
-        self.lrs = self.lrs.index_select(0, survivors)
-        self.wds = self.wds.index_select(0, survivors)
-        self.trials = [self.trials[i] for i in indices]
-        self.schedulers = [self.schedulers[i] for i in indices]
+        self._lrs_full, self._wds_full = self._lrs_full[order], self._wds_full[order]
+        self.lrs, self.wds = self._local(self._lrs_full), self._local(self._wds_full)
+        self._slots = list(range(len(survivors)))
+
+    def _slot_tree(self, tree: dict, i: int) -> dict:
+        """Trial ``i``'s slot of a stacked tree as the JAX package's tree of
+        float32 numpy arrays; over a mesh the rank holding it broadcasts it
+        (a collective)."""
+        owner, local = divmod(self._slots[i], self._k)
+        if self._world == 1:
+            return _export_tree((k, v[local]) for k, v in tree.items())
+        # the other ranks pass their first slot as the shape to receive into
+        at = local if self._rank == owner else 0
+        return _export_tree((k, broadcast_from(v[at], owner, self.mesh)) for k, v in tree.items())
 
     def params_of(self, i: int) -> dict:
         """Trial ``i``'s parameters as the JAX package's tree of float32
         numpy arrays."""
-        return _export_tree((k, v[i]) for k, v in self.params.items())
+        return self._slot_tree(self.params, i)
 
     def snapshot_of(self, i: int) -> dict:
         """Host snapshot of trial ``i``'s weights. Stateless models return
@@ -387,8 +448,7 @@ class VmappedTrialGroup:
         params = self.params_of(i)
         if not self.stateful:
             return params
-        return {"params": params,
-                "batch_stats": _export_tree((k, v[i]) for k, v in self.model_state.items())}
+        return {"params": params, "batch_stats": self._slot_tree(self.model_state, i)}
 
 
 # --------------------------------------------------------------------- sweep
@@ -476,13 +536,20 @@ class WandbSweepMirror:
             pass
 
 
-def _journal_bytes(path: str) -> bytes | None:
-    """The sweep journal's bytes, None when there is none (one process: the
-    JAX package's host-0 broadcast comes with ROADMAP Queue 1 item 13b)."""
-    if not os.path.exists(path):
-        return None
-    with open(path, "rb") as f:
-        return f.read()
+def _journal_bytes(path: str, mesh=None) -> bytes | None:
+    """The sweep journal's bytes, None when there is none. Over a mesh rank
+    0 reads the file and broadcasts its bytes (the JAX package's
+    ``_journal_bytes_all_hosts``): a per-rank read of a rank-local or
+    lagging file system would replay different histories on the ranks of
+    one lock-step sweep."""
+    payload = None
+    if mesh is None or mesh.rank == 0:
+        if os.path.exists(path):
+            with open(path, "rb") as f:
+                payload = f.read()
+    if mesh is None or mesh.world == 1:
+        return payload
+    return broadcast_bytes(payload or b"", mesh) or None
 
 
 def hyperband_rungs(min_iter: int, max_epochs: int, eta: int = 3) -> list[int]:
@@ -511,7 +578,7 @@ def run_sweep(model_factory, loader_factory, *, n_trials: int = 20,
               halving: str = "compact", early_stop_patience: int = 0,
               prefetch: int = 2, preempt_guard=None,
               resume: bool = False, fingerprint: dict | None = None,
-              device="cuda") -> dict:
+              device=None) -> dict:
     """Run a sweep; returns {'best': Trial-dict, 'trials': [...],
     'preempted': bool}, and writes ``sweep_results.json``,
     ``sweep_journal.jsonl`` and ``best_trial_params.npz`` (JAX names) into
@@ -521,7 +588,11 @@ def run_sweep(model_factory, loader_factory, *, n_trials: int = 20,
         model_factory: () -> a module of the port's model families; every
             trial of a group starts from the returned module's parameters.
         loader_factory: (batch_size) -> (train_loader, val_loader).
-        mesh: several devices, ROADMAP Queue 1 item 13b: raises.
+        mesh: a ``parallel.mesh.DataMesh``; every rank calls ``run_sweep``
+            with the same arguments, each group's trial axis is split over
+            the ranks, and rank 0 alone writes the files and mirrors to
+            W&B. Over more than one rank halving is forced to "mask", as the
+            JAX package forces it over several processes.
         max_parallel_trials: cap on how many trials train simultaneously in
             one group (bounds the stacked state's and activations' device
             memory); 0 = the whole same-batch-size group at once.
@@ -536,8 +607,9 @@ def run_sweep(model_factory, loader_factory, *, n_trials: int = 20,
             shared stream, in the resident and the per-step epoch (pair with
             non-augmenting loaders either way).
         halving: "compact" (default) or "mask", the JAX package's modes,
-            pinned in the journal; both shrink the trial group at each rung
-            (``VmappedTrialGroup.keep``), which gives the results of either.
+            pinned in the journal. One process compacts the group at each
+            rung for either (``VmappedTrialGroup.keep``), over ranks it
+            masks: the results are the same.
         early_stop_patience: per-trial early stopping — a trial whose val
             loss has not improved for this many consecutive epochs is
             retired (0 = off), as the reference's train_model inside each
@@ -563,16 +635,25 @@ def run_sweep(model_factory, loader_factory, *, n_trials: int = 20,
         fingerprint: optional JSON-able dict of RESULT-determining caller
             context (model family, data dir, image size, compute dtype…)
             pinned into the journal header (cli.sweep passes one).
-        device: the torch device every group trains on; "cuda" (default)
-            raises without a card unless "cpu" is passed.
+        device: the torch device every group trains on; CUDA (default)
+            raises without a card unless "cpu" is passed. A mesh owns the
+            choice (``parallel.mesh.run_device``).
     """
-    if mesh is not None:
-        raise NotImplementedError("a sweep over several devices (mesh=) is not ported yet "
-                                  "(ROADMAP Queue 1 item 13b)")
-    dev = resolve_device(device)
+    dev = run_device(device, mesh)
     space = space or SearchSpace()
     rng = np.random.default_rng(seed)
     os.makedirs(output_dir, exist_ok=True)
+    world = mesh.world if mesh is not None else 1
+    is_host0 = mesh is None or mesh.rank == 0
+    if world > 1 and halving == "compact":
+        if is_host0:
+            print("multi-host sweep: forcing halving='mask' (compact would recompile each rung "
+                  "on every host)")
+        halving = "mask"
+    # one process compacts at every drop; over ranks the slots stay put
+    keep_mode = "mask" if world > 1 else "compact"
+    if not is_host0:
+        wandb_mirror = None
 
     rungs = hyperband_rungs(min_iter, max_epochs, eta)
     all_trials: list[Trial] = []
@@ -585,7 +666,7 @@ def run_sweep(model_factory, loader_factory, *, n_trials: int = 20,
         nonlocal preempted
         if preempt_guard is None or preempted:
             return preempted
-        if preemption_agreed(bool(preempt_guard.triggered)):
+        if preemption_agreed(bool(preempt_guard.triggered), mesh):
             preempted = True
         return preempted
 
@@ -607,7 +688,7 @@ def run_sweep(model_factory, loader_factory, *, n_trials: int = 20,
     }
     journal_restore: list[list[dict]] = []  # FIFO of finished-group records
     if resume:
-        raw = _journal_bytes(journal_path)
+        raw = _journal_bytes(journal_path, mesh)
         if raw is None:
             raise FileNotFoundError(f"resume requested but no sweep journal at {journal_path}")
         raw_lines = [ln for ln in raw.decode().splitlines() if ln.strip()]
@@ -628,7 +709,7 @@ def run_sweep(model_factory, loader_factory, *, n_trials: int = 20,
                     f"is unparseable but is not the final line")
         if not lines or "meta" not in lines[0]:
             raise ValueError(f"corrupt sweep journal at {journal_path}")
-        if len(valid_raw) != len(raw_lines):
+        if len(valid_raw) != len(raw_lines) and is_host0:
             # truncate the torn tail NOW: this run appends the re-run group
             # after it, and a torn line mid-file would read as corruption
             # to the next resume
@@ -640,7 +721,7 @@ def run_sweep(model_factory, loader_factory, *, n_trials: int = 20,
                 f"must replay the identical schedule.\n  journal: "
                 f"{lines[0]['meta']}\n  now:     {journal_meta}")
         journal_restore = [rec["group"] for rec in lines[1:]]
-    else:
+    elif is_host0:
         with open(journal_path, "w") as f:
             f.write(json.dumps({"meta": journal_meta}) + "\n")
 
@@ -740,7 +821,7 @@ def run_sweep(model_factory, loader_factory, *, n_trials: int = 20,
                     # built lazily, so a resume whose prefix is fully
                     # journaled never ships the dataset to the device
                     rd_train, rd_val, val_batches = resident_data(train_loader, val_loader, bs)
-                group = VmappedTrialGroup(model_factory(), group_trials, seed=seed,
+                group = VmappedTrialGroup(model_factory(), group_trials, mesh=mesh, seed=seed,
                                           augment_fn=augment_fn, prefetch=prefetch,
                                           device=dev)
                 if wandb_mirror is not None and wandb_mirror.model_size_mb is None:
@@ -808,7 +889,7 @@ def run_sweep(model_factory, loader_factory, *, n_trials: int = 20,
                                     t.stop_reason = "patience"
                                     retired.append(t)
                                     finished.append(t)
-                                group.keep(keep_idx)  # keep([]) is safe
+                                group.keep(keep_idx, mode=keep_mode)  # keep([]) is safe
                     if rung_idx < len(rungs) - 1 and len(group.trials) > 1:
                         order = np.argsort([t.best_val_loss for t in group.trials])
                         n_keep = max(1, len(group.trials) // eta)
@@ -817,7 +898,7 @@ def run_sweep(model_factory, loader_factory, *, n_trials: int = 20,
                             t.stopped_at = epoch
                             t.stop_reason = "halving"
                             finished.append(t)
-                        group.keep([int(i) for i in order[:n_keep]])
+                        group.keep([int(i) for i in order[:n_keep]], mode=keep_mode)
                 finished.extend(group.trials)
                 all_trials.extend(finished)
                 if wandb_mirror is not None:
@@ -835,17 +916,19 @@ def run_sweep(model_factory, loader_factory, *, n_trials: int = 20,
                         continue
                     if best is None or t.best_val_loss < best.best_val_loss:
                         best = t
-                        np.savez(os.path.join(output_dir, "best_trial_params.npz"),
-                                 **flatten_tree(snap))
+                        if is_host0:  # the snapshots above were the collectives
+                            np.savez(os.path.join(output_dir, "best_trial_params.npz"),
+                                     **flatten_tree(snap))
                 # journaled AFTER the npz write: a journaled group's
                 # artifacts are on disk, so resume never points "best" at
                 # weights that were never saved
-                with open(journal_path, "a") as f:
-                    f.write(json.dumps({"group": [
-                        {"trial_id": t.trial_id, "batch_size": t.batch_size, "lr": t.lr,
-                         "wd": t.wd, "val_losses": t.val_losses, "stopped_at": t.stopped_at,
-                         "stop_reason": t.stop_reason}
-                        for t in finished]}) + "\n")
+                if is_host0:
+                    with open(journal_path, "a") as f:
+                        f.write(json.dumps({"group": [
+                            {"trial_id": t.trial_id, "batch_size": t.batch_size, "lr": t.lr,
+                             "wd": t.wd, "val_losses": t.val_losses,
+                             "stopped_at": t.stopped_at, "stop_reason": t.stop_reason}
+                            for t in finished]}) + "\n")
 
     if method == "tpe":
         # multi-wave TPE: an exploratory random wave builds the history the
@@ -867,7 +950,7 @@ def run_sweep(model_factory, loader_factory, *, n_trials: int = 20,
     # a preempted sweep writes NO results file: sweep_results.json means
     # "the sweep ran to completion" to every consumer (the lifecycle); the
     # journal holds the partial state
-    if not preempted:
+    if is_host0 and not preempted:
         with open(os.path.join(output_dir, "sweep_results.json"), "w") as f:
             json.dump(result, f, indent=2)
     return result
@@ -880,7 +963,7 @@ def run_sweep_from_config(model_factory, loader_factory, cfg, *, mesh=None,
                           resident: bool = False, augment_fn=None,
                           halving: str = "compact", preempt_guard=None,
                           resume: bool = False, fingerprint: dict | None = None,
-                          device="cuda") -> dict:
+                          device=None) -> dict:
     """Run a sweep driven by a :class:`utils.config.SweepConfig`."""
     space = SearchSpace(batch_sizes=tuple(cfg.batch_sizes), lr_min=cfg.lr_min,
                         lr_max=cfg.lr_max, wd_min=cfg.wd_min, wd_max=cfg.wd_max)
@@ -926,7 +1009,7 @@ def run_wandb_agent_sweep(model_factory, loader_factory, *,
                           entity: str | None = None,
                           early_stop_patience: int = 0, prefetch: int = 2,
                           sweep_id: str | None = None,
-                          wandb_module=None, device="cuda") -> dict:
+                          wandb_module=None, device=None) -> dict:
     """ONLINE controller mode: the W&B *server* proposes every trial's
     hyperparameters and owns early termination — the reference's sweep
     semantics (reference: sweep.py:94-241: ``wandb.agent`` pulls
@@ -938,27 +1021,40 @@ def run_wandb_agent_sweep(model_factory, loader_factory, *,
     ``wandb.agent`` raise and the CLI exits with a pointer at ``--method
     tpe``. ``sweep_id``: attach to an EXISTING server-side sweep instead of
     registering a new one (reference: sweep.py:241). ``wandb_module``:
-    injection point for tests; default imports wandb."""
-    if mesh is not None:
-        raise NotImplementedError("a sweep over several devices (mesh=) is not ported yet "
-                                  "(ROADMAP Queue 1 item 13b)")
-    wandb = wandb_module
-    if wandb is None:
-        import wandb  # noqa: F811 — ImportError surfaces to the CLI
-    dev = resolve_device(device)
+    injection point for tests; default imports wandb.
+
+    ``mesh``: a ``parallel.mesh.DataMesh``. Rank 0 alone talks to W&B: it
+    runs the agent and broadcasts each proposal (its JSON) and each
+    server-side stop to the other ranks, which train the same group of one,
+    padded to the world as the JAX group pads it, and end on an empty
+    proposal. Rank 0 alone writes the files."""
+    dev = run_device(device, mesh)
+    world = mesh.world if mesh is not None else 1
+    is_host0 = mesh is None or mesh.rank == 0
     space = space or SearchSpace()
     os.makedirs(output_dir, exist_ok=True)
-    if sweep_id is None:
-        sweep_id = wandb.sweep(sweep_server_config("wandb", min_iter, eta, space),
-                               project=project, entity=entity)
+    if is_host0:
+        wandb = wandb_module
+        if wandb is None:
+            import wandb  # noqa: F811 — ImportError surfaces to the CLI
+        if sweep_id is None:
+            sweep_id = wandb.sweep(sweep_server_config("wandb", min_iter, eta, space),
+                                   project=project, entity=entity)
+    if world > 1:
+        sweep_id = broadcast_bytes(sweep_id.encode() if is_host0 else None, mesh).decode()
 
     trials: list[Trial] = []
     best: Trial | None = None
 
-    def train_one():
+    def agreed(flag: bool) -> bool:
+        """Rank 0's decision on every rank."""
+        if world == 1:
+            return flag
+        return broadcast_bytes(b"1" if is_host0 and flag else b"0", mesh) == b"1"
+
+    def train_one(c: dict, run) -> None:
+        """One proposal's trial; ``run`` is rank 0's W&B run (None elsewhere)."""
         nonlocal best
-        run = wandb.init()
-        c = run.config  # the SERVER's proposal for this trial
         t = Trial(trial_id=len(trials), batch_size=int(c["batch_size"]),
                   lr=float(c["learning_rate"]), wd=float(c["weight_decay"]))
         train_loader, val_loader = loader_factory(t.batch_size)
@@ -969,7 +1065,7 @@ def run_wandb_agent_sweep(model_factory, loader_factory, *,
                 "run_wandb_agent_sweep: the validation set is empty — "
                 "trials would be ranked on a constant 0.0 val loss. "
                 "Lower val_split or provide more data.")
-        group = VmappedTrialGroup(model_factory(), [t], seed=seed, prefetch=prefetch,
+        group = VmappedTrialGroup(model_factory(), [t], mesh=mesh, seed=seed, prefetch=prefetch,
                                   device=dev)
         best_snap = None
         stale, fin_best = 0, float("inf")
@@ -980,7 +1076,8 @@ def run_wandb_agent_sweep(model_factory, loader_factory, *,
             if np.isfinite(v) and v < t.best_val_loss:
                 best_snap = group.snapshot_of(0)
             t.val_losses.append(v)
-            run.log({"val_loss": v}, step=epoch)
+            if run is not None:
+                run.log({"val_loss": v}, step=epoch)
             if logger is not None:
                 logger.log({f"trial_{t.trial_id}/val_loss": v,
                             f"trial_{t.trial_id}/lr": group.schedulers[0].lr}, step=epoch)
@@ -988,7 +1085,7 @@ def run_wandb_agent_sweep(model_factory, loader_factory, *,
             # the run (best-effort — older SDKs lack it, and then only the
             # local patience below terminates early)
             should_stop = getattr(run, "should_stop", None)
-            if callable(should_stop) and should_stop():
+            if agreed(callable(should_stop) and should_stop()):
                 t.stopped_at = epoch + 1
                 t.stop_reason = "server"
                 break
@@ -1001,18 +1098,35 @@ def run_wandb_agent_sweep(model_factory, loader_factory, *,
                     t.stopped_at = epoch + 1
                     t.stop_reason = "patience"
                     break
-        run.summary["best_val_loss"] = t.best_val_loss
-        if t.stopped_at is not None:
-            run.summary["stopped_at_epoch"] = t.stopped_at
-            run.summary["stop_reason"] = t.stop_reason
-        run.finish()
+        if run is not None:
+            run.summary["best_val_loss"] = t.best_val_loss
+            if t.stopped_at is not None:
+                run.summary["stopped_at_epoch"] = t.stopped_at
+                run.summary["stop_reason"] = t.stop_reason
+            run.finish()
         trials.append(t)
         if best_snap is not None and (best is None or t.best_val_loss < best.best_val_loss):
             best = t
-            np.savez(os.path.join(output_dir, "best_trial_params.npz"),
-                     **flatten_tree(best_snap))
+            if is_host0:
+                np.savez(os.path.join(output_dir, "best_trial_params.npz"),
+                         **flatten_tree(best_snap))
 
-    wandb.agent(sweep_id, function=train_one, count=n_trials)
+    def agent_trial() -> None:
+        """The agent's callback on rank 0: the SERVER's proposal for this
+        trial, sent to the other ranks, then trained."""
+        run = wandb.init()
+        c = {k: run.config[k] for k in ("batch_size", "learning_rate", "weight_decay")}
+        if world > 1:
+            broadcast_bytes(json.dumps(c).encode(), mesh)
+        train_one(c, run)
+
+    if is_host0:
+        wandb.agent(sweep_id, function=agent_trial, count=n_trials)
+        if world > 1:
+            broadcast_bytes(b"", mesh)  # no more proposals
+    else:
+        while proposal := broadcast_bytes(None, mesh):
+            train_one(json.loads(proposal), None)
 
     result = {
         "best": _trial_dict(best),
@@ -1020,8 +1134,9 @@ def run_wandb_agent_sweep(model_factory, loader_factory, *,
         "preempted": False,
         "sweep_id": sweep_id,
     }
-    with open(os.path.join(output_dir, "sweep_results.json"), "w") as f:
-        json.dump(result, f, indent=2)
+    if is_host0:
+        with open(os.path.join(output_dir, "sweep_results.json"), "w") as f:
+            json.dump(result, f, indent=2)
     return result
 
 

@@ -1,4 +1,4 @@
-"""Batched inference engine on one CUDA device.
+"""Batched inference engine on one CUDA device, or over the local cards.
 
 PyTorch counterpart of ``image_enhancement_deglaring_tpu.serve.engine``
 with the same public surface (``submit``, ``infer_batch``, ``infer_one``,
@@ -15,6 +15,13 @@ with the same public surface (``submit``, ``infer_batch``, ``infer_one``,
 
 The uint8 output truncates (floor of x*255), as the reference does.
 
+``mesh=`` (a ``parallel.mesh.LocalMesh``) serves over several devices of
+this process, as the JAX engine serves over a 1-D mesh of the local
+chips: one model replica per device, each batch bucket a multiple of the
+mesh size, its rows split into equal slices, slice ``i`` copied to and run
+on device ``i``; the drainer joins the slices in row order. Every copy and
+launch names its replica's device.
+
 ``quantize="int8"`` serves int8 weights: the model's rank >= 2 parameters
 are quantized per output channel once (``models.model_utils.
 quantize_params_int8``) and kept on the device as int8 tensors with
@@ -27,19 +34,21 @@ as it casts its own parameters (the JAX engine's
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import queue
 import threading
 import time
 from collections import deque
 from concurrent.futures import Future
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from .._device import resolve_device
 from ..modelio.params_import import load_jax_params
 from ..models.model_utils import dequantize_params_int8, quantize_params_int8
+from ..parallel.mesh import replica_devices
 from ..utils.pytree import flatten_tree
 
 
@@ -48,6 +57,39 @@ def _bucket_sizes(max_batch: int) -> list[int]:
     while sizes[-1] < max_batch:
         sizes.append(min(sizes[-1] * 2, max_batch))
     return sizes
+
+
+class _Replica(NamedTuple):
+    """One device's copy of the served model, and its int8 weights (model,
+    int8 tree, scales tree) when the engine quantizes."""
+
+    device: torch.device
+    model: torch.nn.Module
+    int8: tuple | None
+
+
+def on_device(device: torch.device):
+    """``device`` as the current CUDA device (launches and allocations that
+    name no device land there); nothing on the CPU."""
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+
+
+def replicate_model(model: torch.nn.Module, devices: tuple) -> tuple:
+    """``model`` moved to ``devices[0]`` in eval mode, and a copy of it on
+    each further device (the same weights)."""
+    first = model.to(devices[0]).eval()
+    return (first,) + tuple(copy.deepcopy(first).to(d) for d in devices[1:])
+
+
+def reloaded(models, params) -> tuple:
+    """Copies of ``models`` carrying the JAX package's parameter tree
+    ``params`` (float32 numpy arrays of their shapes)."""
+    out = []
+    for m in models:
+        m = copy.deepcopy(m)
+        load_jax_params(m, params)
+        out.append(m)
+    return tuple(out)
 
 
 def _int8_weights(model: torch.nn.Module) -> tuple:
@@ -69,22 +111,25 @@ class InferenceEngine:
                  max_batch_size: int = 8, batch_timeout_ms: float = 3.0,
                  compute_dtype: torch.dtype = torch.bfloat16, warmup: bool = True,
                  mesh=None, quantize: str | None = None, pipeline_depth: int = 4,
-                 device="cuda"):
+                 device=None):
         """``model`` maps NHWC float (B, S, S, 1) to (B, S, S, 1); it is moved
         to ``device`` and put in eval mode. ``device`` defaults to CUDA and
-        raises without a card unless "cpu" is passed. ``quantize``: None or
-        "int8" (see the module docstring). ``mesh`` (multi-GPU serving) is a
-        later part of the port (ROADMAP.md Queue 1 item 13b)."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "multi-device serving (mesh=) is not ported yet (ROADMAP.md Queue 1 item 13b)")
+        raises without a card unless "cpu" is passed. ``mesh``: a
+        ``parallel.mesh.LocalMesh`` whose devices take one replica each
+        (the model itself on the first, copies on the others);
+        ``max_batch_size`` must divide by its size. ``quantize``: None or
+        "int8" (see the module docstring)."""
         if quantize not in (None, "int8"):
             raise ValueError(f"unsupported quantize mode: {quantize!r}")
-        self.device = resolve_device(device)
+        devices = replica_devices(device, mesh)
+        if mesh is not None and max_batch_size % mesh.size:
+            raise ValueError(f"max_batch_size {max_batch_size} must divide by mesh size "
+                             f"{mesh.size}")
+        self.mesh = mesh
+        self.device = devices[0]
         self.quantize = quantize
-        self._model = model.to(self.device).eval()
-        # (model, int8 tree, scales tree), swapped whole by reload_params
-        self._int8 = _int8_weights(self._model) if quantize else None
+        # one per device, swapped whole by reload_params
+        self._replicas = self._build_replicas(replicate_model(model, devices))
         self.image_size = image_size
         self.max_batch_size = max_batch_size
         self.batch_timeout_s = batch_timeout_ms / 1e3
@@ -107,17 +152,28 @@ class InferenceEngine:
         if warmup:
             self.warmup()
 
+    def _build_replicas(self, models) -> tuple:
+        return tuple(_Replica(next(m.parameters()).device, m,
+                              _int8_weights(m) if self.quantize else None) for m in models)
+
+    @property
+    def _model(self) -> torch.nn.Module:
+        """The first replica's model (the one the engine was given)."""
+        return self._replicas[0].model
+
+    @property
+    def _int8(self) -> tuple | None:
+        """The first replica's (model, int8 tree, scales tree), or None."""
+        return self._replicas[0].int8
+
     def reload_params(self, params) -> None:
         """Weight swap from the JAX package's parameter tree (float32 numpy
-        arrays of the running model's shapes). The new weights go into a
-        copy of the model that replaces the old one in one attribute
+        arrays of the running model's shapes). The new weights go into
+        copies of the replicas that replace the old ones in one attribute
         rebind: batches launched before it finish on the old weights. An
         int8 engine quantizes the new weights again."""
-        new = copy.deepcopy(self._model)
-        load_jax_params(new, params)
-        if self.quantize:
-            self._int8 = _int8_weights(new)
-        self._model = new
+        self._replicas = self._build_replicas(reloaded([r.model for r in self._replicas],
+                                                       params))
 
     def stats(self) -> dict:
         """Serving observability: request latencies and batch fill."""
@@ -143,38 +199,55 @@ class InferenceEngine:
         }
 
     def _bucket_for(self, b: int) -> int:
-        for s in _bucket_sizes(self.max_batch_size):
+        """The power-of-two ladder up to ``max_batch_size``; on a mesh of
+        ``n`` devices each rung snapped up to a multiple of ``n`` (at least
+        ``n``), and a batch beyond the ladder up to one, as the JAX engine."""
+        n = self.mesh.size if self.mesh is not None else 1
+        sizes = sorted({max(n, -(-s // n) * n) for s in _bucket_sizes(self.max_batch_size)})
+        for s in sizes:
             if s >= b:
                 return s
-        return b
+        return -(-b // n) * n
 
     # ---------------------------------------------------------------- device
-    def _step(self, batch_u8: np.ndarray) -> torch.Tensor:
-        """uint8 (B, S, S, 1) -> uint8 (B, S, S, 1) on the device, launched
-        asynchronously; the caller's copy to the host waits for it."""
-        # read once: a concurrent reload swaps it whole
-        int8 = self._int8
-        model = self._model if int8 is None else int8[0]
-        x = torch.from_numpy(np.ascontiguousarray(batch_u8)).to(self.device, non_blocking=True)
-        with torch.inference_mode():
-            x = x.to(self.compute_dtype) / 255.0
-            if int8 is None:
-                out = model(x).float()
-            else:
-                weights = {name.replace("/", "."): w for name, w in
-                           flatten_tree(dequantize_params_int8(int8[1], int8[2])).items()}
-                out = torch.func.functional_call(model, weights, (x,)).float()
-            y = torch.floor(out.clamp(0.0, 1.0) * 255.0).to(torch.uint8)
+    def _step(self, batch_u8: np.ndarray) -> tuple:
+        """uint8 (B, S, S, 1) -> one uint8 (B / n, S, S, 1) tensor per
+        replica, slice ``i`` on replica ``i``'s device, launched
+        asynchronously; the caller's copy to the host (:meth:`_fetch`)
+        waits for them."""
+        replicas = self._replicas  # read once: a concurrent reload swaps it whole
+        rows = batch_u8.shape[0] // len(replicas)
+        outs = []
+        for i, rep in enumerate(replicas):
+            part = np.ascontiguousarray(batch_u8[i * rows:(i + 1) * rows])
+            with on_device(rep.device), torch.inference_mode():
+                x = torch.from_numpy(part).to(rep.device, non_blocking=True)
+                x = x.to(self.compute_dtype) / 255.0
+                if rep.int8 is None:
+                    out = rep.model(x).float()
+                else:
+                    weights = {name.replace("/", "."): w for name, w in flatten_tree(
+                        dequantize_params_int8(rep.int8[1], rep.int8[2])).items()}
+                    out = torch.func.functional_call(rep.model, weights, (x,)).float()
+                outs.append(torch.floor(out.clamp(0.0, 1.0) * 255.0).to(torch.uint8))
         with self._stats_lock:
             self._batches += 1
-        return y
+        return tuple(outs)
+
+    @staticmethod
+    def _fetch(ys: tuple) -> np.ndarray:
+        """The replicas' slices on the host, joined in row order."""
+        if len(ys) == 1:
+            return ys[0].cpu().numpy()
+        return np.concatenate([y.cpu().numpy() for y in ys])
 
     def warmup(self) -> None:
-        """Run every batch bucket once, so that the kernels are built and the
-        allocator holds the buffers before the first request."""
+        """Run every batch bucket once on every replica, so that the kernels
+        are built and the allocators hold the buffers before the first
+        request."""
         s = self.image_size
         for b in sorted({self._bucket_for(b) for b in _bucket_sizes(self.max_batch_size)}):
-            self._step(np.zeros((b, s, s, 1), np.uint8)).cpu()
+            self._fetch(self._step(np.zeros((b, s, s, 1), np.uint8)))
 
     # ----------------------------------------------------------------- sync
     def infer_batch(self, batch_u8: np.ndarray) -> np.ndarray:
@@ -187,7 +260,7 @@ class InferenceEngine:
         if bucket > b:
             pad = np.zeros((bucket - b,) + batch_u8.shape[1:], np.uint8)
             batch_u8 = np.concatenate([batch_u8, pad])
-        out = self._step(batch_u8).cpu().numpy()[:b]
+        out = self._fetch(self._step(batch_u8))[:b]
         return out[..., 0] if squeeze else out
 
     def infer_one(self, img_u8: np.ndarray) -> np.ndarray:
@@ -300,7 +373,7 @@ class InferenceEngine:
                 return
             batch, y, b = item
             try:
-                outs = y.cpu().numpy()[:b, ..., 0]
+                outs = self._fetch(y)[:b, ..., 0]
                 done = time.monotonic()
                 for (_, fut, _t), out in zip(batch, outs):
                     fut.set_result(out)

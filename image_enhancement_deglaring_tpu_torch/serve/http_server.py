@@ -770,7 +770,7 @@ def create_server(model_path: str, *, host: str = "0.0.0.0", port: int = 4000,
                   tile_overlap: int = 32, log_dir: str | None = None,
                   image_size: int = 512, warmup: bool = True,
                   mesh=None, quantize: str | None = None,
-                  allow_reload: bool = False, device="cuda") -> DeglareServer:
+                  allow_reload: bool = False, device=None) -> DeglareServer:
     """Build engine + (optional) tiler + server from a model artifact path.
 
     The model is the H100 serving configuration (``eval.harness.
@@ -781,18 +781,16 @@ def create_server(model_path: str, *, host: str = "0.0.0.0", port: int = 4000,
     raises without a card unless "cpu" is passed. ``quantize="int8"``
     serves int8 weights from the engine (``serve.engine``); the tiler runs
     the unquantized model, as the JAX server passes its tiler the
-    unquantized parameters. ``mesh=`` (multi-GPU serving) raises until the
-    port has it."""
+    unquantized parameters. ``mesh``: a ``parallel.mesh.LocalMesh``; the
+    engine and the tiler keep one replica per device and split each batch
+    over them, as the JAX server passes its mesh to both."""
     import torch
 
-    from .._device import resolve_device
     from ..eval.harness import load_model_for_eval
+    from ..parallel.mesh import replica_devices
     from .engine import InferenceEngine
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "multi-device serving (mesh=) is not ported yet (ROADMAP.md Queue 1 item 13b)")
-    dev = resolve_device(device)
+    dev = replica_devices(device, mesh)[0]
     dtype = compute_dtype or torch.bfloat16
     if model_arch == "auto":
         from ..modelio import detect_model_arch
@@ -803,14 +801,14 @@ def create_server(model_path: str, *, host: str = "0.0.0.0", port: int = 4000,
     engine = InferenceEngine(
         model, image_size=image_size, max_batch_size=max_batch_size,
         batch_timeout_ms=batch_timeout_ms, compute_dtype=dtype, warmup=warmup,
-        quantize=quantize, device=dev,
+        mesh=mesh, quantize=quantize, device=device,
     )
     tiler = None
     if mode in ("tile", "both"):
         from .tiling import TiledInference
 
         tiler = TiledInference(model, tile=image_size, overlap=tile_overlap,
-                               compute_dtype=dtype, device=dev)
+                               compute_dtype=dtype, mesh=mesh, device=device)
     # "both" serves resize by default with ?mode=tile available per request
     default_mode = "tile" if mode == "tile" else "resize"
     model_info = {"model_path": model_path, "model": model_arch,

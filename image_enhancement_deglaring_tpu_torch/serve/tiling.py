@@ -1,4 +1,5 @@
-"""Tiled full-resolution inference on one CUDA device.
+"""Tiled full-resolution inference on one CUDA device, or over the local
+cards.
 
 PyTorch counterpart of ``image_enhancement_deglaring_tpu.serve.tiling``
 with the same public surface (``TiledInference``: ``__call__``,
@@ -19,13 +20,12 @@ on the card while grad mode could record them.
 
 from __future__ import annotations
 
-import copy
 
 import numpy as np
 import torch
 
-from .._device import resolve_device
-from ..modelio.params_import import load_jax_params
+from ..parallel.mesh import replica_devices
+from .engine import on_device, reloaded, replicate_model
 
 
 def _grid_starts(size: int, tile: int, stride: int) -> list[int]:
@@ -54,17 +54,14 @@ class TiledInference:
 
     def __init__(self, model: torch.nn.Module, *, tile: int = 512, overlap: int = 32,
                  compute_dtype: torch.dtype = torch.bfloat16, mesh=None,
-                 max_tiles_per_batch: int = 8, pipeline_depth: int = 4, device="cuda"):
+                 max_tiles_per_batch: int = 8, pipeline_depth: int = 4, device=None):
         """``model`` is moved to ``device`` and put in eval mode (an
         engine's model can be shared). ``max_tiles_per_batch`` caps the
         tiles per device call; larger images run in several chunks,
         launched asynchronously, at most ``pipeline_depth`` in flight.
         ``device`` defaults to CUDA and raises without a card unless "cpu"
-        is passed. ``mesh`` (tiles over several GPUs) is a later part of
-        the port."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "multi-device tiling (mesh=) is not ported yet (ROADMAP.md Queue 1 item 13b)")
+        is passed. ``mesh``: a ``parallel.mesh.LocalMesh``, one replica per
+        device (the model itself on the first)."""
         if not 0 <= overlap < tile:
             # overlap == tile -> stride 0 (range() crash per request);
             # overlap > tile -> negative stride silently leaves uncovered
@@ -72,8 +69,10 @@ class TiledInference:
             raise ValueError(
                 f"tile overlap must be in [0, tile): got overlap={overlap} "
                 f"with tile={tile}")
-        self.device = resolve_device(device)
-        self.model = model.to(self.device).eval()
+        devices = replica_devices(device, mesh)
+        self.mesh = mesh
+        self.device = devices[0]
+        self._replicas = replicate_model(model, devices)
         self.tile = tile
         self.overlap = overlap
         self.compute_dtype = compute_dtype
@@ -82,14 +81,17 @@ class TiledInference:
         self._window = _blend_window(tile, overlap)
         self._buckets_seen: set[int] = set()
 
+    @property
+    def model(self) -> torch.nn.Module:
+        """The first replica (the model the tiler was given)."""
+        return self._replicas[0]
+
     def reload_params(self, params) -> None:
         """Weight swap from the JAX package's parameter tree: the new
-        weights go into a copy of the model that replaces the old one in
+        weights go into copies of the replicas that replace the old ones in
         one attribute rebind, so an image in flight finishes on the
         weights it started with."""
-        new = copy.deepcopy(self.model)
-        load_jax_params(new, params)
-        self.model = new
+        self._replicas = reloaded(self._replicas, params)
 
     @property
     def compiled_bucket_count(self) -> int:
@@ -101,13 +103,23 @@ class TiledInference:
         b = 1
         while b < n:
             b *= 2
-        return min(b, self.max_tiles_per_batch)
+        b = min(b, self.max_tiles_per_batch)
+        if self.mesh is not None:
+            d = self.mesh.size
+            b = max(d, -(-b // d) * d)
+        return b
 
-    def _forward(self, model, tiles_u8: np.ndarray) -> torch.Tensor:
-        """uint8 (B, T, T, 1) -> float32 (B, T, T) on the device, launched
-        asynchronously: normalize + U-Net."""
-        x = torch.from_numpy(tiles_u8).to(self.device, non_blocking=True)
-        return model(x.to(self.compute_dtype) / 255.0).float()[..., 0]
+    def _forward(self, replicas: tuple, tiles_u8: np.ndarray) -> list:
+        """uint8 (B, T, T, 1) -> float32 (B / n, T, T) per replica on its
+        device, launched asynchronously: normalize + U-Net."""
+        rows = tiles_u8.shape[0] // len(replicas)
+        outs = []
+        for i, model in enumerate(replicas):
+            dev = next(model.parameters()).device
+            with on_device(dev):
+                x = torch.from_numpy(tiles_u8[i * rows:(i + 1) * rows]).to(dev, non_blocking=True)
+                outs.append(model(x.to(self.compute_dtype) / 255.0).float()[..., 0])
+        return outs
 
     def _run_tiles(self, tiles_u8: np.ndarray) -> np.ndarray:
         """uint8 (N, T, T) -> float32 (N, T, T), chunked into bucket-shaped
@@ -115,14 +127,14 @@ class TiledInference:
         n = tiles_u8.shape[0]
         out = np.empty(tiles_u8.shape, np.float32)
         step = self.max_tiles_per_batch
-        # one model for the whole image: a concurrent reload_params() must
-        # not stitch one image from two checkpoints
-        model = self.model
+        # one set of replicas for the whole image: a concurrent
+        # reload_params() must not stitch one image from two checkpoints
+        replicas = self._replicas
         pending: list = []
 
         def drain_one():
             c0_, b_, res = pending.pop(0)
-            out[c0_ : c0_ + b_] = res.cpu().numpy()[:b_]
+            out[c0_ : c0_ + b_] = np.concatenate([r.cpu().numpy() for r in res])[:b_]
 
         with torch.inference_mode():
             for c0 in range(0, n, step):
@@ -133,7 +145,8 @@ class TiledInference:
                 if bucket > b:
                     chunk = np.concatenate(
                         [chunk, np.zeros((bucket - b,) + chunk.shape[1:], np.uint8)])
-                pending.append((c0, b, self._forward(model, np.ascontiguousarray(chunk[..., None]))))
+                pending.append((c0, b, self._forward(replicas,
+                                                     np.ascontiguousarray(chunk[..., None]))))
                 # bounded window: a huge image must not keep every chunk's
                 # buffers alive on the device at once
                 if len(pending) >= self.pipeline_depth:

@@ -20,7 +20,7 @@ and the paths on them) on the CPU: two processes joined by Gloo.
   tolerances of tests/test_torch_port_eval.py.
 - Refusals: ``cli.train`` refuses coordinator flags without
   ``--distributed`` and a batch the ranks do not divide, as the JAX CLI
-  does; the serving and sweep paths still raise, naming item 13b.
+  does.
 - ``cli.evaluate --n_devices 2 --device cpu`` through the launcher prints
   what one process prints.
 
@@ -50,10 +50,7 @@ from image_enhancement_deglaring_tpu.models import enhanced_unet as jax_enhanced
 from image_enhancement_deglaring_tpu.parallel import distributed as jax_distributed
 from image_enhancement_deglaring_tpu.parallel import make_mesh as jax_make_mesh
 from image_enhancement_deglaring_tpu.train.loop import train_model as jax_train_model
-from image_enhancement_deglaring_tpu_torch.cli import enhance as enhance_cli
 from image_enhancement_deglaring_tpu_torch.cli import evaluate as eval_cli
-from image_enhancement_deglaring_tpu_torch.cli import serve as serve_cli
-from image_enhancement_deglaring_tpu_torch.cli import sweep as sweep_cli
 from image_enhancement_deglaring_tpu_torch.cli import train as train_cli
 from image_enhancement_deglaring_tpu_torch.data import generate_synthetic_sd1
 from image_enhancement_deglaring_tpu_torch.data.dataset import (
@@ -64,11 +61,7 @@ from image_enhancement_deglaring_tpu_torch.data.dataset import (
 from image_enhancement_deglaring_tpu_torch.data.pipeline import list_image_paths
 from image_enhancement_deglaring_tpu_torch.eval import evaluate
 from image_enhancement_deglaring_tpu_torch.modelio import export_jax_params
-from image_enhancement_deglaring_tpu_torch.models import LightweightUNet
 from image_enhancement_deglaring_tpu_torch.parallel import distributed, mesh as port_mesh
-from image_enhancement_deglaring_tpu_torch.parallel.sweep import run_sweep
-from image_enhancement_deglaring_tpu_torch.serve.engine import InferenceEngine
-from image_enhancement_deglaring_tpu_torch.serve.tiling import TiledInference
 from image_enhancement_deglaring_tpu_torch.train import train_model
 from image_enhancement_deglaring_tpu_torch.utils import flatten_tree
 from tests.loaders import ArrayLoader
@@ -166,13 +159,11 @@ def test_one_process_mesh_and_its_helpers():
     with pytest.raises(ValueError, match="process group"):
         port_mesh.make_mesh(2, device="cpu")
     x = np.arange(8, dtype=np.float32).reshape(4, 2)
-    (got,) = port_mesh.shard_batch((x,), mesh)
-    np.testing.assert_array_equal(got.numpy(), x)
     np.testing.assert_array_equal(
         port_mesh.put_from_full(x, port_mesh.batch_sharding(mesh)).numpy(), x)
     np.testing.assert_array_equal(port_mesh.fetch_replicated(torch.from_numpy(x), mesh), x)
-    np.testing.assert_array_equal(port_mesh.local_rows(torch.from_numpy(x)), x)
-    assert port_mesh.replicated_sharding(mesh).replicated
+    t = torch.from_numpy(x)
+    assert port_mesh.all_gather_rows(t, mesh) is t and port_mesh.broadcast_from(t, 0, mesh) is t
     assert port_mesh.broadcast_bytes(b"abc", mesh) == b"abc"
     assert distributed.process_count() == 1 and distributed.process_index() == 0
     assert distributed.backend_for("cpu") == "gloo" and distributed.backend_for("cuda") == "nccl"
@@ -405,25 +396,6 @@ def test_cli_train_refuses_what_the_jax_cli_refuses(capsys):
     if not torch.cuda.is_available():  # the clamp: no card, no CUDA ranks
         with pytest.raises(RuntimeError, match="CUDA"):
             train_cli.main(["--data_dir", "unused", "--n_devices", "2"])
-
-
-def _refusals():
-    model = LightweightUNet(features_start=4)
-    yield "engine", lambda: InferenceEngine(model, device="cpu", warmup=False, mesh=object())
-    yield "tiler", lambda: TiledInference(model, device="cpu", mesh=object())
-    yield "run_sweep", lambda: run_sweep(lambda: model, None, mesh=object(), device="cpu")
-    yield "cli.serve", lambda: serve_cli.main(["--data_parallel", "2", "--device", "cpu"])
-    yield "cli.enhance", lambda: enhance_cli.main(["--input", "unused", "--data_parallel", "2",
-                                                   "--device", "cpu"])
-    yield "cli.sweep", lambda: sweep_cli.main(["--data_dir", "unused", "--n_devices", "2",
-                                               "--device", "cpu"])
-
-
-@pytest.mark.parametrize("path", [name for name, _ in _refusals()])
-def test_serving_and_sweep_paths_still_raise_naming_13b(path):
-    call = dict(_refusals())[path]
-    with pytest.raises((NotImplementedError, SystemExit), match="item 13b"):
-        call()
 
 
 def test_cli_evaluate_over_two_ranks_prints_what_one_process_prints(tmp_path, capfd):

@@ -62,6 +62,7 @@ from image_enhancement_deglaring_tpu_torch.data.png import encode_png
 from image_enhancement_deglaring_tpu_torch.eval import load_model_for_eval
 from image_enhancement_deglaring_tpu_torch.modelio import detect_model_arch, load_jax_params
 from image_enhancement_deglaring_tpu_torch.models import LightweightUNet
+from image_enhancement_deglaring_tpu_torch.parallel import make_local_mesh
 from image_enhancement_deglaring_tpu_torch.serve import http_server, imaging, metrics, openapi
 from image_enhancement_deglaring_tpu_torch.serve.tiling import TiledInference
 from image_enhancement_deglaring_tpu_torch.tools import load_test_api
@@ -851,8 +852,11 @@ def test_create_server_on_best_model_both_packages(tmp_path):
 
 
 def test_create_server_refuses_unported_options_and_needs_a_card():
-    with pytest.raises(NotImplementedError, match="item 13"):
-        http_server.create_server(ONNX, warmup=False, device="cpu", mesh=object())
+    # a mesh owns the devices (serving over several is
+    # tests/test_torch_port_serve_mesh.py): another device beside it raises
+    with pytest.raises(ValueError, match="disagrees with the mesh"):
+        http_server.create_server(ONNX, warmup=False, device="cuda",
+                                  mesh=make_local_mesh(2, device="cpu"))
     # quantize="int8" is served now (ROADMAP Queue 1 item 10)
     server = http_server.create_server(ONNX, warmup=False, device="cpu", quantize="int8")
     assert server.model_info["quantize"] == "int8" and server.engine.quantize == "int8"
@@ -914,8 +918,9 @@ def test_tiler_buckets_reload_and_refusals(narrow_params):
     assert not np.array_equal(pt(img), first)
     with pytest.raises(ValueError, match="overlap"):
         TiledInference(_port_model(narrow_params), tile=16, overlap=16, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        TiledInference(_port_model(narrow_params), tile=16, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="disagrees with the mesh"):
+        TiledInference(_port_model(narrow_params), tile=16, overlap=4, device="cuda",
+                       mesh=make_local_mesh(2, device="cpu"))
 
 
 # ----------------------------------------------------------------- loading
@@ -1019,10 +1024,12 @@ def test_cli_parsers_defaults_equal_jax():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--data_parallel"], "item 13"),
+    (["--workers", "2", "--mode", "tile"], "requires --mode resize"),
 ])
 def test_cli_serve_refuses_unported_flags(flags, item):
-    with pytest.raises(NotImplementedError, match=item):
+    """What the JAX CLI refuses, before the model loads (``--data_parallel``
+    is served now: tests/test_torch_port_serve_mesh.py)."""
+    with pytest.raises(SystemExit, match=item):
         serve_cli.main(["--model_path", ONNX, "--device", "cpu"] + flags)
 
 
@@ -1079,10 +1086,12 @@ def test_cli_serve_quantize_int8_serves(monkeypatch):
     assert server.engine._worker is None  # main() stopped the engine
 
 
-@pytest.mark.parametrize("flags,item", [(["--data_parallel", "2"], "item 13")])
+@pytest.mark.parametrize("flags,item", [(["--data_parallel", "2"], "Input path not found")])
 def test_cli_enhance_refuses_unported_flags(flags, item, tmp_path):
-    with pytest.raises(NotImplementedError, match=item):
-        enhance_cli.main(["--input", str(tmp_path), "--model_path", ONNX,
+    """``--data_parallel`` is taken now (tests/test_torch_port_serve_mesh.py):
+    over two CPU replicas a missing input still exits as the JAX CLI does."""
+    with pytest.raises(SystemExit, match=item):
+        enhance_cli.main(["--input", str(tmp_path / "missing"), "--model_path", ONNX,
                           "--device", "cpu"] + flags)
 
 

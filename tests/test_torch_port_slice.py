@@ -24,6 +24,7 @@ from image_enhancement_deglaring_tpu_torch.modelio import (
 )
 from image_enhancement_deglaring_tpu_torch.models import LightweightUNet
 from image_enhancement_deglaring_tpu_torch.ops import fused_kernels as fk
+from image_enhancement_deglaring_tpu_torch.parallel import make_local_mesh
 from image_enhancement_deglaring_tpu_torch.serve import InferenceEngine
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -228,8 +229,11 @@ def test_later_slices_raise_not_implemented():
     assert eng._int8[1]["enc1"]["conv1"].dtype == torch.int8
     with pytest.raises(ValueError, match="quantize"):
         InferenceEngine(LightweightUNet(), device="cpu", warmup=False, quantize="int4")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        InferenceEngine(LightweightUNet(), device="cpu", warmup=False, mesh=object())
+    # serving over a mesh is taken now (tests/test_torch_port_serve_mesh.py);
+    # its batch must divide over the mesh, as the JAX engine's
+    with pytest.raises(ValueError, match="must divide by mesh size"):
+        InferenceEngine(LightweightUNet(), warmup=False, max_batch_size=3,
+                        mesh=make_local_mesh(2, device="cpu"))
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
@@ -250,7 +254,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "          'parallel.sweep', 'cli.sweep', 'utils.config', 'tools.sweep_resident_bench',\n"
         "          'data.cv_ops', 'data.augment', 'utils.profiling', 'tools.crossval_artifact',\n"
         "          'tools.train_synthetic_demo', 'tools.train_roofline', 'native',\n"
-        "          'parallel.mesh', 'parallel.distributed', 'data.jpeg_encode'):\n"
+        "          'parallel.mesh', 'parallel.distributed', 'data.jpeg_encode',\n"
+        "          'serve.engine', 'cli.train'):\n"
         "    assert pkg.__name__ + '.' + m in names, m\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'PIL', 'cv2', 'matplotlib',\n"

@@ -56,6 +56,7 @@ from image_enhancement_deglaring_tpu_torch.parallel import (
     VmappedTrialGroup,
     WandbSweepMirror,
     hyperband_rungs,
+    make_mesh,
     run_sweep,
     run_sweep_from_config,
     run_wandb_agent_sweep,
@@ -376,10 +377,12 @@ def test_run_sweep_from_config_and_refusals(tmp_path, toy):
     result = run_sweep_from_config(_tiny, _loaders(x, y), cfg, output_dir=str(tmp_path),
                                    method="random", device="cpu")
     assert len(result["trials"]) == 2 and result["best"] is not None
-    with pytest.raises(NotImplementedError, match="item 13"):
-        run_sweep(_tiny, _loaders(x, y), mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        VmappedTrialGroup(_tiny(), _trials(), mesh=object(), device="cpu")
+    # a mesh owns the device (sweeps over ranks are
+    # tests/test_torch_port_sweep_mesh.py): another one beside it raises
+    with pytest.raises(ValueError, match="disagrees with the mesh"):
+        run_sweep(_tiny, _loaders(x, y), mesh=make_mesh(device="cpu"), device="cuda")
+    with pytest.raises(ValueError, match="disagrees with the mesh"):
+        VmappedTrialGroup(_tiny(), _trials(), mesh=make_mesh(device="cpu"), device="cuda")
     with pytest.raises(ValueError, match="validation set is empty"):
         run_sweep(_tiny, lambda bs: ([], []), n_trials=2, max_epochs=1, min_iter=1,
                   method="random", output_dir=str(tmp_path / "e"),
@@ -525,8 +528,9 @@ def test_cli_sweep_on_the_cpu(tmp_path, sweep_data, capsys):
 
 
 @pytest.mark.parametrize("flags, match", [
-    (["--n_devices", "2"], "item 13"), (["--distributed"], "item 13"),
-    (["--coordinator_address", "localhost:1234"], "item 13"),
+    (["--process_id", "0"], "require --distributed"),
+    (["--distributed", "--method", "wandb"], "does not compose with --distributed"),
+    (["--coordinator_address", "localhost:1234"], "require --distributed"),
     (["--method", "wandb", "--device", "cpu"], "--method tpe"),
 ])
 def test_cli_sweep_refusals(tmp_path, sweep_data, monkeypatch, flags, match):

@@ -497,13 +497,14 @@ def test_early_stop_after_patience(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--distributed"], 13), (["--n_devices", "2"], 13),
+    (["--distributed", "--method", "wandb"], "does not compose with --distributed"),
+    (["--num_processes", "2"], "require --distributed"),
 ])
 def test_cli_refuses_unported_flags_naming_their_queue_item(flags, item):
-    """cli.train takes these flags now (item 13's training half,
-    tests/test_torch_port_distributed.py); the sweep CLI still refuses
-    them, naming item 13b, before it reads any data."""
-    with pytest.raises(SystemExit, match=f"item {item}b"):
+    """cli.train and cli.sweep take --distributed and --n_devices now
+    (tests/test_torch_port_distributed.py, tests/test_torch_port_sweep_mesh.py);
+    the sweep CLI refuses what the JAX CLI refuses before it reads any data."""
+    with pytest.raises(SystemExit, match=item):
         sweep_cli.main(["--data_dir", "unused", "--device", "cpu", *flags])
 
 
