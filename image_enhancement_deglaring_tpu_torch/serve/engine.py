@@ -13,6 +13,17 @@ with the same public surface (``submit``, ``infer_batch``, ``infer_one``,
   ``pipeline_depth`` batches in flight; a drainer thread copies each result
   to the host (the synchronisation point) and resolves the futures.
 
+While a ``torch.profiler`` session runs, both threads record spans
+(``utils.profiling.span``), the batch's sequence number in ``batch``:
+``engine.form`` (from the first request's dequeue to the padded array;
+``rows``, ``bucket``, and the requests' waits since ``submit`` in
+``wait_ms_sum`` / ``wait_ms_max``), ``engine.step`` (the ``_step`` call)
+with ``engine.step.copy_in`` and ``engine.step.launch`` for each replica
+(``replica``), ``engine.backpressure`` (the collector blocked at
+``pipeline_depth``), ``engine.fetch.wait`` (on CUDA events recorded after
+each replica's work, only while a session runs), ``engine.fetch.copy``
+(the ``_fetch`` call) and ``engine.resolve``.
+
 The uint8 output truncates (floor of x*255), as the reference does.
 
 ``mesh=`` (a ``parallel.mesh.LocalMesh``) serves over several devices of
@@ -36,6 +47,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import itertools
 import queue
 import threading
 import time
@@ -49,6 +61,7 @@ import torch
 from ..modelio.params_import import load_jax_params
 from ..models.model_utils import dequantize_params_int8, quantize_params_int8
 from ..parallel.mesh import replica_devices
+from ..utils.profiling import span
 from ..utils.pytree import flatten_tree
 
 
@@ -66,6 +79,18 @@ class _Replica(NamedTuple):
     device: torch.device
     model: torch.nn.Module
     int8: tuple | None
+
+
+def _done_events(devices) -> tuple:
+    """A CUDA event recorded on each of ``devices``' current stream, after
+    the work launched there so far (none on the CPU)."""
+    events = []
+    for device in devices:
+        if device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(device))
+            events.append(event)
+    return tuple(events)
 
 
 def on_device(device: torch.device):
@@ -149,6 +174,7 @@ class InferenceEngine:
         self._batch_fill: deque[int] = deque(maxlen=1024)
         self._served = 0
         self._batches = 0
+        self._batch_ids = itertools.count()  # the spans' batch numbers
         if warmup:
             self.warmup()
 
@@ -219,17 +245,19 @@ class InferenceEngine:
         rows = batch_u8.shape[0] // len(replicas)
         outs = []
         for i, rep in enumerate(replicas):
-            part = np.ascontiguousarray(batch_u8[i * rows:(i + 1) * rows])
             with on_device(rep.device), torch.inference_mode():
-                x = torch.from_numpy(part).to(rep.device, non_blocking=True)
-                x = x.to(self.compute_dtype) / 255.0
-                if rep.int8 is None:
-                    out = rep.model(x).float()
-                else:
-                    weights = {name.replace("/", "."): w for name, w in flatten_tree(
-                        dequantize_params_int8(rep.int8[1], rep.int8[2])).items()}
-                    out = torch.func.functional_call(rep.model, weights, (x,)).float()
-                outs.append(torch.floor(out.clamp(0.0, 1.0) * 255.0).to(torch.uint8))
+                with span("engine.step.copy_in", replica=i):
+                    part = np.ascontiguousarray(batch_u8[i * rows:(i + 1) * rows])
+                    x = torch.from_numpy(part).to(rep.device, non_blocking=True)
+                with span("engine.step.launch", replica=i):
+                    x = x.to(self.compute_dtype) / 255.0
+                    if rep.int8 is None:
+                        out = rep.model(x).float()
+                    else:
+                        weights = {name.replace("/", "."): w for name, w in flatten_tree(
+                            dequantize_params_int8(rep.int8[1], rep.int8[2])).items()}
+                        out = torch.func.functional_call(rep.model, weights, (x,)).float()
+                    outs.append(torch.floor(out.clamp(0.0, 1.0) * 255.0).to(torch.uint8))
         with self._stats_lock:
             self._batches += 1
         return tuple(outs)
@@ -333,24 +361,34 @@ class InferenceEngine:
                 except queue.Empty:
                     continue
                 batch = [first]
-                deadline = time.monotonic() + self.batch_timeout_s
-                while len(batch) < self.max_batch_size:
-                    remaining = deadline - time.monotonic()
-                    if remaining <= 0:
-                        break
-                    try:
-                        batch.append(req_queue.get(timeout=remaining))
-                    except queue.Empty:
-                        break
+                seq = next(self._batch_ids)
                 try:
-                    imgs = np.stack([r[0] for r in batch])[..., None]
-                    b = imgs.shape[0]
-                    bucket = self._bucket_for(b)
-                    if bucket > b:
-                        pad = np.zeros((bucket - b,) + imgs.shape[1:], np.uint8)
-                        imgs = np.concatenate([imgs, pad])
-                    y = self._step(imgs)
-                    inflight.put((batch, y, b))  # blocks at pipeline_depth
+                    with span("engine.form", batch=seq) as sp:
+                        deadline = time.monotonic() + self.batch_timeout_s
+                        while len(batch) < self.max_batch_size:
+                            remaining = deadline - time.monotonic()
+                            if remaining <= 0:
+                                break
+                            try:
+                                batch.append(req_queue.get(timeout=remaining))
+                            except queue.Empty:
+                                break
+                        imgs = np.stack([r[0] for r in batch])[..., None]
+                        b = imgs.shape[0]
+                        bucket = self._bucket_for(b)
+                        if bucket > b:
+                            pad = np.zeros((bucket - b,) + imgs.shape[1:], np.uint8)
+                            imgs = np.concatenate([imgs, pad])
+                        if sp:
+                            now = time.monotonic()
+                            waits = [now - t_enq for _i, _f, t_enq in batch]
+                            sp.set(rows=b, bucket=bucket, wait_ms_sum=1e3 * sum(waits),
+                                   wait_ms_max=1e3 * max(waits))
+                    with span("engine.step", batch=seq) as sp:
+                        y = self._step(imgs)
+                        done = _done_events(r.device for r in self._replicas) if sp else ()
+                    with span("engine.backpressure", batch=seq):
+                        inflight.put((batch, y, b, seq, done))  # blocks at pipeline_depth
                 except Exception as e:  # the loop must outlive one bad batch
                     for _, fut, _t in batch:
                         if not fut.done():
@@ -371,17 +409,22 @@ class InferenceEngine:
             item = inflight.get()
             if item is None:
                 return
-            batch, y, b = item
+            batch, y, b, seq, done = item
             try:
-                outs = self._fetch(y)[:b, ..., 0]
-                done = time.monotonic()
-                for (_, fut, _t), out in zip(batch, outs):
-                    fut.set_result(out)
-                with self._stats_lock:
-                    for _, _f, t_enq in batch:
-                        self._latencies.append(done - t_enq)
-                    self._batch_fill.append(len(batch))
-                    self._served += len(batch)
+                with span("engine.fetch.wait", batch=seq):
+                    for event in done:
+                        event.synchronize()
+                with span("engine.fetch.copy", batch=seq):
+                    outs = self._fetch(y)[:b, ..., 0]
+                with span("engine.resolve", batch=seq):
+                    done = time.monotonic()
+                    for (_, fut, _t), out in zip(batch, outs):
+                        fut.set_result(out)
+                    with self._stats_lock:
+                        for _, _f, t_enq in batch:
+                            self._latencies.append(done - t_enq)
+                        self._batch_fill.append(len(batch))
+                        self._served += len(batch)
             except Exception as e:  # the loop must outlive one bad batch
                 for _, fut, _t in batch:
                     if not fut.done():

@@ -21,7 +21,14 @@ On the card:
   ``device_augment=True`` augments each batch on the device;
 - augmentation and dropout draw from one generator on the device
   (``TrainState.generator``), saved in every checkpoint, so a resumed run
-  continues the stream.
+  continues the stream;
+- while a ``torch.profiler`` session runs (``profile_dir``), the step
+  records the span ``train.step`` (``utils.profiling.span``) around
+  ``train.augment``, ``train.forward`` (forward and loss),
+  ``train.backward``, ``train.reduce`` (under a mesh), ``train.clip`` and
+  ``train.update``; the loop records ``train.data_wait`` (the prefetcher's
+  next batch) and ``train.fetch`` (the losses' copy to the host), the
+  resident segment ``train.gather``.
 
 Over several GPUs (``mesh=``, a ``parallel.mesh.DataMesh``; one process
 per device), as JAX's step over its global mesh:
@@ -70,7 +77,7 @@ from ..modelio.params_import import (
 from ..models.enhanced_unet import synced_batch_stats
 from ..ops.conv_blocks import highest_precision
 from ..ops.metrics import batched_psnr_ssim, l1_loss
-from ..utils.profiling import start_trace, stop_trace
+from ..utils.profiling import span, start_trace, stop_trace
 from ..utils.pytree import flatten_tree, unflatten_tree
 from .checkpoint import restore_checkpoint, restore_checkpoint_all_hosts, save_checkpoint
 from .lr_control import ReduceLROnPlateau
@@ -161,25 +168,31 @@ def make_step_body(*, stateful: bool = False, augment_fn=None, mesh=None):
     masks from the same generator."""
 
     def step_body(state: TrainState, x: torch.Tensor, y: torch.Tensor):
-        model, opt = state.model, state.optimizer
-        model.train()
-        opt.zero_grad(set_to_none=True)
-        if augment_fn is not None:
-            x, y = augment_fn(state.generator, x, y)
-        exact = getattr(model, "dtype", torch.float32) == torch.float32
-        params = [p for g in opt.param_groups for p in g["params"]]
-        with (highest_precision() if exact else contextlib.nullcontext(),
-              synced_batch_stats(mesh)):
-            out = model(x, train=True, generator=state.generator) if stateful else model(x)
-            loss = l1_loss(out, y)
-            loss.backward()
-            if mesh is not None and mesh.in_group:  # a group of one still reduces
-                average_gradients(params, mesh)
-            if opt.clip_grad_norm > 0:
-                with torch.no_grad():
-                    clip_grad_norm_(params, opt.clip_grad_norm)
-            opt.step()
-        state.step += 1
+        with span("train.step"):
+            model, opt = state.model, state.optimizer
+            model.train()
+            opt.zero_grad(set_to_none=True)
+            if augment_fn is not None:
+                with span("train.augment"):
+                    x, y = augment_fn(state.generator, x, y)
+            exact = getattr(model, "dtype", torch.float32) == torch.float32
+            params = [p for g in opt.param_groups for p in g["params"]]
+            with (highest_precision() if exact else contextlib.nullcontext(),
+                  synced_batch_stats(mesh)):
+                with span("train.forward"):
+                    out = model(x, train=True, generator=state.generator) if stateful else model(x)
+                    loss = l1_loss(out, y)
+                with span("train.backward"):
+                    loss.backward()
+                if mesh is not None and mesh.in_group:  # a group of one still reduces
+                    with span("train.reduce"):
+                        average_gradients(params, mesh)
+                if opt.clip_grad_norm > 0:
+                    with span("train.clip"), torch.no_grad():
+                        clip_grad_norm_(params, opt.clip_grad_norm)
+                with span("train.update"):
+                    opt.step()
+            state.step += 1
         return state, loss.detach()
 
     return step_body
@@ -563,7 +576,8 @@ def train_model(model, train_loader, val_loader, *, epochs: int,
                 while s < steps:
                     e = min(s + seg_len, steps)
                     state, seg_losses = res_segment_fn(state, rd_train.x, rd_train.y, idx[s:e])
-                    parts.append(_global_losses(seg_losses, mesh))  # one fetch per segment
+                    with span("train.fetch"):  # one fetch per segment
+                        parts.append(_global_losses(seg_losses, mesh))
                     s = e
                     if s < steps and guard is not None:
                         # every rank reaches a segment boundary in lock step
@@ -595,8 +609,8 @@ def train_model(model, train_loader, val_loader, *, epochs: int,
                     planned_steps = len(train_loader) - (0 if plan_skip else skip)
                 except TypeError:
                     planned_steps = None
-                it = DevicePrefetcher(train_loader, device=dev, prefetch=prefetch,
-                                      input_dtype=input_dtype)
+                it = _waited(DevicePrefetcher(train_loader, device=dev, prefetch=prefetch,
+                                              input_dtype=input_dtype))
                 if progress and is_host0:
                     try:
                         from tqdm import tqdm
@@ -639,7 +653,8 @@ def train_model(model, train_loader, val_loader, *, epochs: int,
                         f"were dropped")
                 n_seen = sum(step_sizes) * world  # every rank steps on as many rows
                 if step_losses:  # one fetch per epoch, not one sync per step
-                    losses_np = _global_losses(torch.stack(step_losses), mesh).numpy()
+                    with span("train.fetch"):
+                        losses_np = _global_losses(torch.stack(step_losses), mesh).numpy()
                     running = float(losses_np @ np.asarray(step_sizes, np.float64)) * world
                 else:
                     running = 0.0
@@ -774,6 +789,18 @@ def train_model(model, train_loader, val_loader, *, epochs: int,
     if best_params is None:
         best_params, best_model_state = export_jax_params(model), model_state()
     return best_params, best_model_state, best_val_loss, state
+
+
+def _waited(batches):
+    """``batches`` with each wait for the next one in a ``train.data_wait``
+    span."""
+    it = iter(batches)
+    while True:
+        with span("train.data_wait"):
+            batch = next(it, None)
+        if batch is None:
+            return
+        yield batch
 
 
 def _global_losses(losses: torch.Tensor, mesh) -> torch.Tensor:

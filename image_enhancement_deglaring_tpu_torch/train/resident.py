@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..utils.profiling import span
 from .loop import make_step_body, make_val_body, val_row
 
 
@@ -164,12 +165,15 @@ def _make_segment_fn(body, mesh=None):
     """The one gather-and-step loop both epoch shapes share: each row of
     ``idx`` gathers its batch (under ``mesh``, this rank's part of it) from
     the resident tensors and runs ``body``; the losses stay on the device,
-    stacked."""
+    stacked. Each gather is a ``train.gather`` span while a profiler
+    session runs."""
 
     def segment(state, x, y, idx):
         losses = []
         for row in _rank_columns(idx, mesh):  # a device tensor's rows: no host sync
-            state, loss = body(state, x.index_select(0, row), y.index_select(0, row))
+            with span("train.gather"):
+                xb, yb = x.index_select(0, row), y.index_select(0, row)
+            state, loss = body(state, xb, yb)
             losses.append(loss)
         return state, torch.stack(losses)
 

@@ -29,7 +29,6 @@ import torch
 
 from image_enhancement_deglaring_tpu.data import augment as jax_augment
 from image_enhancement_deglaring_tpu.data import dataset as jax_dataset
-from image_enhancement_deglaring_tpu.utils import profiling as jax_profiling
 from image_enhancement_deglaring_tpu_torch.cli import train as port_cli
 from image_enhancement_deglaring_tpu_torch.data import cv_ops, generate_synthetic_sd1
 from image_enhancement_deglaring_tpu_torch.data.augment import heavy_augment
@@ -275,10 +274,3 @@ def test_trace_context_and_step_timer(tmp_path):
         torch.ones(4).add_(1)
     (trace,) = _trace_files(tmp_path)
     assert "aten::add_" in _op_names(trace)
-    timer, jax_timer = profiling.StepTimer(window=4), jax_profiling.StepTimer(window=4)
-    assert timer.ms_per_step == jax_timer.ms_per_step == float("inf")
-    for _ in range(6):
-        timer.tick(8)
-    assert timer.steps_per_sec > 0 and timer.items_per_sec == pytest.approx(
-        8 * timer.steps_per_sec)
-    assert len(timer._times) == 5 and len(timer._items) == 4
