@@ -50,17 +50,21 @@ Phases, each fatal on failure:
 6. time serving throughput (``infer_batch``) at buckets 8 and 64, with and
    without the kernels, and profile one batch of each: device time by
    kernel and the device's busy share;
-7. training (no kernel runs there: the kernels are forward-only): (a)
-   every kernel wrapper raises under grad mode on CUDA arguments that
-   require grad, and runs under no_grad; (b) one f32 train step of the
-   production model on the card inside ``highest_precision()`` against
-   the same step on the CPU (loss, clipped gradients, parameters); (c)
-   the bf16 train step at batch 32, 512x512: median ms/step, img/s, peak
-   memory, the loss falling, and one profiled step split into cuDNN conv
-   forward and backward, GroupNorm+SiLU, the optimizer and the rest; (d)
-   ``cli.train.main`` on the card over a synthetic dataset from the
-   port's generator, 2 epochs, with its artifacts checked, and the train
-   loader's host rate alone;
+7. training (K1-K5 are forward-only; GroupNorm+SiLU trains through the
+   training pair, ``fused_kernels.gn_silu_train``): (a) every forward-only
+   kernel wrapper raises under grad mode on CUDA arguments that require
+   grad, and runs under no_grad; (b) one f32 train step of the production
+   model on the card inside ``highest_precision()`` against the same step
+   on the CPU (loss, clipped gradients, parameters); (c) the bf16 train
+   step at batch 32, 512x512: 18 launches of each training kernel a step
+   and no fallback, median ms/step, img/s, peak memory, the loss falling,
+   and one profiled step split into cuDNN conv forward and backward,
+   GroupNorm+SiLU, the optimizer and the rest; (d) ``cli.train.main`` on
+   the card over a synthetic dataset from the port's generator, 2 epochs,
+   with its artifacts checked, and the train loader's host rate alone;
+   (e) the training pair at the step's 18 sites (5 shapes, batch 32,
+   bf16) against the composition's gradients, twice bit for bit, and
+   each kernel's time beside its bytes bound;
 8. HTTP serving: first the host work of one request step by step (decode,
    luma, LANCZOS both ways, encode, base64) on one thread, for PNGs under
    one filter and under the filters PIL writes, decodes in 8 threads at
@@ -246,7 +250,8 @@ Phases, each fatal on failure:
    it, bit for bit.
 
 The line before the last is a JSON object with one entry per kernel, its
-launches also by path (each counted from 0 in its own run); the last
+launches also by path (each counted from 0 in its own run; the
+microbenchmarks of phases 3 and 7e give times and errors, not launches); the last
 line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 without the package beside it, the script exits non-zero and prints no
 result.
@@ -284,6 +289,16 @@ ONNX = os.path.join(REPO, "deploy", "models", "best_model.onnx")
 # NVIDIA H100 SXM data sheet, dense: HBM3 bytes/s; bf16 tensor-core and
 # float32 (non-tensor) FLOP/s. The GroupNorm arithmetic runs in float32.
 HBM_BYTES_S = 3.35e12
+# the kernels that serve (K1-K5); the training pair launches on training paths
+FORWARD_ONLY = ("gn_silu_flat", "gn_silu_nhwc", "conv3x3_gn_silu", "conv3x3_gn_silu_batched",
+                "dec1_output")
+
+
+def forward_only(counts: dict) -> dict:
+    """The launches of ``counts`` by the forward-only kernels."""
+    return {k: v for k, v in counts.items() if k in FORWARD_ONLY}
+
+
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 GN_OPS_PER_ELEMENT = 8  # 2 statistics + 2 affine + 4 SiLU
 
@@ -1076,9 +1091,9 @@ def serve_slice() -> dict:
     print(f"served {len(frames)} frames in {forwards} device batches; launches {counts}",
           flush=True)
     # the model has no K4 or K5 switch, as the JAX model has none
-    if counts != {"gn_silu_flat": 14 * forwards, "gn_silu_nhwc": 0,
-                  "conv3x3_gn_silu": 4 * forwards, "conv3x3_gn_silu_batched": 0,
-                  "dec1_output": 0}:
+    if forward_only(counts) != {"gn_silu_flat": 14 * forwards, "gn_silu_nhwc": 0,
+                                "conv3x3_gn_silu": 4 * forwards, "conv3x3_gn_silu_batched": 0,
+                                "dec1_output": 0}:
         raise AssertionError(f"want 14 gn_silu_flat and 4 conv3x3_gn_silu launches per "
                              f"forward over {forwards} forwards, got {counts}")
     if outs.shape != (16, 512, 512) or outs.dtype != np.uint8:
@@ -1108,13 +1123,13 @@ def serve_slice() -> dict:
     print(f"32x32 forward: launches {counts32}", flush=True)
     want32 = {"gn_silu_flat": 12, "gn_silu_nhwc": 2, "conv3x3_gn_silu": 4,
               "conv3x3_gn_silu_batched": 0}
-    if counts32 != want32:
+    if forward_only(counts32) != want32:
         raise AssertionError(f"32x32 forward: want 12/2/4 launches, got {counts32}")
 
     # the same dispatch in float32 tells kernel faults from bf16 rounding
     fk.reset_launch_counts()
     got_small32 = engine(torch.float32, True, 32, max_batch_size=8, warmup=False).infer_batch(small)
-    if dict(fk.LAUNCHES) != want32:
+    if forward_only(fk.LAUNCHES) != want32:
         raise AssertionError(f"32x32 f32 forward: want 12/2/4 launches, got {fk.LAUNCHES}")
     ref_small = engine(torch.float32, False, 32, max_batch_size=8, warmup=False).infer_batch(small)
     d_small = int(np.abs(got_small32.astype(np.int16) - ref_small.astype(np.int16)).max())
@@ -1228,7 +1243,7 @@ def model_entry_points() -> dict:
             counts = {**fk.LAUNCHES, **dec1.LAUNCHES}
             want = {"gn_silu_flat": 0, "gn_silu_nhwc": 0, "conv3x3_gn_silu": 0,
                     "conv3x3_gn_silu_batched": 2 * 2 * len(K4_IMAGES), "dec1_output": 1}
-            if counts != want:
+            if forward_only(counts) != want:
                 raise AssertionError(f"{tag}: entry-point launches {counts}, want {want}")
             if dtype == torch.bfloat16:
                 for k in launches:
@@ -1579,11 +1594,13 @@ def train_step_split(fn, label: str) -> None:
         print(f"    {us / 1e3:.3f} ms  [{kind}] {name[:90]}")
 
 
-def train_throughput(card: str) -> float:
+def train_throughput(card: str) -> tuple[float, dict]:
     """Phase 7c: the bf16 train step at full width (production weights,
     batch 32, 512x512, a seeded synthetic batch), 3 warm-up then 20 timed
-    steps. Returns its img/s."""
+    steps. Returns its img/s and the first step's launches, counted from
+    0 just before it."""
     from image_enhancement_deglaring_tpu_torch.modelio import load_lightweight_unet
+    from image_enhancement_deglaring_tpu_torch.ops import fused_kernels as fk
     from image_enhancement_deglaring_tpu_torch.train import (
         TrainState,
         make_optimizer,
@@ -1600,9 +1617,17 @@ def train_throughput(card: str) -> float:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     losses = []
-    for _ in range(TRAIN_WARMUP):
+    for i in range(TRAIN_WARMUP):
+        fk.reset_launch_counts()
         state, loss = step(state, x, y)
         losses.append(loss)
+        if i == 0:  # every GroupNorm+SiLU site through the training pair
+            launches, fallbacks = dict(fk.LAUNCHES), dict(fk.TRAIN_FALLBACKS)
+            if ({k: v for k, v in launches.items() if v} != {"gn_silu_train_fwd": 18,
+                                                              "gn_silu_train_bwd": 18}
+                    or any(fallbacks.values())):
+                raise AssertionError(f"7c one step launched {launches}, fallbacks {fallbacks}; "
+                                     f"want 18 of each training kernel and none else")
     marks = [torch.cuda.Event(enable_timing=True) for _ in range(TRAIN_STEPS + 1)]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1628,12 +1653,13 @@ def train_throughput(card: str) -> float:
           f"{TRAIN_BATCH / med * 1e3:.1f} img/s; host wall {wall * 1e3 / TRAIN_STEPS:.3f} ms/step; "
           f"peak memory allocated {peak / 2**30:.3f} GiB; losses "
           f"{' '.join(f'{v:.5f}' for v in lv)} (timed steps: first five {first:.5f}, last "
-          f"five {last:.5f}) on {card}", flush=True)
+          f"five {last:.5f}) on {card}; one step's launches {launches}, fallbacks "
+          f"{fallbacks}", flush=True)
     if not np.isfinite(lv).all() or not last < first:
         raise AssertionError(f"train losses not finite and falling over the timed steps: {lv}")
     train_step_split(lambda: step(state, x, y), f"bf16 train step b{TRAIN_BATCH} "
                      f"{TRAIN_SIZE}x{TRAIN_SIZE}")
-    return TRAIN_BATCH / med * 1e3
+    return TRAIN_BATCH / med * 1e3, launches
 
 
 def train_entry_point() -> tuple[float, float]:
@@ -1714,6 +1740,113 @@ def train_entry_point() -> tuple[float, float]:
         raise AssertionError("cli.train on the card did not give its per-epoch lines, "
                              "artifacts and cuda parameters")
     return rates[False], rates[True]
+
+
+# phase 7e: the GroupNorm+SiLU training pair at LightweightUNet's 18 sites of
+# the bf16 step at batch 32, 512x512: (side, channels, sites a step)
+TRAIN_GN_SITES = ((512, 8, 4), (256, 16, 4), (128, 32, 4), (64, 64, 4), (32, 128, 2))
+
+
+def train_gn_kernels() -> dict:
+    """Phase 7e: ``gn_silu_train`` at the training sites' five shapes, bf16:
+    its output, dx, dgamma and dbeta against the float32 composition's,
+    each no further off than the bf16 composition's own; a second call
+    equal bit for bit; the kernels against their plain versions; each
+    kernel's time beside its bytes bound (x, dy read once, the output
+    written once), the plain versions' and the composition's forward and
+    backward, and their sums over a step's 18 sites. Returns the kernel
+    rows; its launches (a microbenchmark's) are printed, not counted on a
+    path."""
+    from image_enhancement_deglaring_tpu_torch.ops import conv_blocks as cb
+    from image_enhancement_deglaring_tpu_torch.ops import fused_kernels as fk
+
+    def comp(x, g, b):
+        return cb.silu(cb.group_norm(x, g, b, num_groups=GROUPS))
+
+    def pair(x, g, b):
+        return fk.gn_silu_train(x, g, b, num_groups=GROUPS)
+
+    def outputs(fn, x, g, b, dy):
+        x, g, b = (t.detach().clone().requires_grad_() for t in (x, g, b))
+        y = fn(x, g, b)
+        return (y,) + torch.autograd.grad(y, (x, g, b), dy.to(x.dtype))
+
+    def rel(a, r):
+        return float((a.float() - r.float()).norm() / r.float().norm())
+
+    gen = torch.Generator(device="cuda").manual_seed(71)
+    rows = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                "library_ms": 0.0, "by": {"bytes": 0.0}}
+            for k in ("gn_silu_train_fwd", "gn_silu_train_bwd")}
+    per_step = {"pair": 0.0, "bound": 0.0, "composition": 0.0}
+    fk.reset_launch_counts()
+    for side, ch, sites in TRAIN_GN_SITES:
+        shape = (TRAIN_BATCH, side, side, ch)
+        x = (torch.randn(shape, device="cuda", generator=gen) * 2 + 0.5).bfloat16()
+        g = torch.randn(ch, device="cuda", generator=gen) * 0.5 + 1
+        b = torch.randn(ch, device="cuda", generator=gen) * 0.5
+        dy = torch.randn(shape, device="cuda", generator=gen).bfloat16()
+        got, again = outputs(pair, x, g, b, dy), outputs(pair, x, g, b, dy)
+        ref = outputs(comp, x.float(), g, b, dy.float())
+        err = [rel(p, r) for p, r in zip(got, ref)]
+        err_bf16 = [rel(p, r) for p, r in zip(outputs(comp, x, g, b, dy), ref)]
+        with torch.no_grad():
+            y, stats = fk.gn_silu_train_fwd(x, g, b, num_groups=GROUPS)
+            dx = fk.gn_silu_train_bwd(x, dy, g, b, stats, num_groups=GROUPS)[0]
+            y_plain, stats_plain = fk.gn_silu_train_fwd_plain(x, g, b, num_groups=GROUPS)
+            dx_plain = fk.gn_silu_train_bwd_plain(x, dy, g, b, stats, num_groups=GROUPS)[0]
+        torch.cuda.synchronize()
+        label = f"7e {TRAIN_BATCH}x{side}^2x{ch} bf16 ({sites} sites)"
+        if not all(torch.equal(p, q) for p, q in zip(got, again)):
+            raise AssertionError(f"{label}: two calls differ")
+        if any(not e <= e_bf16 for e, e_bf16 in zip(err, err_bf16)):
+            raise AssertionError(f"{label}: out/dx/dgamma/dbeta off the float32 composition by "
+                                 f"{err}, the bf16 composition by {err_bf16}")
+        errs = {"gn_silu_train_fwd": check_close(label + " forward", y, y_plain, "gn"),
+                "gn_silu_train_bwd": check_close(label + " dx", dx, dx_plain, "gn")}
+        stats_rel = float(((stats - stats_plain) / stats_plain.abs().clamp_min(1e-6)).abs().max())
+        with torch.no_grad():
+            ms = time_many({
+                "gn_silu_train_fwd": lambda: fk.gn_silu_train_fwd(x, g, b, num_groups=GROUPS),
+                "gn_silu_train_bwd": lambda: fk.gn_silu_train_bwd(x, dy, g, b, stats,
+                                                                  num_groups=GROUPS),
+                "fwd_plain": lambda: fk.gn_silu_train_fwd_plain(x, g, b, num_groups=GROUPS),
+                "bwd_plain": lambda: fk.gn_silu_train_bwd_plain(x, dy, g, b, stats,
+                                                                num_groups=GROUPS)})
+        xg, gg, bg = (t.detach().clone().requires_grad_() for t in (x, g, b))
+        yg = comp(xg, gg, bg)
+        ms.update(time_many({
+            "comp_fwd": lambda: comp(xg, gg, bg),
+            "comp_bwd": lambda: torch.autograd.grad(yg, (xg, gg, bg), dy, retain_graph=True)}))
+        nbytes = x.numel() * x.element_size()
+        bounds = {"gn_silu_train_fwd": 2 * nbytes / HBM_BYTES_S * 1e3,
+                  "gn_silu_train_bwd": 3 * nbytes / HBM_BYTES_S * 1e3}
+        for k, plain, library in (("gn_silu_train_fwd", "fwd_plain", "comp_fwd"),
+                                  ("gn_silu_train_bwd", "bwd_plain", "comp_bwd")):
+            r = rows[k]
+            r["max_abs_err"] = max(r["max_abs_err"], errs[k])
+            r["ms"] += ms[k]
+            r["plain_ms"] += ms[plain]
+            r["library_ms"] += ms[library]
+            r["bound_ms"] += bounds[k]
+            r["by"]["bytes"] += bounds[k]
+        per_step["pair"] += sites * (ms["gn_silu_train_fwd"] + ms["gn_silu_train_bwd"])
+        per_step["bound"] += sites * sum(bounds.values())
+        per_step["composition"] += sites * (ms["comp_fwd"] + ms["comp_bwd"])
+        print(f"{label}: off the float32 composition out/dx/dgamma/dbeta "
+              f"{', '.join(f'{e:.3g}' for e in err)} (bf16 composition "
+              f"{', '.join(f'{e:.3g}' for e in err_bf16)}); two calls equal; stats vs plain "
+              f"rel {stats_rel:.3g}; ms forward {ms['gn_silu_train_fwd']:.5f} (bound "
+              f"{bounds['gn_silu_train_fwd']:.5f}, plain {ms['fwd_plain']:.5f}, composition "
+              f"{ms['comp_fwd']:.5f}), backward {ms['gn_silu_train_bwd']:.5f} (bound "
+              f"{bounds['gn_silu_train_bwd']:.5f}, plain {ms['bwd_plain']:.5f}, composition "
+              f"{ms['comp_bwd']:.5f})", flush=True)
+    torch.cuda.synchronize()
+    counts = {k: fk.LAUNCHES[k] for k in rows}
+    print(f"7e a step's 18 sites: training pair {per_step['pair']:.3f} ms (bound "
+          f"{per_step['bound']:.3f} ms, {per_step['bound'] / per_step['pair']:.1%} of it), "
+          f"composition {per_step['composition']:.3f} ms; launches {counts}", flush=True)
+    return rows
 
 
 # phase 8: HTTP serving. Traffic (my prediction and readings: PERF.md):
@@ -1938,8 +2071,9 @@ def http_serving(card: str) -> dict:
           f"{len(lat) / wall:.1f} req/s, latency p50/p95/p99 {p50:.2f} / {p95:.2f} / "
           f"{p99:.2f} ms, in {forwards} device batches; launches {counts_resize} on {card}",
           flush=True)
-    if counts_resize != {"gn_silu_flat": 14 * forwards, "gn_silu_nhwc": 0,
-                         "conv3x3_gn_silu": 4 * forwards, "conv3x3_gn_silu_batched": 0}:
+    if forward_only(counts_resize) != {"gn_silu_flat": 14 * forwards, "gn_silu_nhwc": 0,
+                                       "conv3x3_gn_silu": 4 * forwards,
+                                       "conv3x3_gn_silu_batched": 0}:
         raise AssertionError(f"resize traffic: want 14 K1 and 4 K3 launches per each of "
                              f"{forwards} forwards, got {counts_resize}")
 
@@ -1955,8 +2089,9 @@ def http_serving(card: str) -> dict:
     print(f"8b {HTTP_TILE} tile requests {HTTP_TILE_SIZE[1]}x{HTTP_TILE_SIZE[0]} "
           f"({tiler.num_tiles(*HTTP_TILE_SIZE)} tiles each, {tile_forwards} forwards): "
           f"launches {counts_tile}", flush=True)
-    if (counts_tile != {"gn_silu_flat": 14 * tile_forwards, "gn_silu_nhwc": 0,
-                        "conv3x3_gn_silu": 4 * tile_forwards, "conv3x3_gn_silu_batched": 0}
+    if (forward_only(counts_tile) != {"gn_silu_flat": 14 * tile_forwards, "gn_silu_nhwc": 0,
+                                      "conv3x3_gn_silu": 4 * tile_forwards,
+                                      "conv3x3_gn_silu_batched": 0}
             or served() != b0):
         raise AssertionError(f"tile traffic: want 14 K1 and 4 K3 launches per each of "
                              f"{tile_forwards} tile forwards and no engine batch, got "
@@ -2189,7 +2324,7 @@ def evaluation(card: str) -> dict:
         counts32 = dict(fk.LAUNCHES)
         print(f"9a evaluate f32 on cuda, {m32['num_samples']} images in {batches} batches "
               f"({wall32:.2f} s): {fmt_metrics(m32)}; launches {counts32}", flush=True)
-        if m32["num_samples"] != EVAL_N or counts32 != per_forward(batches):
+        if m32["num_samples"] != EVAL_N or forward_only(counts32) != per_forward(batches):
             raise AssertionError(f"f32 evaluation: want {EVAL_N} samples and "
                                  f"{per_forward(batches)} launches, got {m32['num_samples']}, "
                                  f"{counts32}")
@@ -2249,7 +2384,7 @@ def evaluation(card: str) -> dict:
               flush=True)
         print(f"9d evaluate bf16, both knobs off: {fmt_metrics(m16c)}; |delta PSNR| "
               f"{d16:.5f} dB (gate {EVAL_BF16_PSNR_GATE_DB})", flush=True)
-        if d16 > EVAL_BF16_PSNR_GATE_DB or counts16 != per_forward(batches):
+        if d16 > EVAL_BF16_PSNR_GATE_DB or forward_only(counts16) != per_forward(batches):
             raise AssertionError(f"bf16 evaluation: |delta PSNR| {d16} or launches {counts16}")
 
         # 9e: the CLI in its own process on the copy: its printed lines and
@@ -2416,7 +2551,7 @@ def http_workers(card: str, single_load: dict | None) -> dict:
           f"{p50:.2f} / {p95:.2f} / {p99:.2f} ms, {forwards} device batches; min PSNR against "
           f"the engine called directly {worst:.2f} dB (need >= {HTTP_PSNR_GATE_DB}); "
           f"launches {counts}", flush=True)
-    if worst < HTTP_PSNR_GATE_DB or counts != per_forward(forwards):
+    if worst < HTTP_PSNR_GATE_DB or forward_only(counts) != per_forward(forwards):
         raise AssertionError(f"workers: min PSNR {worst}, launches {counts} for {forwards} "
                              "batches")
 
@@ -3015,7 +3150,8 @@ def resident_cli() -> None:
 
 def resident_training(card: str, step_rate: float, loader_rates: tuple) -> dict:
     """Phase 11: resident training and the other families on the card.
-    Returns its kernel launches (none: the kernels are forward-only and the
+    Returns its kernel launches: the training pair's (LightweightUNet's
+    GroupNorm+SiLU), no forward-only kernel's (the paths train, and the
     other families have none)."""
     from image_enhancement_deglaring_tpu_torch.ops import dec1
     from image_enhancement_deglaring_tpu_torch.ops import fused_kernels as fk
@@ -3030,8 +3166,9 @@ def resident_training(card: str, step_rate: float, loader_rates: tuple) -> dict:
         print(f"phase {label}: {time.perf_counter() - t:.1f} s", flush=True)
     counts = {**fk.LAUNCHES, **dec1.LAUNCHES}
     print(f"11 kernel launches over the phase: {counts}", flush=True)
-    if any(counts.values()):
-        raise AssertionError(f"phase 11 launched kernels: {counts}")
+    if any(forward_only(counts).values()) or not (
+            counts["gn_silu_train_fwd"] and counts["gn_silu_train_bwd"]):
+        raise AssertionError(f"phase 11 launched {counts}: want the training pair alone")
     return counts
 
 
@@ -3236,8 +3373,9 @@ def jpeg_uploads(card: str, single_load: dict | None) -> dict:
             alone_ms[n] = lat[0] * 1e3
         torch.cuda.synchronize()
         counts, forwards = dict(fk.LAUNCHES), served() - b0
-        if counts != {"gn_silu_flat": 14 * forwards, "gn_silu_nhwc": 0,
-                      "conv3x3_gn_silu": 4 * forwards, "conv3x3_gn_silu_batched": 0}:
+        if forward_only(counts) != {"gn_silu_flat": 14 * forwards, "gn_silu_nhwc": 0,
+                                    "conv3x3_gn_silu": 4 * forwards,
+                                    "conv3x3_gn_silu_batched": 0}:
             raise AssertionError(f"12a JPEG traffic: want 14 K1 and 4 K3 launches per each of "
                                  f"{forwards} forwards, got {counts}")
         worst = _gate("12a JPEG answers", [
@@ -3525,7 +3663,7 @@ def _per_forward(counts: dict, forwards: int, label: str) -> None:
     and no other kernel of the port did."""
     want = {"gn_silu_flat": 14 * forwards, "gn_silu_nhwc": 0, "conv3x3_gn_silu": 4 * forwards,
             "conv3x3_gn_silu_batched": 0, "dec1_output": 0}
-    if forwards == 0 or counts != want:
+    if forwards == 0 or forward_only(counts) != want:
         raise AssertionError(f"{label}: want 14 K1 / 4 K3 launches per forward over "
                              f"{forwards} forwards, got {counts}")
 
@@ -3876,7 +4014,8 @@ def lifecycle_and_int8(card: str) -> dict:
 
 # phase 14: hyperparameter sweeps on one card (parallel.sweep, cli.sweep),
 # the production LightweightUNet at full width, 512^2, bf16 unless said;
-# the model trains on the composition (the kernels are forward-only). 14a
+# the groups train on the composition (the training pair has no vmap
+# rule), the single steps on the training pair. 14a
 # holds a lock-step group of SWEEP_CFG's 4 trials against 4 single-trial
 # steps (make_step_body + ClippedAdamW) from the same weights. Gates, set
 # before the first card run from the CPU tests' rules: f32 (TF32 off)
@@ -4229,7 +4368,8 @@ def sweep_resume(card: str, work: str, want: dict) -> None:
 def sweeps(card: str) -> dict:
     """Phase 14: 14a group parity, 14b rates and memory, 14c cli.sweep and
     its artifact served, 14d preemption and resume. Returns launches by
-    path; the training paths launch none."""
+    path; the training paths launch no forward-only kernel (the groups run
+    the composition under vmap, the single steps the training pair)."""
     import shutil
     import tempfile
 
@@ -4239,13 +4379,18 @@ def sweeps(card: str) -> dict:
         fn(card)
         print(f"phase {label}: {time.perf_counter() - t:.1f} s", flush=True)
     counts = _launches()
-    print(f"14a-b kernel launches over the sweep's training paths: {counts}", flush=True)
-    if any(counts.values()):
-        raise AssertionError(f"the sweep's training paths launched kernels: {counts}")
+    from image_enhancement_deglaring_tpu_torch.ops import fused_kernels as fk
+
+    print(f"14a-b kernel launches over the sweep's training paths: {counts}; the groups' "
+          f"GroupNorm+SiLU calls on the composition {fk.TRAIN_FALLBACKS}", flush=True)
+    if any(forward_only(counts).values()) or not fk.TRAIN_FALLBACKS["transform"]:
+        raise AssertionError(f"the sweep's training paths launched {counts}, fallbacks "
+                             f"{fk.TRAIN_FALLBACKS}")
     work = tempfile.mkdtemp(prefix="chip_smoke_sweep_")
     try:
         t = time.perf_counter()
         paths, outcome = sweep_cli(card, work)
+        paths["14a-b sweep groups and single steps"] = counts
         print(f"phase 14c: {time.perf_counter() - t:.1f} s", flush=True)
         t = time.perf_counter()
         sweep_resume(card, work, outcome)
@@ -4257,7 +4402,7 @@ def sweeps(card: str) -> dict:
 
 # phase 15: heavy augmentation, the profiler, --visualize, the promotion
 # gate, the training scripts and the native decode, at 512x512 on the
-# production LightweightUNet. Training launches no kernel (forward-only);
+# production LightweightUNet. Training launches the training pair alone;
 # the paths that serve or evaluate launch K1/K3 as the rest of serving does.
 HEAVY_TRIPTYCHS, HEAVY_VAL_SPLIT, HEAVY_BATCH, PROFILE_STEPS = 48, 0.1, 8, 5
 TOOLS_SIZE = 512
@@ -5396,14 +5541,18 @@ def main(argv: list | None = None) -> int:
     phase("6 throughput", throughput, card)
     phase("7a kernels refuse autograd", grad_guard)
     phase("7b f32 train step, card vs CPU", train_f32_parity)
-    step_rate = phase("7c bf16 train step throughput", train_throughput, card)
+    step_rate, paths["7c one bf16 train step"] = phase("7c bf16 train step throughput",
+                                                       train_throughput, card)
     loader_rates = phase("7d cli.train entry point", train_entry_point)
+    # a microbenchmark, as phase 3 is: its rows, not its launches
+    rows.update(phase("7e GroupNorm+SiLU training pair", train_gn_kernels))
     counts, single_load = phase("8 HTTP serving on the card", http_serving, card)
     paths.update(counts)
     paths.update(phase("9 evaluation on the card", evaluation, card))
     paths.update(phase("10 HTTP worker processes", http_workers, card, single_load))
-    phase("11 resident training and the other families", resident_training, card, step_rate,
-          loader_rates)
+    paths["11 resident training and the other families"] = phase(
+        "11 resident training and the other families", resident_training, card, step_rate,
+        loader_rates)
     paths.update(phase("12 JPEG uploads, every family served", jpeg_and_families, card,
                        single_load))
     paths.update(phase("13 lifecycle, exported artifact, int8 serving", lifecycle_and_int8,
@@ -5425,6 +5574,9 @@ def main(argv: list | None = None) -> int:
         "conv3x3_gn_silu": (src + "conv_gn_silu.cu", tpu + "pallas_kernels.py:339"),
         "conv3x3_gn_silu_batched": (src + "conv_gn_silu.cu", tpu + "pallas_kernels.py:419"),
         "dec1_output": (src + "dec1_output.cu", tpu + "pallas_dec1.py:249"),
+        # training replaced XLA's fusion of the composition, no Pallas kernel
+        "gn_silu_train_fwd": (src + "gn_silu.cu", None),
+        "gn_silu_train_bwd": (src + "gn_silu.cu", None),
     }
     kernels = []
     for name, (source, replaces) in meta.items():
@@ -5437,9 +5589,9 @@ def main(argv: list | None = None) -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": max(r["by"], key=r["by"].get), "library_ms": r["library_ms"],
         }
-        if name == "dec1_output":
-            # no one PyTorch call computes the dec1 tail: its yardstick is the
-            # composition of the model's ops
+        if name == "dec1_output" or name.startswith("gn_silu_train"):
+            # no one PyTorch call computes the dec1 tail or a training pass:
+            # the yardstick is the composition of the model's ops
             row["library_ms"], row["composition_ms"] = None, r["library_ms"]
         kernels.append(row)
     missing = [k["name"] for k in kernels if k["launches"] == 0]

@@ -246,8 +246,8 @@ def _sweep(args) -> None:
 
     def model_factory():
         # every group starts from the same seeded init, as the JAX group
-        # starts from model.init(PRNGKey(seed)); the kernels are
-        # forward-only, so the model trains on the composition
+        # starts from model.init(PRNGKey(seed)); under vmap the model trains
+        # on the composition (the GroupNorm+SiLU kernel pair has no vmap rule)
         return ctor(dtype=dtype, generator=torch.Generator().manual_seed(args.seed))
 
     if args.method == "wandb":

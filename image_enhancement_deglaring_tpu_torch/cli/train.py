@@ -205,7 +205,8 @@ def _train(args) -> None:
         val_loader = distributed.LocalSliceLoader(val_loader)
 
     dtype = torch.bfloat16 if args.compute_dtype == "bfloat16" else torch.float32
-    # the kernels are forward-only: training runs the composition
+    # knobs off: on the card GroupNorm+SiLU trains through the kernel pair
+    # (ops.fused_kernels.gn_silu_train); K3 is forward-only
     if args.model == "enhanced":
         model = EnhancedUNet(dtype=dtype, generator=generator)
     elif args.model == "optimized":

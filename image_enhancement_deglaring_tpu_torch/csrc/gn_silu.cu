@@ -46,13 +46,39 @@
 // that do not fill 16-byte vectors (C % 8 != 0 in bf16), or a slab that is
 // not 16-byte aligned, take the same kernel one element at a time.
 //
+// Training replaces no TPU kernel (the TPU trained through XLA's fusion of
+// the composition; the port's float32 composition took half of a bf16
+// training step): a differentiable pair, bound by bytes like K1.
+//   gn_silu_train_fwd  the same kernel with kSaveStats: the variance is the
+//                      centred second moment (each chunk sums (x - m_c)^2
+//                      about its own channel means m_c from shared memory,
+//                      and the image's fold adds n_k (m_c - mean)^2 per
+//                      chunk k, Chan's combination), and chunk 0 of each
+//                      image writes (mean, rstd) per group for the backward.
+//   gn_silu_train_bwd  the forward's design with x and dy both staged:
+//                      1. x and dy of the chunk come into shared memory once;
+//                      2. from the saved statistics it recomputes z = x*a + b
+//                         (the forward's affine), x^ = (x - mean) * rstd and
+//                         dz = dy s (1 + z (1 - s)) with s = sigmoid(z), and
+//                         writes the chunk's per-channel sums of dz and dz x^
+//                         to its slot: the partials of dbeta and dgamma;
+//                      3. after the image's handshake every block folds the
+//                         slots per group, weighted by gamma, into
+//                         A = sum gamma dz and B = sum gamma dz x^ (fixed order);
+//                      4. dx = rstd (gamma dz - A / D - x^ B / D) from the chunk
+//                         in shared memory, D = pixels * channels of a group;
+//                      then a second launch folds every image's slots per
+//                      channel, in a fixed order, into dgamma and dbeta.
+//                      Least traffic: x and dy read once, dx written once.
+//
 // ops/fused_kernels.py's _gn_plan computes the launch plan (chunk size,
 // chunks per image, images per wave, resident pixels, threads, shared
-// memory) and mirrors block_threads and smem_bytes below: change both
-// together.
+// memory; `staged` tensors in shared memory, 1 forward, 2 backward) and
+// mirrors block_threads and smem_bytes below: change both together.
 #include <cstdint>
 
 #include "gn_common.cuh"
+
 
 namespace gnk {
 
@@ -68,18 +94,19 @@ __host__ __device__ inline int block_threads(int C, int vec) {
   return unit * (kThreadTarget / unit > 1 ? kThreadTarget / unit : 1);
 }
 
-// Floats of a block's reduction scratch for x and x^2: per warp and channel
+// Floats of a block's reduction scratch for two sums: per warp and channel
 // after a warp shuffle (vectors), or per thread (elements). It holds the
-// per-channel affine (2 * C floats) afterwards.
+// per-channel affine (2 * C floats) or the per-group sums (2 * G) afterwards.
 __host__ __device__ inline int red_floats(int C, int vec, int threads) {
   return 2 * (vec > 1 ? C * (threads / 32) : threads);
 }
 
-// Dynamic shared memory: a chunk's resident part, 16-byte aligned, then the
-// reduction scratch.
+// Dynamic shared memory: the resident part of each of the `staged` tensors
+// (x; or x and dy), each 16-byte aligned, then the reduction scratch.
 __host__ __device__ inline size_t smem_bytes(int C, int elem, int vec, int threads,
-                                             int resident_pix) {
-  return ((size_t)resident_pix * C * elem + 15) / 16 * 16 + 4 * (size_t)red_floats(C, vec, threads);
+                                             int resident_pix, int staged = 1) {
+  return staged * (((size_t)resident_pix * C * elem + 15) / 16 * 16) +
+         4 * (size_t)red_floats(C, vec, threads);
 }
 
 struct Args {
@@ -88,10 +115,25 @@ struct Args {
   const float* beta;
   void* y;
   int* count;   // (n,) arrival counters, 0 between calls
-  float* part;  // (n, chunks, C) of (sum x, sum x^2)
+  float* part;  // (n, chunks, C) of (sum x, sum x^2), or (sum x, centred sum) with stats
   int n, P, C, G;
   int chunk_pix, chunks, images, resident_pix;
   float denom, eps;
+  float* stats;  // (n, G) of (mean, rstd), written by the training forward
+};
+
+struct BwdArgs {
+  const void* x;
+  const void* dy;
+  const float* gamma;
+  const float* beta;
+  const float* stats;  // (n, G) of (mean, rstd) from the forward
+  void* dx;
+  int* count;   // (n,) arrival counters, 0 between calls
+  float* part;  // (n, chunks, C) of (sum dz, sum dz x^)
+  int n, P, C, G;
+  int chunk_pix, chunks, images, resident_pix;
+  float denom;
 };
 
 // 16 bytes <-> float32 values: 4 float32 or 8 bf16 (a bf16 is the high half
@@ -166,6 +208,52 @@ __device__ __forceinline__ void affine_silu(float (&f)[VW], const float (&a)[VW]
     f[k] = __fdividef(z, 1.f + __expf(-z));
   }
 }
+// The backward of affine_silu at x = f: dz = dy s (1 + z (1 - s)) with
+// s = sigmoid(z), z = x*a + b; into d. x^ = x*r + o into f.
+template <int VW>
+__device__ __forceinline__ void silu_grad(float (&f)[VW], float (&d)[VW], const float (&a)[VW],
+                                          const float (&b)[VW], const float (&r)[VW],
+                                          const float (&o)[VW]) {
+#pragma unroll
+  for (int k = 0; k < VW; ++k) {
+    const float z = f[k] * a[k] + b[k];
+    const float s = __fdividef(1.f, 1.f + __expf(-z));
+    d[k] = d[k] * s * (1.f + z * (1.f - s));
+    f[k] = f[k] * r[k] + o[k];
+  }
+}
+
+// The block's per-channel sums of v into rows of dst (C floats a row): the
+// lanes that hold one channel unit fold by shuffles and write one row per
+// warp (vectors; unit | 32), or each thread writes its own (elements).
+template <int VW>
+__device__ __forceinline__ void to_rows(float (&v)[VW], float* dst, int C, int unit) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  if constexpr (VW > 1) {
+    for (int off = 16; off >= unit; off >>= 1) {
+#pragma unroll
+      for (int k = 0; k < VW; ++k) v[k] += __shfl_xor_sync(kFull, v[k], off);
+    }
+    if (lane < unit) {
+#pragma unroll
+      for (int k = 0; k < VW; ++k) dst[warp * C + lane * VW + k] = v[k];
+    }
+  } else {
+    dst[threadIdx.x] = v[0];  // row t / C, channel t % C
+  }
+}
+
+// Channel c's sum over the rows of src, in row order.
+__device__ __forceinline__ float row_sum(const float* src, int rows, int C, int c) {
+  float a = 0.f;
+  for (int r = 0; r < rows; ++r) a += src[r * C + c];
+  return a;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
+  return v;
+}
 
 // `elems` elements from device memory into shared memory: 16-byte cp.async
 // copies where source and length are 16-byte aligned (wait with
@@ -213,9 +301,24 @@ __device__ __forceinline__ void wait_for(const int* cnt, int chunks) {
     if (clock_ns() - t0 > kWaitLimitNs) __trap();
 }
 
+// Every chunk of the image has written its slot: arrive, wait for the
+// rest, and the last block to leave sets the counter back to 0. The whole
+// block calls it after __syncthreads.
+__device__ __forceinline__ void image_handshake(int* cnt, int chunks) {
+  if (chunks > 1) {
+    if (threadIdx.x == 0) {
+      arrive_release(cnt);
+      wait_for(cnt, chunks);
+      if (atomicAdd(cnt, 1) == 2 * chunks - 1) atomicExch(cnt, 0);  // the last to leave
+    }
+    __syncthreads();
+  }
+}
+
 // VW = 16 / sizeof(T) (16-byte vectors; C % VW == 0, C / VW divides 32,
-// slab and pointers 16-byte aligned) or 1 (any shape).
-template <typename T, int VW>
+// slab and pointers 16-byte aligned) or 1 (any shape). kSaveStats: the
+// training forward (centred variance, statistics written).
+template <typename T, int VW, bool kSaveStats>
 __global__ void __launch_bounds__(VW == 1 ? kMaxThreads : kThreadTarget, 1)
     gn_silu_kernel(const Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -264,48 +367,39 @@ __global__ void __launch_bounds__(VW == 1 ? kMaxThreads : kThreadTarget, 1)
       load_shared<T, VW>(xs, j, f);
       add_sums(f, s, q);
     }
-    if constexpr (VW > 1) {
-      // lanes with equal lane % unit hold the same channels (unit | 32)
-      for (int off = 16; off >= unit; off >>= 1) {
+    to_rows(s, red, C, unit);
+    if constexpr (kSaveStats) {
+      // second pass: sums of squares about the chunk's own channel means
+      __syncthreads();
+      float m[VW];
 #pragma unroll
-        for (int k = 0; k < VW; ++k) {
-          s[k] += __shfl_xor_sync(kFull, s[k], off);
-          q[k] += __shfl_xor_sync(kFull, q[k], off);
-        }
+      for (int k = 0; k < VW; ++k) {
+        m[k] = row_sum(red, rows, C, u * VW + k) / (float)(p1 - p0);
+        q[k] = 0.f;
       }
-      if (lane < unit) {
+      for (int j = t; j < n_str; j += nt) {
+        float f[VW];
+        load_global<T, VW>(xstr, j, f);
 #pragma unroll
-        for (int k = 0; k < VW; ++k) {
-          red[warp * C + lane * VW + k] = s[k];
-          red_q[warp * C + lane * VW + k] = q[k];
-        }
+        for (int k = 0; k < VW; ++k) q[k] += (f[k] - m[k]) * (f[k] - m[k]);
       }
-    } else {
-      red[t] = s[0];  // row t / C, channel t % C
-      red_q[t] = q[0];
+      for (int j = t; j < n_res; j += nt) {
+        float f[VW];
+        load_shared<T, VW>(xs, j, f);
+#pragma unroll
+        for (int k = 0; k < VW; ++k) q[k] += (f[k] - m[k]) * (f[k] - m[k]);
+      }
     }
+    to_rows(q, red_q, C, unit);
     __syncthreads();
     float2* slots = reinterpret_cast<float2*>(a.part) + (size_t)img * a.chunks * C;
-    for (int c = t; c < C; c += nt) {
-      float sa = 0.f, sb = 0.f;
-      for (int r = 0; r < rows; ++r) {
-        sa += red[r * C + c];
-        sb += red_q[r * C + c];
-      }
-      slots[(size_t)chunk * C + c] = make_float2(sa, sb);
-    }
+    for (int c = t; c < C; c += nt)
+      slots[(size_t)chunk * C + c] = make_float2(row_sum(red, rows, C, c),
+                                                 row_sum(red_q, rows, C, c));
     __syncthreads();
 
     // 3. every chunk of the image has written its slot
-    if (a.chunks > 1) {
-      if (t == 0) {
-        int* cnt = a.count + img;
-        arrive_release(cnt);
-        wait_for(cnt, a.chunks);
-        if (atomicAdd(cnt, 1) == 2 * a.chunks - 1) atomicExch(cnt, 0);  // the last to leave
-      }
-      __syncthreads();
-    }
+    image_handshake(a.count + img, a.chunks);
 
     // 4. (mean, rstd) per group, the same fold in every block of the image;
     // the per-channel affine goes where the reduction scratch was
@@ -319,12 +413,31 @@ __global__ void __launch_bounds__(VW == 1 ? kMaxThreads : kThreadTarget, 1)
           sa += v.x;
           sb += v.y;
         }
-        for (int off = 16; off > 0; off >>= 1) {
-          sa += __shfl_xor_sync(kFull, sa, off);
-          sb += __shfl_xor_sync(kFull, sb, off);
-        }
+        sa = warp_sum(sa);
         const float mean = sa / a.denom;
-        const float rstd = rsqrtf(sb / a.denom - mean * mean + a.eps);
+        float var;
+        if constexpr (kSaveStats) {
+          // Chan: the chunks' centred sums, each moved from its channel
+          // mean to the group's
+          sb = 0.f;
+          for (int i = lane; i < a.chunks * cg; i += 32) {
+            const int k = i / cg;
+            const float2 v = __ldcg(slots + (size_t)k * C + g * cg + i % cg);
+            const float nk = (float)(min(a.P, (k + 1) * a.chunk_pix) - k * a.chunk_pix);
+            const float d = v.x / nk - mean;
+            sb += v.y + nk * d * d;
+          }
+          var = warp_sum(sb) / a.denom;
+        } else {
+          var = warp_sum(sb) / a.denom - mean * mean;
+        }
+        const float rstd = rsqrtf(var + a.eps);
+        if constexpr (kSaveStats) {
+          if (chunk == 0 && lane == 0) {
+            a.stats[((size_t)img * a.G + g) * 2] = mean;
+            a.stats[((size_t)img * a.G + g) * 2 + 1] = rstd;
+          }
+        }
         for (int c = g * cg + lane; c < (g + 1) * cg; c += 32) {
           const float ac = rstd * a.gamma[c];
           coef[c] = ac;
@@ -368,29 +481,228 @@ __global__ void __launch_bounds__(VW == 1 ? kMaxThreads : kThreadTarget, 1)
   }
 }
 
+// The backward of gn_silu_kernel<T, VW, true>, on the same plan with x and
+// dy staged; writes dx and the per-chunk slots that gn_param_grads_kernel
+// folds.
 template <typename T, int VW>
-cudaError_t launch_instance(const Args& a, int threads, int smem, cudaStream_t st) {
-  auto* kernel = gn_silu_kernel<T, VW>;
-  // the shared-memory limit, raised once per device and instance
+__global__ void __launch_bounds__(VW == 1 ? kMaxThreads : kThreadTarget, 1)
+    gn_silu_bwd_kernel(const BwdArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int C = a.C, t = threadIdx.x, nt = blockDim.x;
+  const int unit = C / VW, u = t % unit;
+  const int lane = t % 32, warp = t / 32;
+  const size_t res_bytes = ((size_t)a.resident_pix * C * sizeof(T) + 15) / 16 * 16;
+  T* xs = reinterpret_cast<T*>(smem);
+  T* ds = reinterpret_cast<T*>(smem + res_bytes);
+  float* red = reinterpret_cast<float*>(smem + 2 * res_bytes);
+  const int rows = VW > 1 ? nt / 32 : nt / C;
+  float* red_q = red + rows * C;
+  const int member = blockIdx.x / a.chunks, chunk = blockIdx.x % a.chunks;
+  const int p0 = chunk * a.chunk_pix;
+  const int p1 = min(a.P, p0 + a.chunk_pix);
+  const int pr = min(p1, p0 + a.resident_pix);
+  const int n_res = (pr - p0) * unit, n_str = (p1 - pr) * unit;
+  const size_t slab = (size_t)a.P * C;
+  const int seg = (n_res + kSegments * nt - 1) / (kSegments * nt) * nt;
+  const int cg = C / a.G;
+
+  for (int img = member; img < a.n; img += a.images) {
+    const size_t off = img * slab + (size_t)p0 * C, off_str = (size_t)(pr - p0) * C;
+    const T* xg = static_cast<const T*>(a.x) + off;
+    const T* dg = static_cast<const T*>(a.dy) + off;
+    T* dxg = static_cast<T*>(a.dx) + off;
+    const int next = img + a.images;
+
+    // the forward's affine (a, b) and x^ = x*r + o for this thread's channels
+    float ca[VW], cb[VW], cr[VW], co[VW];
+#pragma unroll
+    for (int k = 0; k < VW; ++k) {
+      const int c = u * VW + k;
+      const float mean = a.stats[((size_t)img * a.G + c / cg) * 2];
+      const float rstd = a.stats[((size_t)img * a.G + c / cg) * 2 + 1];
+      ca[k] = rstd * a.gamma[c];
+      cb[k] = a.beta[c] - mean * ca[k];
+      cr[k] = rstd;
+      co[k] = -mean * rstd;
+    }
+
+    // 1-2. x and dy into shared memory; per channel sums of dz and dz x^,
+    // first of the part read twice, then of the resident part
+    if (img == member) {
+      copy_in(xs, xg, (pr - p0) * C);
+      copy_in(ds, dg, (pr - p0) * C);
+    }
+    float s[VW], q[VW];
+#pragma unroll
+    for (int k = 0; k < VW; ++k) s[k] = q[k] = 0.f;
+    for (int j = t; j < n_str; j += nt) {
+      float f[VW], d[VW];
+      load_global<T, VW>(xg + off_str, j, f);
+      load_global<T, VW>(dg + off_str, j, d);
+      silu_grad(f, d, ca, cb, cr, co);
+#pragma unroll
+      for (int k = 0; k < VW; ++k) {
+        s[k] += d[k];
+        q[k] += d[k] * f[k];
+      }
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();
+    for (int j = t; j < n_res; j += nt) {
+      float f[VW], d[VW];
+      load_shared<T, VW>(xs, j, f);
+      load_shared<T, VW>(ds, j, d);
+      silu_grad(f, d, ca, cb, cr, co);
+#pragma unroll
+      for (int k = 0; k < VW; ++k) {
+        s[k] += d[k];
+        q[k] += d[k] * f[k];
+      }
+    }
+    to_rows(s, red, C, unit);
+    to_rows(q, red_q, C, unit);
+    __syncthreads();
+    float2* slots = reinterpret_cast<float2*>(a.part) + (size_t)img * a.chunks * C;
+    for (int c = t; c < C; c += nt)
+      slots[(size_t)chunk * C + c] = make_float2(row_sum(red, rows, C, c),
+                                                 row_sum(red_q, rows, C, c));
+    __syncthreads();
+
+    // 3. every chunk of the image has written its slot
+    image_handshake(a.count + img, a.chunks);
+
+    // 4. per group A / D and B / D, the same fold in every block of the image,
+    // where the reduction scratch was
+    float* gsum = red;
+    const int full_warps = nt / 32;
+    if (warp < full_warps) {
+      for (int g = warp; g < a.G; g += full_warps) {
+        float sa = 0.f, sb = 0.f;
+        for (int i = lane; i < a.chunks * cg; i += 32) {
+          const int c = g * cg + i % cg;
+          const float2 v = __ldcg(slots + (size_t)(i / cg) * C + c);
+          sa += a.gamma[c] * v.x;
+          sb += a.gamma[c] * v.y;
+        }
+        sa = warp_sum(sa);
+        sb = warp_sum(sb);
+        if (lane == 0) {
+          gsum[g] = sa / a.denom;
+          gsum[a.G + g] = sb / a.denom;
+        }
+      }
+    }
+    __syncthreads();
+
+    // 5. dx = dz * rstd gamma + x^ * (-rstd B / D) - rstd A / D, segment by
+    // segment; the next wave's x and dy stream into each written segment
+    float ce[VW], cf[VW];
+#pragma unroll
+    for (int k = 0; k < VW; ++k) {
+      const int g = (u * VW + k) / cg;
+      ce[k] = -cr[k] * gsum[a.G + g];
+      cf[k] = -cr[k] * gsum[g];
+    }
+    for (int j0 = 0; j0 < n_res; j0 += seg) {
+      const int j1 = min(n_res, j0 + seg);
+      for (int j = j0 + t; j < j1; j += nt) {
+        float f[VW], d[VW];
+        load_shared<T, VW>(xs, j, f);
+        load_shared<T, VW>(ds, j, d);
+        silu_grad(f, d, ca, cb, cr, co);
+#pragma unroll
+        for (int k = 0; k < VW; ++k) d[k] = d[k] * ca[k] + (f[k] * ce[k] + cf[k]);
+        store_global<T, VW>(dxg, j, d);
+      }
+      if (next < a.n) {
+        __syncthreads();
+        const size_t e0 = (size_t)j0 * VW, skip = (size_t)a.images * slab;
+        copy_in(xs + e0, xg + skip + e0, (j1 - j0) * VW);
+        copy_in(ds + e0, dg + skip + e0, (j1 - j0) * VW);
+      }
+    }
+    for (int j = t; j < n_str; j += nt) {
+      float f[VW], d[VW];
+      load_global<T, VW>(xg + off_str, j, f);
+      load_global<T, VW>(dg + off_str, j, d);
+      silu_grad(f, d, ca, cb, cr, co);
+#pragma unroll
+      for (int k = 0; k < VW; ++k) d[k] = d[k] * ca[k] + (f[k] * ce[k] + cf[k]);
+      store_global<T, VW>(dxg + off_str, j, d);
+    }
+    __syncthreads();  // the chunk and the group sums are free for the next wave
+  }
+}
+
+constexpr int kFoldThreads = 256;
+
+// dbeta[c] = sum of the slots' dz sums, dgamma[c] = of their dz x^ sums,
+// over every (image, chunk) of part (rows of C float2), in a fixed order:
+// strided thread sums, then a tree. One block per channel.
+__global__ void __launch_bounds__(kFoldThreads)
+    gn_param_grads_kernel(const float2* __restrict__ part, float* __restrict__ dgamma,
+                          float* __restrict__ dbeta, int rows, int C) {
+  __shared__ float2 sh[kFoldThreads];
+  const int c = blockIdx.x, t = threadIdx.x;
+  float sa = 0.f, sb = 0.f;
+  for (int r = t; r < rows; r += kFoldThreads) {
+    const float2 v = part[(size_t)r * C + c];
+    sa += v.x;
+    sb += v.y;
+  }
+  sh[t] = make_float2(sa, sb);
+  __syncthreads();
+  for (int w = kFoldThreads / 2; w > 0; w >>= 1) {
+    if (t < w) sh[t] = make_float2(sh[t].x + sh[t + w].x, sh[t].y + sh[t + w].y);
+    __syncthreads();
+  }
+  if (t == 0) {
+    dbeta[c] = sh[0].x;
+    dgamma[c] = sh[0].y;
+  }
+}
+
+// Launches kKernel with `a` on `grid` blocks: cooperatively where its
+// blocks wait for one another (the runtime refuses a grid that cannot all
+// be resident), else plainly. The shared-memory limit is raised once per
+// device and kernel.
+template <auto kKernel, typename A>
+cudaError_t launch_kernel(const A& a, int grid, bool cooperative, int threads, int smem,
+                          cudaStream_t st) {
   static int smem_set[64] = {};
   int dev = 0;
   cudaError_t err;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
   if (dev >= 64) return cudaErrorInvalidDevice;
   if (smem > smem_set[dev]) {
-    if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    if ((err = cudaFuncSetAttribute(kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                     smem)) != cudaSuccess)
       return err;
     smem_set[dev] = smem;
   }
-  const int grid = a.images * a.chunks;
-  if (a.chunks == 1) {  // no block waits for another
-    kernel<<<grid, threads, smem, st>>>(a);
+  if (!cooperative) {
+    kKernel<<<grid, threads, smem, st>>>(a);
     return cudaGetLastError();
   }
-  void* args[] = {const_cast<Args*>(&a)};
-  return cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel), dim3(grid),
+  void* args[] = {const_cast<A*>(&a)};
+  return cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kKernel), dim3(grid),
                                      dim3(threads), args, (size_t)smem, st);
+}
+
+// Checks a plan against the shape (16-byte vectors need `ptrs` aligned);
+// false where the kernel cannot run it.
+template <typename T>
+bool plan_ok(int n, int P, int C, int images, int chunks, int chunk_pix, int resident_pix,
+             int vec, uintptr_t ptrs) {
+  constexpr int kVec = 16 / sizeof(T);
+  if (n < 1 || P < 1 || images < 1 || chunks < 1 || chunk_pix < 1 || resident_pix < 1 ||
+      resident_pix > chunk_pix || (long long)chunks * chunk_pix < P ||
+      (long long)(chunks - 1) * chunk_pix >= P)
+    return false;
+  if (vec == kVec)
+    return C % kVec == 0 && 32 % (C / kVec) == 0 && ((size_t)P * C * sizeof(T)) % 16 == 0 &&
+           ptrs % 16 == 0;
+  return vec == 1;
 }
 
 // Checks the plan against the shape, then launches. Anything else is
@@ -398,37 +710,58 @@ cudaError_t launch_instance(const Args& a, int threads, int smem, cudaStream_t s
 template <typename T>
 cudaError_t launch(const Args& a, int vec, int threads, int smem, cudaStream_t st) {
   constexpr int kVec = 16 / sizeof(T);
-  if (a.n < 1 || a.P < 1 || a.images < 1 || a.chunks < 1 || a.chunk_pix < 1 ||
-      a.resident_pix < 1 || a.resident_pix > a.chunk_pix ||
-      (long long)a.chunks * a.chunk_pix < a.P || (long long)(a.chunks - 1) * a.chunk_pix >= a.P)
+  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(a.x) | reinterpret_cast<uintptr_t>(a.y);
+  if (!plan_ok<T>(a.n, a.P, a.C, a.images, a.chunks, a.chunk_pix, a.resident_pix, vec, ptrs))
     return cudaErrorInvalidValue;
-  if (vec == kVec) {
-    const uintptr_t ptrs = reinterpret_cast<uintptr_t>(a.x) | reinterpret_cast<uintptr_t>(a.y);
-    if (a.C % kVec != 0 || 32 % (a.C / kVec) != 0 || ((size_t)a.P * a.C * sizeof(T)) % 16 != 0 ||
-        ptrs % 16 != 0)
-      return cudaErrorInvalidValue;
-  } else if (vec != 1) {
-    return cudaErrorInvalidValue;
-  }
   if (threads != block_threads(a.C, vec) || threads > kMaxThreads ||
       (size_t)smem < smem_bytes(a.C, sizeof(T), vec, threads, a.resident_pix))
     return cudaErrorInvalidValue;
-  return vec == 1 ? launch_instance<T, 1>(a, threads, smem, st)
-                  : launch_instance<T, kVec>(a, threads, smem, st);
+  const int grid = a.images * a.chunks;
+  const bool coop = a.chunks > 1;  // an image of one chunk needs no handshake
+  if (a.stats != nullptr)
+    return vec == 1 ? launch_kernel<gn_silu_kernel<T, 1, true>>(a, grid, coop, threads, smem, st)
+                    : launch_kernel<gn_silu_kernel<T, kVec, true>>(a, grid, coop, threads, smem,
+                                                                   st);
+  return vec == 1 ? launch_kernel<gn_silu_kernel<T, 1, false>>(a, grid, coop, threads, smem, st)
+                  : launch_kernel<gn_silu_kernel<T, kVec, false>>(a, grid, coop, threads, smem,
+                                                                  st);
+}
+
+template <typename T>
+cudaError_t launch_bwd(const BwdArgs& a, float* dgamma, float* dbeta, int vec, int threads,
+                       int smem, cudaStream_t st) {
+  constexpr int kVec = 16 / sizeof(T);
+  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(a.x) | reinterpret_cast<uintptr_t>(a.dy) |
+                         reinterpret_cast<uintptr_t>(a.dx);
+  if (!plan_ok<T>(a.n, a.P, a.C, a.images, a.chunks, a.chunk_pix, a.resident_pix, vec, ptrs))
+    return cudaErrorInvalidValue;
+  if (threads != block_threads(a.C, vec) || threads > kMaxThreads ||
+      (size_t)smem < smem_bytes(a.C, sizeof(T), vec, threads, a.resident_pix, 2))
+    return cudaErrorInvalidValue;
+  const int grid = a.images * a.chunks;
+  const bool coop = a.chunks > 1;
+  cudaError_t err =
+      vec == 1 ? launch_kernel<gn_silu_bwd_kernel<T, 1>>(a, grid, coop, threads, smem, st)
+               : launch_kernel<gn_silu_bwd_kernel<T, kVec>>(a, grid, coop, threads, smem, st);
+  if (err != cudaSuccess) return err;
+  gn_param_grads_kernel<<<a.C, kFoldThreads, 0, st>>>(reinterpret_cast<const float2*>(a.part),
+                                                     dgamma, dbeta, a.n * a.chunks, a.C);
+  return cudaGetLastError();
 }
 
 }  // namespace gnk
 
 namespace {
 
-int dispatch(const void* x, const void* gamma, const void* beta, void* y, void* count,
-             void* part, int n, int P, int C, int G, int vec, int threads, int chunk_pix,
-             int chunks, int images, int resident_pix, int smem, float eps, int dtype,
-             void* stream) {
+int dispatch(const void* x, const void* gamma, const void* beta, void* y, void* stats,
+             void* count, void* part, int n, int P, int C, int G, int vec, int threads,
+             int chunk_pix, int chunks, int images, int resident_pix, int smem, float eps,
+             int dtype, void* stream) {
   if (C < 1 || G < 1 || C % G != 0) return (int)cudaErrorInvalidValue;  // before C / G
   const gnk::Args a{x, static_cast<const float*>(gamma), static_cast<const float*>(beta), y,
                     static_cast<int*>(count), static_cast<float*>(part), n, P, C, G, chunk_pix,
-                    chunks, images, resident_pix, (float)((double)P * (C / G)), eps};
+                    chunks, images, resident_pix, (float)((double)P * (C / G)), eps,
+                    static_cast<float*>(stats)};
   const auto st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return (int)gnk::launch<float>(a, vec, threads, smem, st);
   if (dtype == 1) return (int)gnk::launch<__nv_bfloat16>(a, vec, threads, smem, st);
@@ -450,16 +783,50 @@ int gn_silu_flat(const void* x, const void* gamma, const void* beta, void* y, vo
                  void* part, int n, int P, int C, int G, int vec, int threads, int chunk_pix,
                  int chunks, int images, int resident_pix, int smem, float eps, int dtype,
                  void* stream) {
-  return dispatch(x, gamma, beta, y, count, part, n, P, C, G, vec, threads, chunk_pix, chunks,
-                  images, resident_pix, smem, eps, dtype, stream);
+  return dispatch(x, gamma, beta, y, nullptr, count, part, n, P, C, G, vec, threads, chunk_pix,
+                  chunks, images, resident_pix, smem, eps, dtype, stream);
 }
 
 int gn_silu_nhwc(const void* x, const void* gamma, const void* beta, void* y, void* count,
                  void* part, int n, int P, int C, int G, int vec, int threads, int chunk_pix,
                  int chunks, int images, int resident_pix, int smem, float eps, int dtype,
                  void* stream) {
-  return dispatch(x, gamma, beta, y, count, part, n, P, C, G, vec, threads, chunk_pix, chunks,
-                  images, resident_pix, smem, eps, dtype, stream);
+  return dispatch(x, gamma, beta, y, nullptr, count, part, n, P, C, G, vec, threads, chunk_pix,
+                  chunks, images, resident_pix, smem, eps, dtype, stream);
+}
+
+// The training forward: gn_silu_flat's arguments, and stats, (n, G, 2)
+// float32, which receives (mean, rstd) per (image, group).
+int gn_silu_train_fwd(const void* x, const void* gamma, const void* beta, void* y, void* stats,
+                      void* count, void* part, int n, int P, int C, int G, int vec, int threads,
+                      int chunk_pix, int chunks, int images, int resident_pix, int smem,
+                      float eps, int dtype, void* stream) {
+  if (stats == nullptr) return (int)cudaErrorInvalidValue;
+  return dispatch(x, gamma, beta, y, stats, count, part, n, P, C, G, vec, threads, chunk_pix,
+                  chunks, images, resident_pix, smem, eps, dtype, stream);
+}
+
+// The training backward, two launches. x, dy, dx: (n, P, C) NHWC contiguous
+// in one dtype (0 = float32, 1 = bfloat16); gamma, beta: (C,) float32; stats:
+// the forward's (n, G, 2). dgamma, dbeta: (C,) float32 outputs. count and
+// part as above; the plan is _gn_plan's with two staged tensors.
+int gn_silu_train_bwd(const void* x, const void* dy, const void* gamma, const void* beta,
+                      const void* stats, void* dx, void* dgamma, void* dbeta, void* count,
+                      void* part, int n, int P, int C, int G, int vec, int threads,
+                      int chunk_pix, int chunks, int images, int resident_pix, int smem,
+                      int dtype, void* stream) {
+  if (C < 1 || G < 1 || C % G != 0 || stats == nullptr) return (int)cudaErrorInvalidValue;
+  const gnk::BwdArgs a{x, dy, static_cast<const float*>(gamma), static_cast<const float*>(beta),
+                       static_cast<const float*>(stats), dx, static_cast<int*>(count),
+                       static_cast<float*>(part), n, P, C, G, chunk_pix, chunks, images,
+                       resident_pix, (float)((double)P * (C / G))};
+  const auto st = static_cast<cudaStream_t>(stream);
+  auto* dg = static_cast<float*>(dgamma);
+  auto* db = static_cast<float*>(dbeta);
+  if (dtype == 0) return (int)gnk::launch_bwd<float>(a, dg, db, vec, threads, smem, st);
+  if (dtype == 1)
+    return (int)gnk::launch_bwd<__nv_bfloat16>(a, dg, db, vec, threads, smem, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

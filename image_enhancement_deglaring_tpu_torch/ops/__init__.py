@@ -29,5 +29,6 @@ from .fused_kernels import (
     gn_silu_flat,
     gn_silu_nhwc,
     gn_silu_plain,
+    gn_silu_train,
     reset_launch_counts,
 )

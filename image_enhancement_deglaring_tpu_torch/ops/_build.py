@@ -32,7 +32,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _GN_ARGS = [_P] * 6 + [_I] * 11 + [_F, _I, _P]
 #: C entry points of each library and their argument types
 SIGNATURES = {
-    "gn_silu": {"gn_silu_flat": _GN_ARGS, "gn_silu_nhwc": _GN_ARGS},
+    "gn_silu": {"gn_silu_flat": _GN_ARGS, "gn_silu_nhwc": _GN_ARGS,
+                "gn_silu_train_fwd": [_P] * 7 + [_I] * 11 + [_F, _I, _P],
+                "gn_silu_train_bwd": [_P] * 10 + [_I] * 12 + [_P]},
     "conv_gn_silu": {"conv3x3_gn_silu_bf16": [_P] * 7 + [_I] * 10 + [_F, _P],
                      "conv3x3_gn_silu_f32": [_P] * 8 + [_I] * 10 + [_F, _P]},
     "dec1_output": {"dec1_output": [_P] * 15 + [_I] * 4 + [_F, _I, _P]},

@@ -112,16 +112,21 @@ def group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *,
 
 
 def _gn_silu_fn(num_groups: int, eps: float, pallas_gn: bool):
-    """GroupNorm+SiLU as one callable (y, scale, bias): through the port's
-    fused kernel dispatcher when ``pallas_gn``, else the composition."""
-    if pallas_gn:
-        from .fused_kernels import fused_group_norm_silu
+    """GroupNorm+SiLU as one callable (y, scale, bias). A grad-mode call on
+    a device tensor runs the port's differentiable kernel pair
+    (``fused_kernels.gn_silu_train``) whatever ``pallas_gn`` is, or the
+    composition where the pair cannot (``fused_kernels.grad_route``);
+    any other call goes through the fused kernel dispatcher when
+    ``pallas_gn``, else the composition."""
+    from . import fused_kernels as fk
 
-        def gn_silu(y, s, b):
-            return fused_group_norm_silu(y, s, b, num_groups=num_groups, eps=eps)
-    else:
-        def gn_silu(y, s, b):
-            return silu(group_norm(y, s, b, num_groups=num_groups, eps=eps))
+    def gn_silu(y, s, b):
+        route = fk.grad_route(y, s, b, num_groups)
+        if route == "kernels":
+            return fk.gn_silu_train(y, s, b, num_groups=num_groups, eps=eps)
+        if pallas_gn and route is None:
+            return fk.fused_group_norm_silu(y, s, b, num_groups=num_groups, eps=eps)
+        return silu(group_norm(y, s, b, num_groups=num_groups, eps=eps))
     return gn_silu
 
 

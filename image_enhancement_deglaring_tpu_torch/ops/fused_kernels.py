@@ -9,6 +9,8 @@ gn_silu_flat              _gn_silu_flat_kernel (K1)            csrc/gn_silu.cu
 gn_silu_nhwc              _gn_silu_kernel (K2)                 csrc/gn_silu.cu
 conv3x3_gn_silu           _conv_gn_silu_kernel (K3)            csrc/conv_gn_silu.cu
 conv3x3_gn_silu_batched   _conv_gn_silu_batched_kernel (K4)    csrc/conv_gn_silu.cu
+gn_silu_train_fwd         none (XLA's fusion of the training   csrc/gn_silu.cu
+gn_silu_train_bwd         composition)                         csrc/gn_silu.cu
 ========================  ===================================  ====================
 
 (K5, the dec1 tail of ``pallas_dec1``, is in :mod:`.dec1`.)
@@ -16,11 +18,14 @@ conv3x3_gn_silu_batched   _conv_gn_silu_batched_kernel (K4)    csrc/conv_gn_silu
 Every wrapper takes and returns NHWC tensors. On a CPU tensor it computes
 its plain PyTorch version (``gn_silu_plain``, ``conv3x3_gn_silu_plain``);
 on a CUDA tensor it launches its kernel on the current stream or raises.
-The kernels are forward-only, as the TPU kernels are (none has a
-backward): on a CUDA tensor a wrapper raises under autograd, when grad
-mode is on and an argument requires grad (``refuse_autograd``), rather
-than return a result that carries no gradient. Train with
-``pallas_gn=False, fused_blocks=False``.
+K1-K5 are forward-only, as the TPU kernels are (none has a backward): on
+a CUDA tensor their wrappers raise under autograd, when grad mode is on
+and an argument requires grad (``refuse_autograd``), rather than return a
+result that carries no gradient. GroupNorm+SiLU trains through
+``gn_silu_train``, an autograd Function over the training pair (a forward
+that saves its statistics, and a fused backward); the models' blocks take
+it for every grad-mode call on a device tensor (``grad_route``).
+Conv+GN+SiLU (K3) has no backward: train with ``fused_blocks=False``.
 Each launch adds one to ``LAUNCHES[<wrapper name>]``. The GroupNorm
 wrappers make one launch under the launch plan ``_gn_plan``. In bfloat16
 the conv wrappers run the tensor-core kernel under the launch plan
@@ -41,20 +46,26 @@ import threading
 from dataclasses import dataclass
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from . import _build
 from .conv_blocks import conv2d, group_norm, highest_precision, silu
 
 #: kernel launches per wrapper since the last reset_launch_counts()
 LAUNCHES = {"gn_silu_flat": 0, "gn_silu_nhwc": 0, "conv3x3_gn_silu": 0,
-            "conv3x3_gn_silu_batched": 0}
+            "conv3x3_gn_silu_batched": 0, "gn_silu_train_fwd": 0, "gn_silu_train_bwd": 0}
+#: grad-mode GroupNorm+SiLU calls on a device tensor that took the
+#: composition instead of ``gn_silu_train``, by reason: inside a
+#: ``torch.func`` transform, or a shape or dtype the kernels do not take
+TRAIN_FALLBACKS = {"transform": 0, "shape": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for table in (LAUNCHES, TRAIN_FALLBACKS):
+        for k in table:
+            table[k] = 0
 
 
 # ------------------------------------------------------------ plain versions
@@ -75,6 +86,57 @@ def gn_silu_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *,
     b = bias.float().reshape(1, 1, num_groups, cg) - mean * a
     y = xf * a + b
     return (y * torch.sigmoid(y)).reshape(x.shape).to(x.dtype)
+
+
+def _acc_dtype(x: torch.Tensor) -> torch.dtype:
+    """The training pair's plain versions compute in float64 for a float64
+    input (``gradcheck``), else in float32 as the kernels do."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
+def gn_silu_train_fwd_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *,
+                            num_groups: int, eps: float = 1e-5):
+    """The training forward as its kernel computes it: K1's function with
+    the variance as the centred second moment. Returns (out, stats), stats
+    (N, G, 2) of (mean, rstd) in float32 (float64 for a float64 input)."""
+    acc = _acc_dtype(x)
+    n, h, w, c = x.shape
+    cg = c // num_groups
+    xf = x.to(acc).reshape(n, h * w, num_groups, cg)
+    mean = xf.mean(dim=(1, 3), keepdim=True, dtype=torch.float64).to(acc)
+    var = (xf - mean).square().mean(dim=(1, 3), keepdim=True, dtype=torch.float64).to(acc)
+    rstd = torch.rsqrt(var + eps)
+    a = rstd * scale.to(acc).reshape(1, 1, num_groups, cg)
+    b = bias.to(acc).reshape(1, 1, num_groups, cg) - mean * a
+    z = xf * a + b
+    out = (z * torch.sigmoid(z)).reshape(x.shape).to(x.dtype)
+    return out, torch.stack([mean.reshape(n, num_groups), rstd.reshape(n, num_groups)], -1)
+
+
+def gn_silu_train_bwd_plain(x: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor,
+                            bias: torch.Tensor, stats: torch.Tensor, *, num_groups: int):
+    """The training backward as its kernel computes it, from the saved
+    input ``x`` and the forward's ``stats``: z = x*a + b again,
+    dz = dy s (1 + z (1 - s)) with s = sigmoid(z), x^ = (x - mean) rstd,
+    dbeta = sum dz, dgamma = sum dz x^, and per group
+    dx = rstd (gamma dz - mean(gamma dz) - x^ mean(gamma dz x^)).
+    Returns (dx in x's dtype, dgamma, dbeta in the parameters' dtypes)."""
+    acc = _acc_dtype(x)
+    n, h, w, c = x.shape
+    cg = c // num_groups
+    xf = x.to(acc).reshape(n, h * w, num_groups, cg)
+    d = dy.to(acc).reshape(xf.shape)
+    mean, rstd = (stats[..., k].to(acc).reshape(n, 1, num_groups, 1) for k in (0, 1))
+    g = scale.to(acc).reshape(1, 1, num_groups, cg)
+    z = xf * (rstd * g) + (bias.to(acc).reshape(g.shape) - mean * rstd * g)
+    s = torch.sigmoid(z)
+    dz = d * s * (1 + z * (1 - s))
+    xh = (xf - mean) * rstd
+    gdz = g * dz
+    dx = rstd * (gdz - gdz.mean(dim=(1, 3), keepdim=True)
+                 - xh * (gdz * xh).mean(dim=(1, 3), keepdim=True))
+    return (dx.reshape(x.shape).to(x.dtype), (dz * xh).sum(dim=(0, 1)).reshape(c).to(scale.dtype),
+            dz.sum(dim=(0, 1)).reshape(c).to(bias.dtype))
 
 
 def conv3x3_gn_silu_plain(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
@@ -139,8 +201,8 @@ def refuse_autograd(name: str, *tensors) -> None:
         raise RuntimeError(
             f"{name}: the CUDA kernel is forward-only (no backward, as the TPU kernel has "
             f"none), but grad mode is on and an argument requires grad; call it under "
-            f"torch.no_grad() or torch.inference_mode(), and train with "
-            f"pallas_gn=False, fused_blocks=False")
+            f"torch.no_grad() or torch.inference_mode(); GroupNorm+SiLU trains through "
+            f"gn_silu_train, and a model with fused_blocks trains with fused_blocks=False")
 
 
 def _raise_on_error(name: str, err: int) -> None:
@@ -260,7 +322,9 @@ class GnPlan:
     ``resident_pix`` pixels in shared memory and reads the rest, if any,
     twice: the route for a slab larger than one wave. ``vec`` is the
     channels a thread reads at a time, 16 bytes' worth, or 1 where the
-    channels, the slab or the input's address do not allow 16-byte vectors."""
+    channels, the slab or the input's address do not allow 16-byte vectors.
+    ``staged`` is the number of tensors a chunk holds in shared memory: 1
+    (x: K1, K2 and the training forward) or 2 (x and dy: the backward)."""
 
     n: int
     pixels: int
@@ -273,6 +337,7 @@ class GnPlan:
     images: int
     resident_pix: int
     smem: int
+    staged: int = 1
 
     @property
     def grid(self) -> int:
@@ -298,18 +363,20 @@ class GnPlan:
 
     @property
     def bytes_read(self) -> int:
-        """Bytes of activation the call reads from device memory: every pixel
-        once, and what a chunk holds beyond its resident pixels once more."""
+        """Bytes of the staged tensors the call reads from device memory:
+        every pixel once, and what a chunk holds beyond its resident pixels
+        once more."""
         again = sum(max(0, p1 - p0 - self.resident_pix)
                     for p0, p1 in map(self.chunk_range, range(self.chunks)))
-        return self.n * (self.pixels + again) * self.c * self.elem
+        return self.staged * self.n * (self.pixels + again) * self.c * self.elem
 
 
 @functools.lru_cache(maxsize=256)
 def _gn_plan(n: int, h: int, w: int, c: int, dtype: torch.dtype, sms: int,
-             aligned: bool = True) -> GnPlan:
-    """The GroupNorm kernel's launch plan on a card with ``sms`` SMs, at
-    most one block per SM. Vectors of 16 bytes where C fills them with C /
+             aligned: bool = True, staged: int = 1) -> GnPlan:
+    """The GroupNorm kernels' launch plan on a card with ``sms`` SMs, at
+    most one block per SM, for ``staged`` tensors of the shape in shared
+    memory (``GnPlan``). Vectors of 16 bytes where C fills them with C /
     vec dividing 32, the slab is a multiple of 16 bytes and the input's
     address is 16-byte ``aligned``; threads and shared memory as
     ``gnk::block_threads`` and ``gnk::smem_bytes`` give them. Then the
@@ -330,7 +397,8 @@ def _gn_plan(n: int, h: int, w: int, c: int, dtype: torch.dtype, sms: int,
     threads = unit * max(1, _GN_THREADS // unit)
     red_bytes = 8 * (c * (threads // 32) if vec > 1 else threads)
     align = 16 // math.gcd(16, pix_bytes)  # pixels from one 16-byte boundary to the next
-    cap = (BLOCK_SHARED_MAX - red_bytes) // pix_bytes // align * align  # pixels a block holds
+    # pixels a block holds
+    cap = (BLOCK_SHARED_MAX - red_bytes) // (staged * pix_bytes) // align * align
     need = -(-p // cap)  # chunks that hold one image
     if need > sms:
         images, chunks = 1, sms
@@ -343,7 +411,7 @@ def _gn_plan(n: int, h: int, w: int, c: int, dtype: torch.dtype, sms: int,
     resident = min(chunk_pix, cap)
     return GnPlan(n=n, pixels=p, c=c, elem=elem, vec=vec, threads=threads, chunk_pix=chunk_pix,
                   chunks=-(-p // chunk_pix), images=images, resident_pix=resident,
-                  smem=-(-resident * pix_bytes // 16) * 16 + red_bytes)
+                  smem=staged * (-(-resident * pix_bytes // 16) * 16) + red_bytes, staged=staged)
 
 
 #: (device index, stream) -> the GroupNorm kernel's workspace on that
@@ -369,7 +437,10 @@ def _gn_workspace(device: torch.device, stream: int, n: int,
     return work, slots
 
 
-def _gn_silu_launch(name: str, x, scale, bias, num_groups: int, eps: float):
+def _gn_silu_launch(name: str, x, scale, bias, num_groups: int, eps: float,
+                    save_stats: bool = False):
+    """Launch gn_silu.cu's forward: K1, K2, or with ``save_stats`` the
+    training forward, which returns (y, stats) instead of y."""
     refuse_autograd(name, x, scale, bias)
     if x.device.type != "cuda":
         raise ValueError(f"{name}: tensor on {x.device}, want cpu or cuda")
@@ -379,17 +450,102 @@ def _gn_silu_launch(name: str, x, scale, bias, num_groups: int, eps: float):
     g, b = _affine(name, x, scale, c), _affine(name, x, bias, c)
     plan = _gn_plan(n, h, w, c, x.dtype, _sm_count(x.device), x.data_ptr() % 16 == 0)
     y = torch.empty_like(x)
+    stats = (torch.empty((n, num_groups, 2), dtype=torch.float32, device=x.device)
+             if save_stats else None)
     fn = getattr(_build.load("gn_silu"), name)
     stream = _stream(x.device)
     with _GN_WORK_LOCK, torch.cuda.device(x.device):
         work, slots = _gn_workspace(x.device, stream, n, n * plan.chunks * c * 2)
-        err = fn(x.data_ptr(), g.data_ptr(), b.data_ptr(), y.data_ptr(), work.data_ptr(),
+        head = (x.data_ptr(), g.data_ptr(), b.data_ptr(), y.data_ptr())
+        if save_stats:
+            head += (stats.data_ptr(),)
+        err = fn(*head, work.data_ptr(), work.data_ptr() + 4 * slots, n, h * w, c, num_groups,
+                 plan.vec, plan.threads, plan.chunk_pix, plan.chunks, plan.images,
+                 plan.resident_pix, plan.smem, eps, _DTYPE_CODE[x.dtype], stream)
+    _raise_on_error(name, err)
+    LAUNCHES[name] += 1
+    return (y, stats) if save_stats else y
+
+
+def gn_silu_train_fwd(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *,
+                      num_groups: int, eps: float = 1e-5):
+    """The training forward: K1's function, its variance the centred
+    second moment, and (N, G, 2) float32 (mean, rstd) for the backward.
+    Returns (out, stats). Takes every NHWC shape whose C splits into the
+    groups, up to ``_GN_MAX_THREADS`` channels."""
+    if x.device.type == "cpu":
+        return gn_silu_train_fwd_plain(x, scale, bias, num_groups=num_groups, eps=eps)
+    return _gn_silu_launch("gn_silu_train_fwd", x, scale, bias, num_groups, eps, True)
+
+
+def gn_silu_train_bwd(x: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor,
+                      bias: torch.Tensor, stats: torch.Tensor, *, num_groups: int):
+    """The training backward from the forward's input ``x`` and ``stats``:
+    one pass over x and dy staged in shared memory (dx, and per-chunk sums
+    of dz and dz x^), then a second launch that folds the sums into dgamma
+    and dbeta. Returns (dx, dgamma, dbeta), the last two in the
+    parameters' dtypes."""
+    if x.device.type == "cpu":
+        return gn_silu_train_bwd_plain(x, dy, scale, bias, stats, num_groups=num_groups)
+    name = "gn_silu_train_bwd"
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: tensor on {x.device}, want cpu or cuda")
+    _check_activation(name, x)
+    n, h, w, c = x.shape
+    _check_groups(name, c, num_groups)
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
+        raise ValueError(f"{name}: dy {tuple(dy.shape)} {dy.dtype} does not match x "
+                         f"{tuple(x.shape)} {x.dtype}")
+    if stats.shape != (n, num_groups, 2) or stats.dtype != torch.float32:
+        raise ValueError(f"{name}: stats {tuple(stats.shape)} {stats.dtype}, want "
+                         f"({n}, {num_groups}, 2) float32")
+    dy, stats = dy.contiguous(), stats.contiguous()
+    g, b = _affine(name, x, scale, c), _affine(name, x, bias, c)
+    dx = torch.empty_like(x)
+    dgamma = torch.empty(c, dtype=torch.float32, device=x.device)
+    dbeta = torch.empty_like(dgamma)
+    aligned = (x.data_ptr() | dy.data_ptr() | dx.data_ptr()) % 16 == 0
+    plan = _gn_plan(n, h, w, c, x.dtype, _sm_count(x.device), aligned, staged=2)
+    fn = _build.load("gn_silu").gn_silu_train_bwd
+    stream = _stream(x.device)
+    with _GN_WORK_LOCK, torch.cuda.device(x.device):
+        work, slots = _gn_workspace(x.device, stream, n, n * plan.chunks * c * 2)
+        err = fn(x.data_ptr(), dy.data_ptr(), g.data_ptr(), b.data_ptr(), stats.data_ptr(),
+                 dx.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(), work.data_ptr(),
                  work.data_ptr() + 4 * slots, n, h * w, c, num_groups, plan.vec, plan.threads,
-                 plan.chunk_pix, plan.chunks, plan.images, plan.resident_pix, plan.smem, eps,
+                 plan.chunk_pix, plan.chunks, plan.images, plan.resident_pix, plan.smem,
                  _DTYPE_CODE[x.dtype], stream)
     _raise_on_error(name, err)
     LAUNCHES[name] += 1
-    return y
+    return dx, dgamma.to(scale.dtype), dbeta.to(bias.dtype)
+
+
+class _GnSiluTrain(torch.autograd.Function):
+    """GroupNorm+SiLU whose backward is the training pair's: saves the
+    input, the affine parameters and the forward's (mean, rstd)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, num_groups, eps):
+        y, stats = gn_silu_train_fwd(x, scale, bias, num_groups=num_groups, eps=eps)
+        ctx.save_for_backward(x, scale, bias, stats)
+        ctx.num_groups = num_groups
+        return y
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy):
+        x, scale, bias, stats = ctx.saved_tensors
+        dx, dgamma, dbeta = gn_silu_train_bwd(x, dy, scale, bias, stats,
+                                              num_groups=ctx.num_groups)
+        return dx, dgamma, dbeta, None, None
+
+
+def gn_silu_train(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *,
+                  num_groups: int, eps: float = 1e-5) -> torch.Tensor:
+    """Differentiable GroupNorm+SiLU over NHWC through the training pair
+    (on a CPU tensor, their plain versions). Not under ``torch.func``
+    transforms: the Function has no vmap rule."""
+    return _GnSiluTrain.apply(x.contiguous(), scale, bias, num_groups, eps)
 
 
 def _conv_launch(name: str, x, w, scale, bias, num_groups: int, eps: float, images: int):
@@ -475,6 +631,30 @@ def _routes_to_kernels(x: torch.Tensor) -> bool:
     tensor, as the JAX dispatchers do on the TPU; not on a CPU tensor, as
     theirs do not off the TPU."""
     return x.device.type != "cpu"
+
+
+def grad_route(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               num_groups: int) -> str | None:
+    """How a model's GroupNorm+SiLU call runs under autograd: None where it
+    is not a grad-mode call on a device tensor (``_routes_to_kernels``) with
+    an argument that requires grad, which then runs as without autograd;
+    "kernels" (``gn_silu_train``); or "composition", counted in
+    ``TRAIN_FALLBACKS``, inside a ``torch.func`` transform (whose batched
+    tensors show no requires_grad; any grad-mode call there counts) or
+    for a shape or dtype the training pair does not take."""
+    if not (torch.is_grad_enabled() and _routes_to_kernels(x)):
+        return None
+    if torch._C._functorch.peek_interpreter_stack() is not None:
+        TRAIN_FALLBACKS["transform"] += 1
+        return "composition"
+    if not any(t.requires_grad for t in (x, scale, bias)):
+        return None
+    c = x.shape[-1]
+    if (x.dim() != 4 or x.numel() == 0 or x.dtype not in _DTYPE_CODE
+            or c % num_groups != 0 or c > _GN_MAX_THREADS):
+        TRAIN_FALLBACKS["shape"] += 1
+        return "composition"
+    return "kernels"
 
 
 def _flat_eligible(x: torch.Tensor, num_groups: int) -> bool:

@@ -49,9 +49,11 @@ per device), as JAX's step over its global mesh:
   different augmentations and dropout masks, and each rank's state is
   saved (``rng_by_rank``) for an exact resume at the same world size.
 
-The CUDA kernels are forward-only, as the TPU kernels are, and their
-wrappers refuse to run under autograd: train a model built with
-``pallas_gn=False, fused_blocks=False``.
+On the card every GroupNorm+SiLU of a LightweightUNet trains through the
+port's differentiable kernel pair (``ops.fused_kernels.gn_silu_train``),
+with ``pallas_gn`` on or off. The other kernels are forward-only, as the
+TPU kernels are, and refuse to run under autograd: train a model built
+with ``fused_blocks=False``.
 """
 
 from __future__ import annotations

@@ -205,3 +205,66 @@ def test_gn_wrappers_on_cpu_are_the_plain_version(rng, name, shape, groups):
         want = fk.gn_silu_plain(t, s, b, num_groups=groups)
         assert torch.equal(getattr(fk, name)(t, s, b, num_groups=groups), want)
     assert fk.LAUNCHES[name] == 0
+
+
+# LightweightUNet's GroupNorm+SiLU sites in training (batch 32): the
+# backward stages x and dy
+TRAIN_SHAPES = [(512, 512, 8), (256, 256, 16), (128, 128, 32), (64, 64, 64), (32, 32, 128)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("h,w,c", TRAIN_SHAPES)
+def test_gn_backward_plan_stages_two_tensors(h, w, c, dtype):
+    """The backward's plan (``staged=2``, ``gnk::smem_bytes(..., 2)``): each
+    staged tensor's resident part 16-byte aligned, then the reduction
+    scratch; the forward's threads and vectors; every pixel owned once;
+    at the step's shapes on the H100 both tensors stay resident, so x and
+    dy are read once."""
+    for sms in SMS:
+        one = fk._gn_plan(32, h, w, c, dtype, sms)
+        two = fk._gn_plan(32, h, w, c, dtype, sms, True, 2)
+        _check_layout(two, sms)
+        assert (two.staged, two.threads, two.vec) == (2, one.threads, one.vec)
+        red = 8 * (c * (two.threads // 32) if two.vec > 1 else two.threads)
+        assert two.smem == 2 * (-(-two.resident_pix * c * two.elem // 16) * 16) + red
+        assert two.smem <= fk.BLOCK_SHARED_MAX and two.resident_pix <= one.resident_pix
+        assert (_coverage(two) == 1).all(), sms
+        if sms == 132:
+            assert two.reread_pix == 0
+            assert two.bytes_read == 2 * 32 * h * w * c * two.elem == 2 * one.bytes_read
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_gn_backward_plan_rereads_where_two_tensors_exceed_one_wave(dtype):
+    """With two tensors staged the re-read route begins at half the pixels
+    of the forward's edge."""
+    w, c, sms = 1024, 8, 132
+    cap = fk._gn_plan(1, 4096, w, c, dtype, sms, True, 2).resident_pix
+    assert cap <= fk._gn_plan(1, 4096, w, c, dtype, sms).resident_pix // 2 + 16
+    edge = sms * cap // w
+    for h in range(edge - 3, edge + 4):
+        plan = fk._gn_plan(2, h, w, c, dtype, sms, True, 2)
+        _check_layout(plan, sms)
+        assert (plan.reread_pix > 0) == (h * w > sms * cap), h
+        assert (_coverage(plan) == 1).all(), h
+
+
+def test_training_entry_points_take_the_plan_in_order():
+    """The wrappers pass the plan positionally: the C prototypes of the
+    training pair name its fields in the forward's order, after the shape."""
+    import re
+
+    from image_enhancement_deglaring_tpu_torch.ops import _build
+
+    text = (_build.CSRC / "gn_silu.cu").read_text()
+    text = text[text.index('extern "C" {'):]
+    plan = ["n", "P", "C", "G", "vec", "threads", "chunk_pix", "chunks", "images",
+            "resident_pix", "smem"]
+    names = {}
+    for name, params in re.findall(r"^int (\w+)\(([^)]*)\)", text, flags=re.M):
+        names[name] = [p.split()[-1].lstrip("*") for p in params.split(",")]
+    assert names["gn_silu_train_fwd"] == (["x", "gamma", "beta", "y", "stats", "count", "part"]
+                                          + plan + ["eps", "dtype", "stream"])
+    assert names["gn_silu_train_bwd"] == (["x", "dy", "gamma", "beta", "stats", "dx", "dgamma",
+                                           "dbeta", "count", "part"] + plan + ["dtype", "stream"])
+    assert names["gn_silu_flat"][6:17] == plan

@@ -255,8 +255,11 @@ def test_cpu_wrappers_leave_launch_counts_at_zero(rng):
     fk.conv3x3_gn_silu(_t(x), torch.zeros(3, 3, 64, 64), _t(s), _t(b), num_groups=8)
     fk.conv3x3_gn_silu_batched(_t(x), torch.zeros(3, 3, 64, 64), _t(s), _t(b), num_groups=8,
                                images=1)
+    y, stats = fk.gn_silu_train_fwd(_t(x), _t(s), _t(b), num_groups=8)
+    fk.gn_silu_train_bwd(_t(x), y, _t(s), _t(b), stats, num_groups=8)
     assert fk.LAUNCHES == {"gn_silu_flat": 0, "gn_silu_nhwc": 0, "conv3x3_gn_silu": 0,
-                           "conv3x3_gn_silu_batched": 0}
+                           "conv3x3_gn_silu_batched": 0, "gn_silu_train_fwd": 0,
+                           "gn_silu_train_bwd": 0}
 
 
 @pytest.mark.parametrize("name", ["gn_silu_flat", "gn_silu_nhwc", "conv3x3_gn_silu",
