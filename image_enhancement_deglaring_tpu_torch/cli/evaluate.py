@@ -27,7 +27,7 @@ def parse_args(argv=None):
     # reference choices are optimized/lightweight (reference: evaluate.py:24);
     # "auto" (artifact-based detection) and "enhanced" are supersets
     p.add_argument("--model", type=str,
-                   choices=["auto", "optimized", "lightweight", "enhanced"],
+                   choices=["auto", "optimized", "lightweight", "enhanced", "restormer"],
                    default="auto")
     # like the reference (evaluate.py:338-345), the artifact extension wins
     # when it contradicts this flag (with a printed note); the loader

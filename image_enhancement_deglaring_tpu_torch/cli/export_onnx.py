@@ -5,8 +5,9 @@
 
 Exports a model artifact (the port's checkpoint directory, ``.npz``,
 ``.pth`` or ``.onnx``) as an opset-11 ONNX model with dynamic
-batch/height/width axes named 'input'/'output', for all three model
-families, with the JAX CLI's flags and output. Export is host work: the
+batch/height/width axes named 'input'/'output', for the three U-Net
+families, with the JAX CLI's flags and output; a Restormer raises a
+``ValueError`` that names the ONNX ops the writer lacks for it. Export is host work: the
 artifact is read on the CPU (``load_model_for_eval(..., device="cpu")``)
 and written by ``modelio.onnx_writer``, byte for byte the JAX writer's file.
 """
@@ -22,7 +23,7 @@ def parse_args(argv=None):
     p.add_argument("--model_path", type=str, required=True,
                    help="checkpoint dir, .npz, .pth, or .onnx")
     p.add_argument("--model", type=str, default="lightweight",
-                   choices=["lightweight", "optimized", "enhanced"],
+                   choices=["lightweight", "optimized", "enhanced", "restormer"],
                    help="model family the checkpoint belongs to")
     p.add_argument("--output", type=str, default="best_model.onnx")
     p.add_argument("--num_groups", type=int, default=8,
@@ -34,10 +35,23 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
+#: what a Restormer graph needs that the port's ONNX writer does not write
+RESTORMER_MISSING_OPS = ("ReduceMean, Sqrt and Div (the channel LayerNorm)",
+                         "Conv with group > 1 (the depthwise convs)",
+                         "SpaceToDepth and DepthToSpace (pixel-unshuffle and -shuffle)",
+                         "ReduceL2, MatMul, Transpose and Softmax (the channel attention)",
+                         "Split and Erf (the gated GELU)")
+
+
 def main(argv=None):
     args = parse_args(argv)
     from ..eval.harness import load_model_for_eval
-    from ..modelio import onnx_writer
+    from ..modelio import detect_model_arch, onnx_writer
+
+    if args.model == "restormer" or (os.path.exists(args.model_path)
+                                     and detect_model_arch(args.model_path) == "restormer"):
+        raise ValueError("ONNX export of a Restormer is not supported: the port's ONNX writer "
+                         "has no " + ", ".join(RESTORMER_MISSING_OPS))
 
     # the eval loader reads every artifact the port writes and returns the
     # JAX-named numpy tree ({params, batch_stats} for EnhancedUNet)

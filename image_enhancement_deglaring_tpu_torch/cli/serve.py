@@ -34,8 +34,8 @@ def parse_args(argv=None):
                    help="resize = reference-parity 512^2; tile = full-res "
                         "tiled; both = resize default with per-request "
                         "?mode=tile override")
-    p.add_argument("--model", type=str, default="auto",
-                   choices=["auto", "lightweight", "optimized", "enhanced"],
+    p.add_argument("--model", "--model_arch", dest="model", type=str, default="auto",
+                   choices=["auto", "lightweight", "optimized", "enhanced", "restormer"],
                    help="model family of the checkpoint; auto detects from "
                         "the artifact")
     p.add_argument("--max_batch_size", type=int, default=8)

@@ -21,6 +21,11 @@ processes under Gloo); ``--distributed`` joins a process group with
 torchrun's variables), one command per process. ``--batch_size`` is the
 global batch and must divide by the ranks; rank 0 writes the logs and
 checkpoints.
+
+``--model restormer`` trains the port's Restormer (``models.restormer``)
+through the same step, AdamW and clip, at the widths of the
+``--restormer_*`` flags (upstream's gray denoising configuration by
+default); its image sides must divide by 8.
 """
 
 from __future__ import annotations
@@ -42,7 +47,14 @@ def parse_args(argv=None):
     p.add_argument("--save_every", type=int, default=10)
     p.add_argument("--patience", type=int, default=10)
     p.add_argument("--model", type=str, default="basic",
-                   choices=["basic", "enhanced", "optimized"])
+                   choices=["basic", "enhanced", "optimized", "restormer"])
+    # Restormer's widths; the defaults are upstream's gray denoising
+    # configuration (GaussianGrayDenoising_Restormer.yml network_g)
+    p.add_argument("--restormer_dim", type=int, default=48)
+    p.add_argument("--restormer_num_blocks", type=int, nargs=4, default=[4, 6, 6, 8])
+    p.add_argument("--restormer_num_refinement_blocks", type=int, default=4)
+    p.add_argument("--restormer_heads", type=int, nargs=4, default=[1, 2, 4, 8])
+    p.add_argument("--restormer_ffn_expansion_factor", type=float, default=2.66)
     p.add_argument("--use_wandb", action="store_true")
     p.add_argument("--wandb_project", type=str, default="image-deglaring")
     p.add_argument("--wandb_entity", type=str, default=None)
@@ -164,8 +176,8 @@ def _train(args) -> None:
 
     from .._device import resolve_device
     from ..data import make_dataloaders
-    from ..models import (EnhancedUNet, LightweightUNet, OptimizedUNet, count_parameters,
-                          get_model_size_mb)
+    from ..models import (EnhancedUNet, LightweightUNet, OptimizedUNet, Restormer,
+                          count_parameters, get_model_size_mb)
     from ..parallel import distributed
     from ..train import PreemptionGuard, save_checkpoint, train_model
     from ..utils import ExperimentLogger, flatten_tree, set_seed
@@ -211,6 +223,12 @@ def _train(args) -> None:
         model = EnhancedUNet(dtype=dtype, generator=generator)
     elif args.model == "optimized":
         model = OptimizedUNet(dtype=dtype, generator=generator)
+    elif args.model == "restormer":
+        model = Restormer(dim=args.restormer_dim, num_blocks=args.restormer_num_blocks,
+                          num_refinement_blocks=args.restormer_num_refinement_blocks,
+                          heads=args.restormer_heads,
+                          ffn_expansion_factor=args.restormer_ffn_expansion_factor,
+                          dtype=dtype, generator=generator)
     else:
         model = LightweightUNet(dtype=dtype, remat=args.remat, generator=generator)
 

@@ -38,8 +38,10 @@ from ..modelio.params_import import (
     load_torch_state_dict,
     optimized_unet_params_from_onnx,
     optimized_unet_params_from_state_dict,
+    restormer_params_from_state_dict,
 )
-from ..models import EnhancedUNet, LightweightUNet, OptimizedUNet
+from ..models import EnhancedUNet, LightweightUNet, OptimizedUNet, Restormer
+from ..models.restormer import config_from_params as restormer_config
 from ..ops.image import to_uint8
 from ..ops.metrics import batched_psnr_ssim
 from ..utils.pytree import load_npz_tree
@@ -185,7 +187,10 @@ def load_model_for_eval(model_path: str, *, model_arch: str = "auto",
     64 channels and more). On a CPU tensor the dispatchers take the
     composition, so on the CPU the model computes what the JAX model does
     with both knobs off. The other families have no kernel, as in the JAX
-    package. ``model_arch="auto"`` finds the family in the artifact
+    package. A Restormer (upstream's names, its widths read from the
+    artifact by ``models.restormer.config_from_params``) runs on cuDNN,
+    cuBLAS and ATen, and has no ``.onnx`` form. ``model_arch="auto"``
+    finds the family in the artifact
     (``detect_model_arch``). ``device`` defaults to CUDA and raises
     without a card unless "cpu" is passed."""
     dev = resolve_device(device)
@@ -195,6 +200,9 @@ def load_model_for_eval(model_path: str, *, model_arch: str = "auto",
     gen = torch.Generator().manual_seed(0)
     stats = None
     if lower.endswith(".onnx"):
+        if model_arch == "restormer":
+            raise ValueError(f"{model_path}: Restormer has no ONNX form in the port; load a "
+                             ".pth, an .npz or a checkpoint directory")
         if model_arch == "enhanced":
             params, stats = enhanced_unet_params_from_onnx(model_path)
         elif model_arch == "optimized":
@@ -203,7 +211,9 @@ def load_model_for_eval(model_path: str, *, model_arch: str = "auto",
             params = lightweight_unet_params_from_onnx(model_path)
     elif lower.endswith((".pth", ".pt")):
         sd = load_torch_state_dict(model_path)
-        if model_arch == "enhanced":
+        if model_arch == "restormer":
+            params = restormer_params_from_state_dict(sd)
+        elif model_arch == "enhanced":
             params, stats = enhanced_unet_params_from_state_dict(sd)
         elif model_arch == "optimized":
             params = optimized_unet_params_from_state_dict(sd)
@@ -225,6 +235,10 @@ def load_model_for_eval(model_path: str, *, model_arch: str = "auto",
                          "checkpoint directory")
     # module widths come from the ARTIFACT, not hard-coded defaults:
     # narrow exports (features_start=4) would otherwise fail to load
+    if model_arch == "restormer":
+        model = Restormer(**restormer_config(params), dtype=compute_dtype, generator=gen)
+        load_jax_params(model, params)
+        return model.to(dev).eval(), params
     width = _infer_width(params)
     if model_arch == "enhanced":
         if stats is None:

@@ -25,4 +25,5 @@ from .params_import import (
     load_torch_state_dict,
     optimized_unet_params_from_onnx,
     optimized_unet_params_from_state_dict,
+    restormer_params_from_state_dict,
 )

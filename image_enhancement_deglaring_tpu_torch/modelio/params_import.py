@@ -7,6 +7,9 @@
   the same for the other families from a torch state dict of numpy arrays
   or an ``.onnx`` of the JAX package's writer; EnhancedUNet's come with
   its BatchNorm running statistics (the JAX ``batch_stats`` tree).
+  ``restormer_params_from_state_dict`` reads upstream Restormer's state
+  dict (the port's fourth family, which has no JAX counterpart and no
+  ONNX form).
 - ``load_jax_params`` / ``export_jax_params`` / ``export_jax_batch_stats``
   move those trees into and out of the port's module state. The port's
   parameter ``enc1.conv1`` is the tree's ``["enc1"]["conv1"]`` in the same
@@ -230,6 +233,23 @@ def enhanced_unet_params_from_state_dict(sd: dict[str, np.ndarray]) -> tuple[dic
     return params, stats
 
 
+def restormer_params_from_state_dict(sd: dict[str, np.ndarray]) -> dict:
+    """Torch state dict (upstream Restormer's names, ``encoder_level1.0.
+    attn.qkv.weight``, ...) -> the parameter tree under the same names,
+    nested at each dot: 4-D conv kernels become HWIO (a depthwise (C, 1,
+    3, 3) kernel (3, 3, 1, C)); the temperatures (heads, 1, 1) and the
+    LayerNorms' vectors stay as they are."""
+    tree: dict = {}
+    for name, arr in sd.items():
+        *path, leaf = name.split(".")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        arr = np.asarray(arr, np.float32)
+        node[leaf] = _conv_to_hwio(arr) if arr.ndim == 4 else np.ascontiguousarray(arr)
+    return tree
+
+
 def _named_initializers(path: str) -> dict[str, np.ndarray]:
     """An .onnx file's initializers that carry torch parameter names (a
     module dot); generated graph constants have none."""
@@ -343,10 +363,13 @@ def export_jax_batch_stats(model: torch.nn.Module) -> dict:
 
 
 def arch_from_param_keys(keys) -> str:
-    """Model family from a parameter tree's top-level names: EnhancedUNet
-    alone has a 5th level and BatchNorm bottleneck modules, OptimizedUNet
-    alone SE gates, LightweightUNet neither."""
+    """Model family from a parameter tree's top-level names: Restormer
+    alone has upstream's ``encoder_level1`` and ``latent`` stages,
+    EnhancedUNet alone a 5th level and BatchNorm bottleneck modules,
+    OptimizedUNet alone SE gates, LightweightUNet none of these."""
     keys = set(keys)
+    if keys & {"encoder_level1", "latent", "patch_embed"}:
+        return "restormer"
     if keys & {"attention5", "enc5", "bottleneck_bn1"}:
         return "enhanced"
     if "attention4" in keys:
@@ -359,8 +382,9 @@ def detect_model_arch(path: str) -> str:
     ``detect_model_arch`` finds it:
     - .onnx: op census (the port's reader): BatchNormalization appears only
       in EnhancedUNet, Resize/GlobalAveragePool only in OptimizedUNet;
-    - .pth/.pt: the state dict's names (``*.conv_block.*`` only in
-      EnhancedUNet, ``*.fc.*`` only in OptimizedUNet's SE gates);
+    - .pth/.pt: the state dict's names (``*.attn.temperature`` only in
+      Restormer, ``*.conv_block.*`` only in EnhancedUNet, ``*.fc.*`` only
+      in OptimizedUNet's SE gates);
     - .npz: flat ``a/b/c`` key census (``arch_from_param_keys``);
     - a directory: the port's checkpoint, its ``train_meta.json``
       ``model_arch``, else its parameters' module names."""
@@ -376,6 +400,8 @@ def detect_model_arch(path: str) -> str:
         return "lightweight"
     if lower.endswith((".pth", ".pt")):
         sd = load_torch_state_dict(path)
+        if any(k.endswith(".attn.temperature") for k in sd):
+            return "restormer"
         if any(".conv_block." in k for k in sd):
             return "enhanced"
         if any(".fc." in k for k in sd):

@@ -10,4 +10,5 @@ from .model_utils import (
     quantize_params_int8,
 )
 from .optimized_unet import ChannelAttention, OptimizedUNet, UpBlockNearest
+from .restormer import Restormer
 from .unet import ConvBlock, DualConvBlock, LightweightUNet, UpConv2x

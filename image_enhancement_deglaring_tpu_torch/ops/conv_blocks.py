@@ -67,19 +67,21 @@ def silu(x: torch.Tensor) -> torch.Tensor:
 
 
 def conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None, *,
-           stride: int = 1, padding: int = 0, dilation: int = 1) -> torch.Tensor:
+           stride: int = 1, padding: int = 0, dilation: int = 1,
+           groups: int = 1) -> torch.Tensor:
     """2-D convolution, NHWC activations x HWIO weights -> NHWC.
 
     Args:
         x: (N, H, W, Cin)
-        w: (kh, kw, Cin, Cout)
+        w: (kh, kw, Cin / groups, Cout); a depthwise conv has groups = Cin
+           and w (kh, kw, 1, Cout)
         b: optional (Cout,) bias
     """
-    if w.shape[0] == 1 and w.shape[1] == 1 and stride == 1 and padding == 0:
+    if groups == 1 and w.shape[0] == 1 and w.shape[1] == 1 and stride == 1 and padding == 0:
         y = torch.matmul(x, w[0, 0].to(x.dtype))  # 1x1 conv: channel matmul
     else:
         y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1).to(x.dtype),
-                     stride=stride, padding=padding, dilation=dilation)
+                     stride=stride, padding=padding, dilation=dilation, groups=groups)
         y = y.permute(0, 2, 3, 1)
     if b is not None:
         y = y + b.to(y.dtype)
@@ -210,3 +212,67 @@ def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
     """Nearest-neighbour 2x upsample on NHWC."""
     n, h, w, c = x.shape
     return x[:, :, None, :, None, :].expand(n, h, 2, w, 2, c).reshape(n, 2 * h, 2 * w, c)
+
+
+def pixel_unshuffle(x: torch.Tensor, r: int = 2) -> torch.Tensor:
+    """``nn.PixelUnshuffle(r)`` on NHWC: (N, H, W, C) -> (N, H/r, W/r, C r^2),
+    output channel ``c r^2 + i r + j`` taken from pixel (r h + i, r w + j)."""
+    n, h, w, c = x.shape
+    y = x.reshape(n, h // r, r, w // r, r, c).permute(0, 1, 3, 5, 2, 4)
+    return y.reshape(n, h // r, w // r, c * r * r)
+
+
+def pixel_shuffle(x: torch.Tensor, r: int = 2) -> torch.Tensor:
+    """``nn.PixelShuffle(r)`` on NHWC: (N, H, W, C r^2) -> (N, H r, W r, C),
+    the inverse of :func:`pixel_unshuffle`."""
+    n, h, w, c = x.shape
+    co = c // (r * r)
+    y = x.reshape(n, h, w, co, r, r).permute(0, 1, 4, 2, 5, 3)
+    return y.reshape(n, h * r, w * r, co)
+
+
+def channel_layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None = None,
+                       *, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the channels of each pixel of NHWC ``x``, float32
+    statistics, the variance about the mean (biased). Without ``bias``
+    (Restormer's BiasFree) ``x`` itself, NOT ``x - mean``, is divided by the
+    deviation and scaled by ``weight``; with it, ``x`` is centred, scaled
+    and shifted. Output in the input dtype."""
+    xf = x.float()
+    var = xf.var(-1, keepdim=True, unbiased=False)
+    if bias is None:
+        y = xf * torch.rsqrt(var + eps) * weight.float()
+    else:
+        y = (xf - xf.mean(-1, keepdim=True)) * torch.rsqrt(var + eps) * weight.float() \
+            + bias.float()
+    return y.to(x.dtype)
+
+
+def transposed_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         temperature: torch.Tensor, heads: int, *,
+                         eps: float = 1e-12) -> torch.Tensor:
+    """Restormer's MDTA core on NHWC (N, H, W, C) q, k, v (views of one qkv
+    tensor are fine): per head of C/heads channels, ``softmax(q^ k^T *
+    temperature) @ v`` where q^ and k^ are q and k L2-normalised over the
+    H W pixels (``F.normalize``'s eps); the channel-by-channel map's
+    reduction runs over every pixel.
+
+    The Gram ``q k^T`` is one product per head in the input dtype
+    (float32 accumulation), read in place from the strided views; the
+    norms (accumulated in float32), the division by them, the temperature
+    and the softmax run in float32, which equals normalising first; the
+    map goes back to the input dtype for ``attn @ v``. ``temperature`` is
+    (heads, 1, 1)."""
+    n, h, w, c = q.shape
+    ch = c // heads
+    q2, k2, v2 = (t.reshape(n, h * w, c) for t in (q, k, v))
+    nq = torch.linalg.vector_norm(q2, dim=1, dtype=torch.float32).clamp_min(eps)
+    nk = torch.linalg.vector_norm(k2, dim=1, dtype=torch.float32).clamp_min(eps)
+    cols = [slice(i * ch, (i + 1) * ch) for i in range(heads)]
+    gram = torch.stack([torch.bmm(q2[:, :, s].transpose(1, 2), k2[:, :, s]) for s in cols], 1)
+    nq, nk = nq.reshape(n, heads, ch, 1), nk.reshape(n, heads, 1, ch)
+    logits = gram.float() / (nq * nk) * temperature.float().reshape(1, heads, 1, 1)
+    attn = torch.softmax(logits, dim=-1).to(v.dtype)
+    outs = [torch.bmm(v2[:, :, s], attn[:, i].transpose(1, 2)) for i, s in enumerate(cols)]
+    out = outs[0] if heads == 1 else torch.cat(outs, dim=-1)
+    return out.reshape(n, h, w, c)
