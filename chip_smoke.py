@@ -64,7 +64,18 @@ Phases, each fatal on failure:
    with its artifacts checked, and the train loader's host rate alone;
    (e) the training pair at the step's 18 sites (5 shapes, batch 32,
    bf16) against the composition's gradients, twice bit for bit, and
-   each kernel's time beside its bytes bound;
+   each kernel's time beside its bytes bound; (f) the BatchNorm+ReLU
+   training pair (``fused_kernels.bn_act_train``) at EnhancedUNet's 47
+   sites (batch 32, 512x512; each epilogue, bf16 where the step has it):
+   output and gradients against float64 (each under its own forward's
+   ReLU mask) no further off than the float32 composition's, twice bit
+   for bit with the running statistics, B1-B4 against their plain
+   versions (B2 and B4 bit for bit from the same sums), each launch's
+   time beside its bytes bound and the composition's;
+   then one EnhancedUNet step (bf16, batch 32, 512x512) with 47 launches
+   of each of B1-B4 and no fallback against the composition's step (the
+   same dropout draws, loss, gradients, running statistics, ms), and a
+   ``VmappedTrialGroup`` step that keeps the composition and counts it;
 8. HTTP serving: first the host work of one request step by step (decode,
    luma, LANCZOS both ways, encode, base64) on one thread, for PNGs under
    one filter and under the filters PIL writes, decodes in 8 threads at
@@ -1847,6 +1858,295 @@ def train_gn_kernels() -> dict:
           f"{per_step['bound']:.3f} ms, {per_step['bound'] / per_step['pair']:.1%} of it), "
           f"composition {per_step['composition']:.3f} ms; launches {counts}", flush=True)
     return rows
+
+
+# phase 7f: the BatchNorm+ReLU training pair at EnhancedUNet's 47 sites of
+# the step at batch 32, 512x512 (_bn_sites: side, channels, epilogue, input
+# dtype, sites a step). Per level: bn1 (ReLU), shortcut_bn (none), bn2 (add+ReLU)
+# of the encoder's and the decoder's block, the attention gate's bn_g,
+# bn_x (add+ReLU) at half width and bn_psi at one channel; the bottleneck's
+# two (ReLU). enc1's bn1 and shortcut_bn read the bf16 input's convs.
+def _bn_sites() -> tuple:
+    sites = []
+    for level in range(5):
+        side, w = TRAIN_SIZE >> level, FAMILY_WIDTH << level
+        for act in ("relu", None, "add_relu"):
+            first = level == 0 and act != "add_relu"
+            if first:
+                sites.append((side, w, act, torch.bfloat16, 1))
+            sites.append((side, w, act, torch.float32, 1 if first else 2))
+        sites += [(side, w // 2, None, torch.float32, 1),
+                  (side, w // 2, "add_relu", torch.float32, 1), (side, 1, None, torch.float32, 1)]
+    sites.append((TRAIN_SIZE >> 5, FAMILY_WIDTH << 5, "relu", torch.float32, 2))
+    return tuple(sites)
+
+
+BN_KERNELS = ("bn_train_stats", "bn_train_apply", "bn_train_bwd_sums", "bn_train_bwd_apply")
+# the EnhancedUNet step against the composition's (relative): loss; the
+# norm of all gradients' and of all running statistics' difference, which
+# carry the rounding of every layer before them through TF32 convs; the
+# first BatchNorm's statistics (enc1.bn1, whose input both steps share)
+BN_STEP_GATE = {"loss_rel": 1e-4, "grad_rel": 0.01, "stats_rel": 0.01, "first_stats_rel": 1e-5}
+
+
+def _bn_composition(c: int, g, b):
+    """The model's BatchNorm with parameters (g, b), as a function of (x,
+    act, residual) that runs its float32 composition on the card."""
+    from image_enhancement_deglaring_tpu_torch.models.enhanced_unet import BatchNorm
+    from image_enhancement_deglaring_tpu_torch.ops import fused_kernels as fk
+
+    bn = BatchNorm(c, device="cuda")
+    with torch.no_grad():
+        bn.scale.copy_(g)
+        bn.bias.copy_(b)
+
+    def fn(x, act, r):
+        with mock.patch.object(fk, "bn_route", lambda *a, **k: None):
+            return bn(x, True, act=act, residual=r)
+    return bn, fn
+
+
+def train_bn_kernels() -> tuple[dict, dict]:
+    """Phase 7f: ``bn_act_train`` at EnhancedUNet's 47 training sites
+    (``_bn_sites``), then one EnhancedUNet step through it and one
+    ``VmappedTrialGroup`` step. Returns the kernel rows and the step's
+    launches (a path: B1-B4 at all 47 sites)."""
+    from image_enhancement_deglaring_tpu_torch.models import EnhancedUNet
+    from image_enhancement_deglaring_tpu_torch.models import enhanced_unet as eu
+    from image_enhancement_deglaring_tpu_torch.ops import fused_kernels as fk
+    from image_enhancement_deglaring_tpu_torch.ops.metrics import l1_loss
+    from image_enhancement_deglaring_tpu_torch.parallel import Trial, VmappedTrialGroup
+
+    def rel(a, r):
+        return float((a.double() - r.double()).norm() / r.double().norm().clamp_min(1e-30))
+
+    gen = torch.Generator(device="cuda").manual_seed(73)
+    rows = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                "library_ms": 0.0, "by": {"bytes": 0.0}} for k in BN_KERNELS}
+    per_step = {"pair": 0.0, "bound": 0.0, "composition": 0.0}
+    fk.reset_launch_counts()
+    for side, ch, epi, dtype, sites in _bn_sites():
+        shape = (TRAIN_BATCH, side, side, ch)
+        n = TRAIN_BATCH * side * side * ch
+        act = None if epi is None else "relu"
+        x = (torch.randn(shape, device="cuda", generator=gen) * 2 + 0.5).to(dtype)
+        g = torch.randn(ch, device="cuda", generator=gen) * 0.5 + 1
+        b = torch.randn(ch, device="cuda", generator=gen) * 0.5
+        r = torch.randn(shape, device="cuda", generator=gen) if epi == "add_relu" else None
+        dy = torch.randn(shape, device="cuda", generator=gen)
+        bn, comp = _bn_composition(ch, g, b)
+
+        def pair_out(running):
+            xs, gs, bs = (t.detach().clone().requires_grad_() for t in (x, g, b))
+            rs = None if r is None else r.clone().requires_grad_()
+            y = fk.bn_act_train(xs, gs, bs, act=act, residual=rs, running=running)
+            return (y,) + torch.autograd.grad(y, [xs, gs, bs] + ([rs] if r is not None else []),
+                                              dy)
+
+        def comp_out():
+            xs = x.detach().clone().requires_grad_()
+            rs = None if r is None else r.clone().requires_grad_()
+            y = comp(xs, act, rs)
+            return (y,) + torch.autograd.grad(
+                y, [xs, bn.scale, bn.bias] + ([rs] if r is not None else []), dy)
+
+        run1 = (torch.zeros(ch, device="cuda"), torch.ones(ch, device="cuda"))
+        run2 = tuple(t.clone() for t in run1)
+        got, again = pair_out(run1), pair_out(run2)
+        ref = comp_out()
+        with torch.no_grad():  # float64 truth: the plain pair's function
+            x64, g64, b64 = x.double(), g.double(), b.double()
+            r64 = None if r is None else r.double()
+            y64, st64 = fk.bn_act_train_fwd_plain(x64, g64, b64, act=act, residual=r64)
+
+            def truth(y):
+                """The float64 gradients under the ReLU mask of the forward ``y``
+                (a float32 forward's mask differs from float64's where |z| is
+                within rounding of 0: each side is held to its own)."""
+                dx64, dr64, dg64, db64 = fk.bn_act_train_bwd_plain(
+                    x64, dy.double(), g64, b64, st64, act=act,
+                    out=None if act is None else y.double())
+                return (y64, dx64, dg64, db64) + ((dr64,) if r is not None else ())
+        label = (f"7f {TRAIN_BATCH}x{side}^2x{ch} {str(dtype)[6:]} "
+                 f"{epi or 'no epilogue'} ({sites} site{'s' if sites > 1 else ''})")
+        if not (all(torch.equal(p, q) for p, q in zip(got, again))
+                and all(torch.equal(p, q) for p, q in zip(run1, run2))):
+            raise AssertionError(f"{label}: two calls differ")
+        err = [rel(p, t) for p, t in zip(got, truth(got[0]))]
+        err_comp = [rel(p, t) for p, t in zip(ref, truth(ref[0]))]
+        if any(not e <= max(2 * ec, 1e-5) for e, ec in zip(err, err_comp)):
+            raise AssertionError(f"{label}: out/dx/dgamma/dbeta/dr off float64 by {err}, the "
+                                 f"float32 composition by {err_comp}")
+        with torch.no_grad():  # each launch against its plain version, from the same inputs
+            sums, sums_p = fk.bn_sums(x), fk.bn_sums_plain(x)
+            rk = (torch.zeros(ch, device="cuda"), torch.ones(ch, device="cuda"))
+            rp = tuple(t.clone() for t in rk)
+            y, stats = fk.bn_apply(x, sums, g, b, count=n // ch, act=act, residual=r, running=rk)
+            y_p, stats_p = fk.bn_apply_plain(x, sums, g, b, count=n // ch, act=act, residual=r,
+                                             running=rp)
+            out = y if r is not None else None
+            bsums = fk.bn_bwd_sums(x, dy, g, b, stats, act=act, out=out)
+            bsums_p = fk.bn_bwd_sums_plain(x, dy, g, b, stats, act=act, out=out)
+            dx, dres = fk.bn_bwd_apply(x, dy, g, b, stats, bsums, count=n // ch, act=act, out=out)
+            dx_p, dres_p = fk.bn_bwd_apply_plain(x, dy, g, b, stats, bsums, count=n // ch,
+                                                 act=act, out=out)
+        exact = [torch.equal(p, q) for p, q in ((y, y_p), (stats, stats_p), (rk[0], rp[0]),
+                                                (rk[1], rp[1]), (dx, dx_p))]
+        if r is not None:
+            exact.append(torch.equal(dres, dres_p))
+        sums_rel = (rel(sums, sums_p), rel(bsums, bsums_p))
+        if not all(exact) or max(sums_rel) > 1e-5:
+            raise AssertionError(f"{label}: B2/B4 against plain from the same sums bit for bit "
+                                 f"{exact}; B1/B3 sums off plain by {sums_rel}")
+        errs = {"bn_train_stats": float((sums - sums_p).abs().max()), "bn_train_apply": 0.0,
+                "bn_train_bwd_sums": float((bsums - bsums_p).abs().max()),
+                "bn_train_bwd_apply": 0.0}
+        with torch.no_grad():
+            ms = time_many({
+                "bn_train_stats": lambda: fk.bn_sums(x),
+                "bn_train_apply": lambda: fk.bn_apply(x, sums, g, b, count=n // ch, act=act,
+                                                      residual=r),
+                "bn_train_bwd_sums": lambda: fk.bn_bwd_sums(x, dy, g, b, stats, act=act,
+                                                            out=out),
+                "bn_train_bwd_apply": lambda: fk.bn_bwd_apply(x, dy, g, b, stats, bsums,
+                                                              count=n // ch, act=act, out=out),
+                "fwd_plain": lambda: fk.bn_act_train_fwd_plain(x, g, b, act=act, residual=r),
+                "bwd_plain": lambda: fk.bn_act_train_bwd_plain(x, dy, g, b, stats, act=act,
+                                                               out=out)},
+                iters=5, rounds=3)
+        xg = x.detach().clone().requires_grad_()
+        rg = None if r is None else r.clone().requires_grad_()
+        yg = comp(xg, act, rg)
+        ms.update(time_many({
+            "comp_fwd": lambda: comp(xg, act, rg),
+            "comp_bwd": lambda: torch.autograd.grad(
+                yg, [xg, bn.scale, bn.bias] + ([rg] if rg is not None else []), dy,
+                retain_graph=True)}, iters=5, rounds=3))
+        del xg, rg, yg
+        e, f4 = x.element_size(), 4 * n  # bytes of one element of x; of a float32 tensor
+        extra = f4 if r is not None else 0
+        bounds = {k: v / HBM_BYTES_S * 1e3 for k, v in (
+            ("bn_train_stats", e * n), ("bn_train_apply", e * n + f4 + extra),
+            ("bn_train_bwd_sums", e * n + f4 + extra),
+            ("bn_train_bwd_apply", 2 * e * n + f4 + 2 * extra))}
+        for k in BN_KERNELS:
+            row = rows[k]
+            row["max_abs_err"] = max(row["max_abs_err"], errs[k])
+            row["ms"] += sites * ms[k]
+            row["plain_ms"] += sites * ms["fwd_plain" if k in BN_KERNELS[:2] else "bwd_plain"] / 2
+            row["library_ms"] += sites * ms["comp_fwd" if k in BN_KERNELS[:2] else "comp_bwd"] / 2
+            row["bound_ms"] += sites * bounds[k]
+            row["by"]["bytes"] += sites * bounds[k]
+        per_step["pair"] += sites * sum(ms[k] for k in BN_KERNELS)
+        per_step["bound"] += sites * sum(bounds.values())
+        per_step["composition"] += sites * (ms["comp_fwd"] + ms["comp_bwd"])
+        print(f"{label}: off float64 out/dx/dgamma/dbeta{'/dr' if r is not None else ''} "
+              f"{', '.join(f'{v:.3g}' for v in err)} (float32 composition "
+              f"{', '.join(f'{v:.3g}' for v in err_comp)}); two calls equal with the running "
+              f"statistics; B2, B4 equal their plain versions, B1/B3 sums off plain "
+              f"{sums_rel[0]:.3g}/{sums_rel[1]:.3g}; ms "
+              + ", ".join(f"{k[9:]} {ms[k]:.5f} (bound {bounds[k]:.5f})" for k in BN_KERNELS)
+              + f"; plain forward {ms['fwd_plain']:.5f}, backward {ms['bwd_plain']:.5f}; "
+              f"composition forward {ms['comp_fwd']:.5f}, backward {ms['comp_bwd']:.5f}",
+              flush=True)
+        del x, r, dy, got, again, ref, x64, y64
+        torch.cuda.empty_cache()
+    plan_calls = {k: fk.LAUNCHES[k] for k in BN_KERNELS}
+    print(f"7f a step's 47 sites: training pair {per_step['pair']:.3f} ms (bound "
+          f"{per_step['bound']:.3f} ms, {per_step['bound'] / per_step['pair']:.1%} of it), "
+          f"composition {per_step['composition']:.3f} ms; microbenchmark launches {plan_calls}",
+          flush=True)
+
+    # one EnhancedUNet step as the benchmark's cell builds the model, through
+    # the pair and through the composition, from the same weights and draws
+    xn, yn = triptych_batch(TRAIN_BATCH, TRAIN_SIZE, seed=17)
+    xs = torch.from_numpy(xn).to("cuda", torch.bfloat16)
+    ys = torch.from_numpy(yn).cuda()
+
+    def step(kernels: bool):
+        model = EnhancedUNet(init_features=FAMILY_WIDTH, dtype=torch.bfloat16,
+                             generator=torch.Generator().manual_seed(23)).cuda()
+        draws, drop = [], eu.dropout
+
+        def dropout(t, rate, train, generator):
+            draws.append(generator.get_state())
+            return drop(t, rate, train, generator)
+
+        route = contextlib.nullcontext() if kernels else mock.patch.object(
+            fk, "bn_route", lambda *a, **k: None)
+        times = []
+        with mock.patch.object(eu, "dropout", dropout), route:
+            for i in range(4):
+                draws.clear()
+                model.zero_grad(set_to_none=True)
+                for m in model.modules():  # every step from the same statistics
+                    if isinstance(m, eu.BatchNorm):
+                        m.mean.zero_()
+                        m.var.fill_(1.0)
+                fk.reset_launch_counts()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = torch.cuda.Event(enable_timing=True)
+                t1 = torch.cuda.Event(enable_timing=True)
+                t0.record()
+                loss = l1_loss(model(xs, train=True, generator=torch.Generator(
+                    device="cuda").manual_seed(5)), ys)
+                loss.backward()
+                t1.record()
+                torch.cuda.synchronize()
+                if i:
+                    times.append(t0.elapsed_time(t1))
+        return {"loss": float(loss), "grads": {k: p.grad for k, p in model.named_parameters()},
+                "stats": dict(model.named_buffers()), "draws": [d.clone() for d in draws],
+                "launches": dict(fk.LAUNCHES), "fallbacks": dict(fk.TRAIN_FALLBACKS),
+                "ms": sorted(times)[len(times) // 2],
+                "peak": torch.cuda.max_memory_allocated()}
+
+    pair, comp_step = step(True), step(False)
+    launches = {k: v for k, v in pair["launches"].items() if v}
+    if launches != {k: 47 for k in BN_KERNELS} or any(pair["fallbacks"].values()):
+        raise AssertionError(f"7f one EnhancedUNet step launched {launches}, fallbacks "
+                             f"{pair['fallbacks']}; want 47 of each of B1-B4 and none else")
+    if any(comp_step["launches"].values()):
+        raise AssertionError(f"7f the composition's step launched {comp_step['launches']}")
+    same_draws = len(pair["draws"]) == len(comp_step["draws"]) == 11 and all(
+        torch.equal(a, b) for a, b in zip(pair["draws"], comp_step["draws"]))
+    gaps = {"loss_rel": abs(pair["loss"] - comp_step["loss"]) / abs(comp_step["loss"]),
+            "grad_rel": (sum(float((pair["grads"][k] - g).double().norm()) ** 2
+                             for k, g in comp_step["grads"].items())
+                         / sum(float(g.double().norm()) ** 2
+                               for g in comp_step["grads"].values())) ** 0.5,
+            "stats_rel": (sum(float((pair["stats"][k] - t).double().norm()) ** 2
+                              for k, t in comp_step["stats"].items())
+                          / sum(float(t.double().norm()) ** 2
+                                for t in comp_step["stats"].values())) ** 0.5,
+            "first_stats_rel": max(rel(pair["stats"][k], comp_step["stats"][k])
+                                   for k in ("enc1.bn1.mean", "enc1.bn1.var"))}
+    print(f"7f one EnhancedUNet step (bf16, init_features {FAMILY_WIDTH}, batch {TRAIN_BATCH}, "
+          f"{TRAIN_SIZE}^2): launches {launches}, fallbacks {pair['fallbacks']}; against the "
+          f"composition's step: the same 11 dropout draws {same_draws}, gaps "
+          + ", ".join(f"{k} {v:.3g}" for k, v in gaps.items())
+          + f" (gates {BN_STEP_GATE}); forward+backward {pair['ms']:.3f} ms against "
+          f"{comp_step['ms']:.3f}; peak memory {pair['peak'] / 2**30:.3f} against "
+          f"{comp_step['peak'] / 2**30:.3f} GiB", flush=True)
+    if not same_draws or any(gaps[k] > BN_STEP_GATE[k] for k in gaps):
+        raise AssertionError("7f the pair's EnhancedUNet step against the composition's")
+
+    # the sweep's trial group runs under torch.func: the composition, counted
+    xv, yv = (torch.from_numpy(a).cuda() for a in triptych_batch(4, 64, seed=18))
+    fk.reset_launch_counts()
+    group = VmappedTrialGroup(EnhancedUNet(init_features=FAMILY_WIDTH, dtype=torch.bfloat16,
+                                           generator=torch.Generator().manual_seed(14)),
+                              [Trial(i, 2, 1e-3, 1e-5) for i in range(2)], seed=0, device="cuda")
+    loss = group._train_step(xv[:2], yv[:2])
+    torch.cuda.synchronize()
+    vmapped = {"launches": {k: fk.LAUNCHES[k] for k in BN_KERNELS},
+               "fallbacks": dict(fk.TRAIN_FALLBACKS)}
+    print(f"7f VmappedTrialGroup step (2 trials, EnhancedUNet, 64^2): losses {loss.tolist()}, "
+          f"{vmapped}", flush=True)
+    if any(vmapped["launches"].values()) or vmapped["fallbacks"]["transform"] < 47:
+        raise AssertionError("7f the trial group's BatchNorm must keep the composition, counted")
+    return rows, pair["launches"]
 
 
 # phase 8: HTTP serving. Traffic (my prediction and readings: PERF.md):
@@ -5546,6 +5846,9 @@ def main(argv: list | None = None) -> int:
     loader_rates = phase("7d cli.train entry point", train_entry_point)
     # a microbenchmark, as phase 3 is: its rows, not its launches
     rows.update(phase("7e GroupNorm+SiLU training pair", train_gn_kernels))
+    bn_rows, paths["7f one EnhancedUNet step"] = phase("7f BatchNorm+ReLU training pair",
+                                                       train_bn_kernels)
+    rows.update(bn_rows)
     counts, single_load = phase("8 HTTP serving on the card", http_serving, card)
     paths.update(counts)
     paths.update(phase("9 evaluation on the card", evaluation, card))
@@ -5577,6 +5880,7 @@ def main(argv: list | None = None) -> int:
         # training replaced XLA's fusion of the composition, no Pallas kernel
         "gn_silu_train_fwd": (src + "gn_silu.cu", None),
         "gn_silu_train_bwd": (src + "gn_silu.cu", None),
+        **{k: (src + "batch_norm.cu", None) for k in BN_KERNELS},
     }
     kernels = []
     for name, (source, replaces) in meta.items():
@@ -5589,7 +5893,7 @@ def main(argv: list | None = None) -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": max(r["by"], key=r["by"].get), "library_ms": r["library_ms"],
         }
-        if name == "dec1_output" or name.startswith("gn_silu_train"):
+        if name == "dec1_output" or name.startswith(("gn_silu_train", "bn_train")):
             # no one PyTorch call computes the dec1 tail or a training pass:
             # the yardstick is the composition of the model's ops
             row["library_ms"], row["composition_ms"] = None, r["library_ms"]

@@ -21,6 +21,14 @@ the batch statistics are those of the global batch, as JAX's step over
 its global mesh takes them: each rank's per-channel sums are added over
 the ranks (a differentiable all-reduce), so the running statistics move
 alike on every rank.
+
+Each BatchNorm call takes the activation after it as its epilogue (ReLU,
+or ReLU of the sum with a second tensor: a residual block's shortcut, an
+attention gate's other branch). A training-mode call on the card with
+autograd on runs the port's BatchNorm training pair
+(``ops.fused_kernels.bn_act_train``), which under ``synced_batch_stats``
+adds its sums over the ranks between its launches; every other call (eval
+mode, the CPU, a ``torch.func`` transform) runs the float32 composition.
 Dropout(0.2) sits after the first BatchNorm of each residual block and of
 the bottleneck; it draws from the generator the caller passes, so a
 training run is a function of its seed.
@@ -34,6 +42,7 @@ import contextvars
 import torch
 from torch import nn
 
+from ..ops import fused_kernels as fk
 from ..ops.conv_blocks import conv2d, highest_precision, max_pool_2x2, stat_mean
 from .unet import UpConv2x, _uniform
 
@@ -70,10 +79,22 @@ def _batch_moments(xf: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return total[:c].float(), total[c:].float()
 
 
+def _sums_hook():
+    """The training pair's ``sums_hook`` inside :func:`synced_batch_stats`:
+    per-channel sums added over the ranks, and the number of ranks."""
+    mesh = _SYNC_MESH.get()
+    if mesh is None:
+        return None
+    from ..parallel.mesh import all_reduce_sum
+
+    return lambda sums: (all_reduce_sum(sums.clone(), mesh), mesh.world)
+
+
 class BatchNorm(nn.Module):
     """flax's BatchNorm over the channel axis of NHWC input (see the module
     docstring); ``train`` uses the batch statistics and updates the running
-    ones in place."""
+    ones in place. ``act="relu"`` applies ReLU to the output, after adding
+    ``residual`` where it is given."""
 
     def __init__(self, features: int, *, momentum: float = 0.9, eps: float = 1e-5, device=None):
         super().__init__()
@@ -83,7 +104,15 @@ class BatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(features, device=device))
         self.register_buffer("var", torch.ones(features, device=device))
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False, *, act: str | None = None,
+                residual: torch.Tensor | None = None) -> torch.Tensor:
+        if act not in (None, "relu") or (residual is not None and act != "relu"):
+            raise ValueError(f"BatchNorm epilogue act={act!r} with residual "
+                             f"{residual is not None}: want None, 'relu', or 'relu' with it")
+        if train and fk.bn_route(x, self.scale, self.bias, residual) == "kernels":
+            return fk.bn_act_train(x, self.scale, self.bias, act=act, residual=residual,
+                                   eps=self.eps, momentum=self.momentum,
+                                   running=(self.mean, self.var), sums_hook=_sums_hook())
         xf = x.float()
         if train:
             mean, mean2 = _batch_moments(xf)
@@ -94,7 +123,10 @@ class BatchNorm(nn.Module):
                 self.var.copy_(m * self.var + (1 - m) * var)
         else:
             mean, var = self.mean, self.var
-        return (xf - mean) * (torch.rsqrt(var + self.eps) * self.scale) + self.bias
+        y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.scale) + self.bias
+        if residual is not None:
+            y = y + residual
+        return y if act is None else torch.relu(y)
 
 
 def dropout(x: torch.Tensor, rate: float, train: bool, generator) -> torch.Tensor:
@@ -127,13 +159,12 @@ class ResidualBlock(nn.Module):
             self.shortcut_bn = BatchNorm(f, device=device)
 
     def forward(self, x: torch.Tensor, train: bool = False, generator=None) -> torch.Tensor:
-        y = torch.relu(self.bn1(conv2d(x, self.conv1, padding=1), train))
+        y = self.bn1(conv2d(x, self.conv1, padding=1), train, act="relu")
         y = dropout(y, self.dropout_rate, train, generator)
-        y = self.bn2(conv2d(y, self.conv2, padding=1), train)
         shortcut = x
         if hasattr(self, "shortcut_conv"):
             shortcut = self.shortcut_bn(conv2d(x, self.shortcut_conv), train)
-        return torch.relu(y + shortcut)
+        return self.bn2(conv2d(y, self.conv2, padding=1), train, act="relu", residual=shortcut)
 
 
 class AttentionGate(nn.Module):
@@ -154,8 +185,8 @@ class AttentionGate(nn.Module):
 
     def forward(self, g: torch.Tensor, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         g1 = self.bn_g(conv2d(g, self.w_g, self.w_g_bias), train)
-        x1 = self.bn_x(conv2d(x, self.w_x, self.w_x_bias), train)
-        psi = self.bn_psi(conv2d(torch.relu(g1 + x1), self.psi, self.psi_bias), train)
+        s = self.bn_x(conv2d(x, self.w_x, self.w_x_bias), train, act="relu", residual=g1)
+        psi = self.bn_psi(conv2d(s, self.psi, self.psi_bias), train)
         return x * torch.sigmoid(psi)
 
 
@@ -204,10 +235,10 @@ class EnhancedUNet(nn.Module):
             for i in (2, 3, 4, 5):
                 enc.append(getattr(self, f"enc{i}")(max_pool_2x2(enc[-1]), train, generator))
             b = conv2d(max_pool_2x2(enc[-1]), self.bottleneck_conv1, padding=2, dilation=2)
-            b = torch.relu(self.bottleneck_bn1(b, train))
+            b = self.bottleneck_bn1(b, train, act="relu")
             b = dropout(b, self.dropout_rate, train, generator)
             b = conv2d(b, self.bottleneck_conv2, padding=2, dilation=2)
-            d = torch.relu(self.bottleneck_bn2(b, train))
+            d = self.bottleneck_bn2(b, train, act="relu")
             for i in (5, 4, 3, 2, 1):
                 up = getattr(self, f"upconv{i}")(d)
                 gated = getattr(self, f"attention{i}")(up, enc[i - 1], train)

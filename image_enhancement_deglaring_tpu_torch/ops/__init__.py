@@ -21,6 +21,7 @@ from .dec1 import (
 )
 from .fused_kernels import (
     LAUNCHES,
+    bn_act_train,
     conv3x3_gn_silu,
     conv3x3_gn_silu_batched,
     conv3x3_gn_silu_plain,

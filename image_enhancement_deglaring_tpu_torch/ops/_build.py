@@ -22,13 +22,14 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("gn_silu", "conv_gn_silu", "dec1_output")
+SOURCES = ("gn_silu", "conv_gn_silu", "dec1_output", "batch_norm")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L, _D = ctypes.c_longlong, ctypes.c_double
 _GN_ARGS = [_P] * 6 + [_I] * 11 + [_F, _I, _P]
 #: C entry points of each library and their argument types
 SIGNATURES = {
@@ -38,6 +39,10 @@ SIGNATURES = {
     "conv_gn_silu": {"conv3x3_gn_silu_bf16": [_P] * 7 + [_I] * 10 + [_F, _P],
                      "conv3x3_gn_silu_f32": [_P] * 8 + [_I] * 10 + [_F, _P]},
     "dec1_output": {"dec1_output": [_P] * 15 + [_I] * 4 + [_F, _I, _P]},
+    "batch_norm": {"bn_train_stats": [_P] * 4 + [_L] + [_I] * 5 + [_P],
+                   "bn_train_apply": [_P] * 9 + [_L] + [_I] * 4 + [_D] + [_F] * 3 + [_I] * 2 + [_P],
+                   "bn_train_bwd_sums": [_P] * 9 + [_L] + [_I] * 6 + [_P],
+                   "bn_train_bwd_apply": [_P] * 9 + [_L] + [_I] * 4 + [_D] + [_I] * 2 + [_P]},
 }
 
 _lock = threading.Lock()

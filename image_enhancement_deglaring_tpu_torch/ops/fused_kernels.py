@@ -11,6 +11,9 @@ conv3x3_gn_silu           _conv_gn_silu_kernel (K3)            csrc/conv_gn_silu
 conv3x3_gn_silu_batched   _conv_gn_silu_batched_kernel (K4)    csrc/conv_gn_silu.cu
 gn_silu_train_fwd         none (XLA's fusion of the training   csrc/gn_silu.cu
 gn_silu_train_bwd         composition)                         csrc/gn_silu.cu
+bn_sums, bn_apply         none (XLA's fusion of flax's         csrc/batch_norm.cu
+bn_bwd_sums               BatchNorm and ReLU in training)      csrc/batch_norm.cu
+bn_bwd_apply                                                   csrc/batch_norm.cu
 ========================  ===================================  ====================
 
 (K5, the dec1 tail of ``pallas_dec1``, is in :mod:`.dec1`.)
@@ -25,9 +28,14 @@ result that carries no gradient. GroupNorm+SiLU trains through
 ``gn_silu_train``, an autograd Function over the training pair (a forward
 that saves its statistics, and a fused backward); the models' blocks take
 it for every grad-mode call on a device tensor (``grad_route``).
-Conv+GN+SiLU (K3) has no backward: train with ``fused_blocks=False``.
+EnhancedUNet's training-mode BatchNorm, with the ReLU or add+ReLU after
+it, trains through ``bn_act_train``: four launches (statistics, apply,
+backward sums, backward apply), the sums summed over the ranks between
+them under a mesh (``bn_route``). Conv+GN+SiLU (K3) has no backward: train
+with ``fused_blocks=False``.
 Each launch adds one to ``LAUNCHES[<wrapper name>]``. The GroupNorm
-wrappers make one launch under the launch plan ``_gn_plan``. In bfloat16
+wrappers make one launch under the launch plan ``_gn_plan``, the BatchNorm
+ones one each under ``_bn_plan``. In bfloat16
 the conv wrappers run the tensor-core kernel under the launch plan
 ``_conv_plan`` (three launches); in float32 the CUDA-core one (five
 launches).
@@ -53,10 +61,13 @@ from .conv_blocks import conv2d, group_norm, highest_precision, silu
 
 #: kernel launches per wrapper since the last reset_launch_counts()
 LAUNCHES = {"gn_silu_flat": 0, "gn_silu_nhwc": 0, "conv3x3_gn_silu": 0,
-            "conv3x3_gn_silu_batched": 0, "gn_silu_train_fwd": 0, "gn_silu_train_bwd": 0}
-#: grad-mode GroupNorm+SiLU calls on a device tensor that took the
-#: composition instead of ``gn_silu_train``, by reason: inside a
-#: ``torch.func`` transform, or a shape or dtype the kernels do not take
+            "conv3x3_gn_silu_batched": 0, "gn_silu_train_fwd": 0, "gn_silu_train_bwd": 0,
+            "bn_train_stats": 0, "bn_train_apply": 0, "bn_train_bwd_sums": 0,
+            "bn_train_bwd_apply": 0}
+#: grad-mode GroupNorm+SiLU or training-mode BatchNorm calls on a device
+#: tensor that took the composition instead of ``gn_silu_train`` or
+#: ``bn_act_train``, by reason: inside a ``torch.func`` transform, or a
+#: shape or dtype the kernels do not take
 TRAIN_FALLBACKS = {"transform": 0, "shape": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -139,6 +150,156 @@ def gn_silu_train_bwd_plain(x: torch.Tensor, dy: torch.Tensor, scale: torch.Tens
             dz.sum(dim=(0, 1)).reshape(c).to(bias.dtype))
 
 
+_BN_ACTS = {None: 0, "relu": 1}  # and 2: "relu" with a residual added before it
+
+
+def _bn_act_code(act, with_residual: bool) -> int:
+    """The kernels' epilogue code: 0 none, 1 ReLU, 2 add the residual, then ReLU."""
+    if act not in _BN_ACTS:
+        raise ValueError(f"BatchNorm epilogue {act!r}: want None or 'relu'")
+    if with_residual and act != "relu":
+        raise ValueError("BatchNorm with a residual takes act='relu' (add, then ReLU)")
+    return 2 if with_residual else _BN_ACTS[act]
+
+
+def _bn_rows(x: torch.Tensor) -> tuple[int, int]:
+    c = x.shape[-1]
+    return x.numel() // c, c
+
+
+def _bn_channel_stats(sums: torch.Tensor, count: int, eps: float, acc: torch.dtype):
+    """(mean, var, rstd) per channel from B1's sums over ``count`` rows:
+    mean and E[x^2] divided in float64 and rounded once, flax's biased
+    variance max(E[x^2] - mean^2, 0), rstd = 1 / sqrt(var + eps)."""
+    c = sums.shape[0] // 2
+    mean = (sums[:c].double() / count).to(acc)
+    var = torch.clamp((sums[c:].double() / count).to(acc) - mean * mean, min=0.0)
+    return mean, var, 1.0 / torch.sqrt(var + eps)
+
+
+def bn_sums_plain(x: torch.Tensor) -> torch.Tensor:
+    """B1 (``bn_train_stats``): per-channel (sum x, sum x^2) over every row
+    of NHWC ``x``, (2C,) float32 (float64 for a float64 input)."""
+    _, c = _bn_rows(x)
+    xf = x.reshape(-1, c).double()
+    return torch.cat([xf.sum(0), xf.square().sum(0)]).to(_acc_dtype(x))
+
+
+def bn_apply_plain(x: torch.Tensor, sums: torch.Tensor, scale: torch.Tensor,
+                   bias: torch.Tensor, *, count: int, act=None, residual=None,
+                   eps: float = 1e-5, momentum: float = 0.9, running=None):
+    """B2 (``bn_train_apply``) from the sums over ``count`` rows: a =
+    rstd * gamma, b = beta - mean * a, z = x * a + b, then ReLU or ReLU(z +
+    residual); ``running`` (mean, var) buffers move to momentum * old +
+    (1 - momentum) * batch. Returns (out in float32 (float64 for a float64
+    input), stats (C, 2) of (mean, rstd))."""
+    code = _bn_act_code(act, residual is not None)
+    acc = _acc_dtype(x)
+    _, c = _bn_rows(x)
+    mean, var, rstd = _bn_channel_stats(sums, count, eps, acc)
+    a = rstd * scale.to(acc)
+    b = bias.to(acc) - mean * a
+    z = x.to(acc).reshape(-1, c) * a + b
+    if code == 2:
+        z = z + residual.to(acc).reshape(-1, c)
+    if code:
+        z = torch.where(z > 0, z, 0.0)
+    if running is not None:
+        with torch.no_grad():
+            for buf, batch in zip(running, (mean, var)):
+                buf.copy_(momentum * buf + (1 - momentum) * batch.to(buf.dtype))
+    return z.reshape(x.shape), torch.stack([mean, rstd], -1)
+
+
+def _bn_dz(x2, dy2, scale, bias, stats, code: int, out, acc):
+    """dz of the backward: dy where the forward's output is positive (ReLU:
+    z recomputed from x and the saved statistics; add+ReLU: the saved
+    output), dy itself with no epilogue; and x^ = (x - mean) * rstd."""
+    mean, rstd = stats[:, 0].to(acc), stats[:, 1].to(acc)
+    if code == 1:
+        a = rstd * scale.to(acc)
+        dy2 = torch.where(x2 * a + (bias.to(acc) - mean * a) > 0, dy2, 0.0)
+    elif code == 2:
+        dy2 = torch.where(out.reshape(dy2.shape) > 0, dy2, 0.0)
+    return dy2, (x2 - mean) * rstd
+
+
+def bn_bwd_sums_plain(x: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor,
+                      bias: torch.Tensor, stats: torch.Tensor, *, act=None,
+                      out=None) -> torch.Tensor:
+    """B3 (``bn_train_bwd_sums``): per-channel (sum dz, sum dz x^) over
+    these rows, (2C,); ``out`` is the forward's output where it added a
+    residual."""
+    acc = _acc_dtype(x)
+    _, c = _bn_rows(x)
+    dz, xh = _bn_dz(x.to(acc).reshape(-1, c), dy.to(acc).reshape(-1, c), scale, bias, stats,
+                    _bn_act_code(act, out is not None), out, acc)
+    return torch.cat([dz.sum(0, dtype=torch.float64),
+                      (dz * xh).sum(0, dtype=torch.float64)]).to(acc)
+
+
+def bn_bwd_apply_plain(x: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor,
+                       bias: torch.Tensor, stats: torch.Tensor, sums: torch.Tensor, *,
+                       count: int, act=None, out=None):
+    """B4 (``bn_train_bwd_apply``) from B3's sums over ``count`` rows:
+    dx = rstd gamma ((dz - S_dz / n) - x^ S_dzx / n) in x's dtype, and with
+    a residual its gradient dz (else None)."""
+    acc = _acc_dtype(x)
+    _, c = _bn_rows(x)
+    code = _bn_act_code(act, out is not None)
+    dz, xh = _bn_dz(x.to(acc).reshape(-1, c), dy.to(acc).reshape(-1, c), scale, bias, stats,
+                    code, out, acc)
+    k = stats[:, 1].to(acc) * scale.to(acc)
+    m1 = (sums[:c].double() / count).to(acc)
+    m2 = (sums[c:].double() / count).to(acc)
+    dx = (k * ((dz - m1) - xh * m2)).reshape(x.shape).to(x.dtype)
+    return dx, (dz.reshape(x.shape) if code == 2 else None)
+
+
+def _over_ranks(sums: torch.Tensor, rows: int, sums_hook):
+    """The sums and their row count over every rank: ``sums_hook(sums)``
+    gives (the sums over the ranks, the number of ranks)."""
+    if sums_hook is None:
+        return sums, rows
+    total, ranks = sums_hook(sums)
+    return total, rows * ranks
+
+
+def _bn_fwd(sums_fn, apply_fn, x, scale, bias, act, residual, eps, momentum, running,
+            sums_hook):
+    total, count = _over_ranks(sums_fn(x), _bn_rows(x)[0], sums_hook)
+    return apply_fn(x, total, scale, bias, count=count, act=act, residual=residual, eps=eps,
+                    momentum=momentum, running=running)
+
+
+def _bn_bwd(sums_fn, apply_fn, x, dy, scale, bias, stats, act, out, sums_hook):
+    local = sums_fn(x, dy, scale, bias, stats, act=act, out=out)
+    total, count = _over_ranks(local, _bn_rows(x)[0], sums_hook)
+    dx, dres = apply_fn(x, dy, scale, bias, stats, total, count=count, act=act, out=out)
+    c = x.shape[-1]
+    return dx, dres, local[c:].to(scale.dtype), local[:c].to(bias.dtype)
+
+
+def bn_act_train_fwd_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *,
+                           act=None, residual=None, eps: float = 1e-5, momentum: float = 0.9,
+                           running=None, sums_hook=None):
+    """The training forward as its kernels compute it: B1's sums, summed
+    over the ranks by ``sums_hook`` (see ``bn_act_train``), then B2.
+    Returns (out, stats)."""
+    return _bn_fwd(bn_sums_plain, bn_apply_plain, x, scale, bias, act, residual, eps, momentum,
+                   running, sums_hook)
+
+
+def bn_act_train_bwd_plain(x: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor,
+                           bias: torch.Tensor, stats: torch.Tensor, *, act=None, out=None,
+                           sums_hook=None):
+    """The training backward as its kernels compute it: B3's sums of these
+    rows (dbeta, dgamma), summed over the ranks by ``sums_hook`` for B4.
+    Returns (dx, the residual's gradient or None, dgamma, dbeta)."""
+    return _bn_bwd(bn_bwd_sums_plain, bn_bwd_apply_plain, x, dy, scale, bias, stats, act, out,
+                   sums_hook)
+
+
 def conv3x3_gn_silu_plain(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
                           bias: torch.Tensor, *, num_groups: int,
                           eps: float = 1e-5) -> torch.Tensor:
@@ -202,7 +363,8 @@ def refuse_autograd(name: str, *tensors) -> None:
             f"{name}: the CUDA kernel is forward-only (no backward, as the TPU kernel has "
             f"none), but grad mode is on and an argument requires grad; call it under "
             f"torch.no_grad() or torch.inference_mode(); GroupNorm+SiLU trains through "
-            f"gn_silu_train, and a model with fused_blocks trains with fused_blocks=False")
+            f"gn_silu_train, BatchNorm+ReLU through bn_act_train, and a model with "
+            f"fused_blocks trains with fused_blocks=False")
 
 
 def _raise_on_error(name: str, err: int) -> None:
@@ -548,6 +710,266 @@ def gn_silu_train(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *,
     return _GnSiluTrain.apply(x.contiguous(), scale, bias, num_groups, eps)
 
 
+# The BatchNorm kernels' geometry (csrc/batch_norm.cu, namespace bnk).
+_BN_THREADS = 1_024       # bnk::kThreadTarget: threads per block, rounded to the channel period
+_BN_MAX_C = 1_024         # channels whose element-wise period fits a block
+_BN_FOLD_FLOATS = 65_536  # partials the last block of a sums pass folds, at most
+
+
+@dataclass(frozen=True)
+class BnPlan:
+    """Launch plan of the BatchNorm kernels (``csrc/batch_norm.cu``) for a
+    (rows, C) slab.
+
+    Every launch walks the slab as ``vectors`` vectors of ``vec`` elements
+    (4, or 1 where the slab or a pointer does not allow 16-byte float32 /
+    8-byte bf16 accesses), grid-stride in steps of ``threads`` vectors: block
+    ``b`` of a grid of ``g`` takes steps b, b + g, ... Thread t of a block
+    holds vector t of each step, whose lane j is channel (t vec + j) % C,
+    since ``threads`` is a multiple of the ``period``. The apply passes run
+    ``grid`` blocks, the sums passes ``sums_grid`` (their partials, 2C
+    floats a block, stay within ``_BN_FOLD_FLOATS`` for one block to fold)."""
+
+    rows: int
+    c: int
+    vec: int
+    threads: int
+    grid: int
+    sums_grid: int
+
+    @property
+    def period(self) -> int:
+        return self.c // math.gcd(self.c, self.vec)
+
+    @property
+    def vectors(self) -> int:
+        return self.rows * self.c // self.vec
+
+    @property
+    def steps(self) -> int:
+        return -(-self.vectors // self.threads)
+
+
+@functools.lru_cache(maxsize=256)
+def _bn_plan(rows: int, c: int, sms: int, aligned: bool = True) -> BnPlan:
+    """The BatchNorm kernels' launch plan on a card with ``sms`` SMs (one
+    block of up to ``_BN_THREADS`` threads per SM): vectors of 4 elements
+    where the pointers are ``aligned`` and the slab holds whole vectors,
+    threads ``bnk::block_threads``, the apply grid the steps up to one
+    block per SM, the sums grid that or fewer so the partials stay within
+    ``_BN_FOLD_FLOATS``. Adapts to (rows, C) only."""
+    if not 1 <= c <= _BN_MAX_C:
+        raise ValueError(f"BatchNorm kernels take 1 to {_BN_MAX_C} channels, got {c}")
+    if rows < 1:
+        raise ValueError(f"BatchNorm kernels take at least one row, got {rows}")
+    vec = 4 if aligned and rows * c % 4 == 0 else 1
+    period = c // math.gcd(c, vec)
+    threads = period * max(1, _BN_THREADS // period)
+    grid = min(-(-(rows * c // vec) // threads), sms)
+    return BnPlan(rows=rows, c=c, vec=vec, threads=threads, grid=grid,
+                  sums_grid=min(grid, max(1, _BN_FOLD_FLOATS // (2 * c))))
+
+
+def _bn_check(name: str, x: torch.Tensor, *same) -> tuple[int, int]:
+    """(rows, C) of NHWC ``x`` on a CUDA device; each of ``same`` (or
+    None) float32, contiguous, of x's shape."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: tensor on {x.device}, want cpu or cuda")
+    _check_activation(name, x)
+    for t in same:
+        if t is not None and (t.shape != x.shape or t.dtype != torch.float32
+                              or t.device != x.device or not t.is_contiguous()):
+            raise ValueError(f"{name}: a tensor of {tuple(t.shape)} {t.dtype} where x's "
+                             f"shape {tuple(x.shape)} in float32, contiguous, is wanted")
+    rows, c = _bn_rows(x)
+    if c > _BN_MAX_C:
+        raise ValueError(f"{name}: BatchNorm kernels take 1 to {_BN_MAX_C} channels, got {c}")
+    return rows, c
+
+
+def _bn_channels(name: str, x: torch.Tensor, t: torch.Tensor, width: int) -> torch.Tensor:
+    if t.shape != (width,) or t.dtype != torch.float32 or t.device != x.device:
+        raise ValueError(f"{name}: a ({width},) float32 tensor on {x.device} is wanted, got "
+                         f"{tuple(t.shape)} {t.dtype} on {t.device}")
+    return t.contiguous()
+
+
+def _bn_launch_plan(x: torch.Tensor, *others) -> BnPlan:
+    """The plan for ``x`` and the float32 tensors ``others`` walked beside it."""
+    aligned = x.data_ptr() % (4 * x.element_size()) == 0 and all(
+        t.data_ptr() % 16 == 0 for t in others if t is not None)
+    rows, c = _bn_rows(x)
+    return _bn_plan(rows, c, _sm_count(x.device), aligned)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def bn_sums(x: torch.Tensor) -> torch.Tensor:
+    """B1: per-channel (sum x, sum x^2) of NHWC ``x`` (float32 or bf16),
+    (2C,) float32, the same bits every call."""
+    if x.device.type == "cpu":
+        return bn_sums_plain(x)
+    name = "bn_train_stats"
+    refuse_autograd(name, x)
+    rows, c = _bn_check(name, x)
+    plan = _bn_launch_plan(x)
+    sums = torch.empty(2 * c, dtype=torch.float32, device=x.device)
+    stream = _stream(x.device)
+    with _GN_WORK_LOCK, torch.cuda.device(x.device):
+        work, slots = _gn_workspace(x.device, stream, 1, plan.sums_grid * 2 * c)
+        err = _build.load("batch_norm").bn_train_stats(
+            x.data_ptr(), sums.data_ptr(), work.data_ptr(), work.data_ptr() + 4 * slots, rows, c,
+            plan.vec, plan.threads, plan.sums_grid, _DTYPE_CODE[x.dtype], stream)
+    _raise_on_error(name, err)
+    LAUNCHES[name] += 1
+    return sums
+
+
+def bn_apply(x: torch.Tensor, sums: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *,
+             count: int, act=None, residual=None, eps: float = 1e-5, momentum: float = 0.9,
+             running=None):
+    """B2: ``bn_apply_plain``'s function from B1's ``sums`` over ``count``
+    rows (every rank's). Returns (out float32, stats (C, 2))."""
+    if x.device.type == "cpu":
+        return bn_apply_plain(x, sums, scale, bias, count=count, act=act, residual=residual,
+                              eps=eps, momentum=momentum, running=running)
+    name = "bn_train_apply"
+    code = _bn_act_code(act, residual is not None)
+    refuse_autograd(name, x, scale, bias, residual)
+    rows, c = _bn_check(name, x, residual)
+    g, b = _affine(name, x, scale, c), _affine(name, x, bias, c)
+    sums = _bn_channels(name, x, sums, 2 * c)
+    rm, rv = (None, None) if running is None else running
+    if running is not None and any(_bn_channels(name, x, t, c) is not t for t in running):
+        raise ValueError(f"{name}: running statistics must be contiguous")
+    y = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    stats = torch.empty((c, 2), dtype=torch.float32, device=x.device)
+    plan = _bn_launch_plan(x, residual, y)
+    with torch.cuda.device(x.device):
+        err = _build.load("batch_norm").bn_train_apply(
+            x.data_ptr(), sums.data_ptr(), g.data_ptr(), b.data_ptr(), _ptr(residual),
+            y.data_ptr(), stats.data_ptr(), _ptr(rm), _ptr(rv), rows, c, plan.vec, plan.threads,
+            plan.grid, float(count), eps, momentum, 1 - momentum, code, _DTYPE_CODE[x.dtype],
+            _stream(x.device))
+    _raise_on_error(name, err)
+    LAUNCHES[name] += 1
+    return y, stats
+
+
+def bn_bwd_sums(x: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                stats: torch.Tensor, *, act=None, out=None) -> torch.Tensor:
+    """B3: per-channel (sum dz, sum dz x^) of these rows, (2C,) float32, the
+    same bits every call; ``out`` is B2's output where it added a residual."""
+    if x.device.type == "cpu":
+        return bn_bwd_sums_plain(x, dy, scale, bias, stats, act=act, out=out)
+    name = "bn_train_bwd_sums"
+    code = _bn_act_code(act, out is not None)
+    rows, c = _bn_check(name, x, dy, out)
+    g, b = _affine(name, x, scale, c), _affine(name, x, bias, c)
+    stats = _bn_channels(name, x, stats.reshape(-1), 2 * c)
+    plan = _bn_launch_plan(x, dy, out)
+    sums = torch.empty(2 * c, dtype=torch.float32, device=x.device)
+    stream = _stream(x.device)
+    with _GN_WORK_LOCK, torch.cuda.device(x.device):
+        work, slots = _gn_workspace(x.device, stream, 1, plan.sums_grid * 2 * c)
+        err = _build.load("batch_norm").bn_train_bwd_sums(
+            x.data_ptr(), dy.data_ptr(), _ptr(out), stats.data_ptr(), g.data_ptr(), b.data_ptr(),
+            sums.data_ptr(), work.data_ptr(), work.data_ptr() + 4 * slots, rows, c, plan.vec,
+            plan.threads, plan.sums_grid, code, _DTYPE_CODE[x.dtype], stream)
+    _raise_on_error(name, err)
+    LAUNCHES[name] += 1
+    return sums
+
+
+def bn_bwd_apply(x: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                 stats: torch.Tensor, sums: torch.Tensor, *, count: int, act=None, out=None):
+    """B4: ``bn_bwd_apply_plain``'s function from B3's ``sums`` over
+    ``count`` rows (every rank's). Returns (dx in x's dtype, the residual's
+    gradient in float32 or None)."""
+    if x.device.type == "cpu":
+        return bn_bwd_apply_plain(x, dy, scale, bias, stats, sums, count=count, act=act,
+                                  out=out)
+    name = "bn_train_bwd_apply"
+    code = _bn_act_code(act, out is not None)
+    rows, c = _bn_check(name, x, dy, out)
+    g, b = _affine(name, x, scale, c), _affine(name, x, bias, c)
+    stats = _bn_channels(name, x, stats.reshape(-1), 2 * c)
+    sums = _bn_channels(name, x, sums, 2 * c)
+    dx = torch.empty_like(x)
+    dres = torch.empty_like(dy) if code == 2 else None
+    plan = _bn_launch_plan(x, dy, out, dres)
+    with torch.cuda.device(x.device):
+        err = _build.load("batch_norm").bn_train_bwd_apply(
+            x.data_ptr(), dy.data_ptr(), _ptr(out), stats.data_ptr(), g.data_ptr(), b.data_ptr(),
+            sums.data_ptr(), dx.data_ptr(), _ptr(dres), rows, c, plan.vec, plan.threads,
+            plan.grid, float(count), code, _DTYPE_CODE[x.dtype], _stream(x.device))
+    _raise_on_error(name, err)
+    LAUNCHES[name] += 1
+    return dx, dres
+
+
+def bn_act_train_fwd(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *, act=None,
+                     residual=None, eps: float = 1e-5, momentum: float = 0.9, running=None,
+                     sums_hook=None):
+    """The training forward: B1, ``sums_hook``, B2 (on a CPU tensor their
+    plain versions). Returns (out float32, stats (C, 2) of (mean, rstd))."""
+    return _bn_fwd(bn_sums, bn_apply, x, scale, bias, act, residual, eps, momentum, running,
+                   sums_hook)
+
+
+def bn_act_train_bwd(x: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor,
+                     bias: torch.Tensor, stats: torch.Tensor, *, act=None, out=None,
+                     sums_hook=None):
+    """The training backward: B3, ``sums_hook``, B4 (on a CPU tensor their
+    plain versions). Returns (dx, the residual's gradient or None, dgamma,
+    dbeta), dgamma and dbeta of this rank's rows."""
+    return _bn_bwd(bn_bwd_sums, bn_bwd_apply, x, dy, scale, bias, stats, act, out, sums_hook)
+
+
+class _BnActTrain(torch.autograd.Function):
+    """BatchNorm (+ ReLU, or + residual + ReLU) whose backward is the
+    training pair's: saves the input, the affine parameters, the forward's
+    (mean, rstd) and, where it added a residual, its output."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, residual, act, eps, momentum, running, sums_hook):
+        out, stats = bn_act_train_fwd(x, scale, bias, act=act, residual=residual, eps=eps,
+                                      momentum=momentum, running=running, sums_hook=sums_hook)
+        ctx.save_for_backward(x, scale, bias, stats, out if residual is not None else None)
+        ctx.act, ctx.sums_hook = act, sums_hook
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy):
+        x, scale, bias, stats, out = ctx.saved_tensors
+        dy = dy.to(_acc_dtype(x)).contiguous()
+        dx, dres, dgamma, dbeta = bn_act_train_bwd(x, dy, scale, bias, stats, act=ctx.act,
+                                                   out=out, sums_hook=ctx.sums_hook)
+        return dx, dgamma, dbeta, dres, None, None, None, None, None
+
+
+def bn_act_train(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *, act=None,
+                 residual=None, eps: float = 1e-5, momentum: float = 0.9, running=None,
+                 sums_hook=None) -> torch.Tensor:
+    """Differentiable training-mode BatchNorm over the channels of NHWC
+    ``x`` (flax's: batch statistics, biased variance) followed by ``act``
+    (None or "relu"; with ``residual``, ReLU(BatchNorm(x) + residual)),
+    through the training pair (on a CPU tensor, their plain versions).
+    Output float32. ``running``, a (mean, var) pair of buffers, moves to
+    momentum * old + (1 - momentum) * batch. ``sums_hook(sums)``, where
+    given, returns (the per-channel sums over every rank, the number of
+    ranks): the forward's statistics and the backward's sums are then the
+    global batch's (``models.enhanced_unet.synced_batch_stats``). Not under
+    ``torch.func`` transforms: the Function has no vmap rule."""
+    if residual is not None:
+        residual = residual.to(_acc_dtype(x)).contiguous()
+    return _BnActTrain.apply(x.contiguous(), scale, bias, residual, act, eps, momentum, running,
+                             sums_hook)
+
+
 def _conv_launch(name: str, x, w, scale, bias, num_groups: int, eps: float, images: int):
     """Launch conv_gn_silu.cu for K3 (``images`` 1) or K4: in bf16 the
     tensor-core kernel under ``_conv_plan``, in float32 the CUDA-core one
@@ -642,16 +1064,33 @@ def grad_route(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     ``TRAIN_FALLBACKS``, inside a ``torch.func`` transform (whose batched
     tensors show no requires_grad; any grad-mode call there counts) or
     for a shape or dtype the training pair does not take."""
+    return _train_route(x, (x, scale, bias), lambda c: c % num_groups == 0
+                        and c <= _GN_MAX_THREADS)
+
+
+def bn_route(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+             residual: torch.Tensor | None = None) -> str | None:
+    """How EnhancedUNet's training-mode BatchNorm call runs, by
+    ``grad_route``'s rules: None (not a grad-mode call on a device tensor
+    with an argument that requires grad: the composition, uncounted),
+    "kernels" (``bn_act_train``), or "composition", counted in
+    ``TRAIN_FALLBACKS``, inside a ``torch.func`` transform or for a shape
+    or dtype the pair does not take."""
+    return _train_route(x, (x, scale, bias, residual), lambda c: c <= _BN_MAX_C and (
+        residual is None or residual.shape == x.shape))
+
+
+def _train_route(x: torch.Tensor, tensors, takes) -> str | None:
+    """The routes' common rules; ``takes(C)`` for an NHWC float32 or bf16
+    ``x`` says whether the kernels take the call."""
     if not (torch.is_grad_enabled() and _routes_to_kernels(x)):
         return None
     if torch._C._functorch.peek_interpreter_stack() is not None:
         TRAIN_FALLBACKS["transform"] += 1
         return "composition"
-    if not any(t.requires_grad for t in (x, scale, bias)):
+    if not any(t is not None and t.requires_grad for t in tensors):
         return None
-    c = x.shape[-1]
-    if (x.dim() != 4 or x.numel() == 0 or x.dtype not in _DTYPE_CODE
-            or c % num_groups != 0 or c > _GN_MAX_THREADS):
+    if x.dim() != 4 or x.numel() == 0 or x.dtype not in _DTYPE_CODE or not takes(x.shape[-1]):
         TRAIN_FALLBACKS["shape"] += 1
         return "composition"
     return "kernels"

@@ -106,7 +106,8 @@ def test_conv_plan_items_below_sms():
 
 
 _C_TYPES = {"const void*": _build.ctypes.c_void_p, "void*": _build.ctypes.c_void_p,
-            "int": _build.ctypes.c_int, "float": _build.ctypes.c_float}
+            "int": _build.ctypes.c_int, "float": _build.ctypes.c_float,
+            "long long": _build.ctypes.c_longlong, "double": _build.ctypes.c_double}
 
 
 def _c_prototypes(source: Path) -> dict:

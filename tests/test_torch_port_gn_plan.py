@@ -268,3 +268,95 @@ def test_training_entry_points_take_the_plan_in_order():
     assert names["gn_silu_train_bwd"] == (["x", "dy", "gamma", "beta", "stats", "dx", "dgamma",
                                            "dbeta", "count", "part"] + plan + ["dtype", "stream"])
     assert names["gn_silu_flat"][6:17] == plan
+
+
+# --------------------------------------------- the BatchNorm kernels' plan
+
+# EnhancedUNet's BatchNorm sites in training (batch 32): (side, channels)
+BN_SHAPES = [(512, 16), (512, 8), (512, 1), (256, 32), (256, 16), (256, 1), (128, 64),
+             (128, 32), (128, 1), (64, 128), (64, 64), (64, 1), (32, 256), (32, 128), (32, 1),
+             (16, 512)]
+
+
+def _bn_walk(plan, grid: int) -> np.ndarray:
+    """How many times the grid-stride walk of ``grid`` blocks visits each
+    vector: block b takes steps b, b + grid, ..., thread t vector t of each."""
+    seen = np.zeros(plan.vectors, np.int16)
+    for b in range(grid):
+        for step in range(b, plan.steps, grid):
+            v0 = step * plan.threads
+            seen[v0:min(plan.vectors, v0 + plan.threads)] += 1
+    return seen
+
+
+def _check_bn_plan(plan, sms):
+    assert plan.vec in (1, 4) and plan.rows * plan.c % plan.vec == 0
+    assert plan.threads <= 1024 and plan.threads % plan.period == 0
+    assert plan.threads > 512 or plan.threads == plan.period
+    assert 1 <= plan.sums_grid <= plan.grid <= min(sms, plan.steps)
+    assert plan.sums_grid == 1 or plan.sums_grid * 2 * plan.c <= fk._BN_FOLD_FLOATS
+    # lane j of thread t holds channel (t vec + j) % C in every step of the walk
+    lanes = torch.arange(plan.threads * plan.vec).reshape(plan.threads, plan.vec)
+    for step in (0, 1, plan.steps - 1):
+        assert torch.equal((step * plan.threads * plan.vec + lanes) % plan.c, lanes % plan.c)
+
+
+@pytest.mark.parametrize("side,c", BN_SHAPES)
+def test_bn_plan_walks_every_vector_once(side, c):
+    for sms in SMS:
+        plan = fk._bn_plan(32 * side * side, c, sms)
+        _check_bn_plan(plan, sms)
+        assert plan.vec == 4 and plan.threads == 1024
+        for grid in {plan.grid, plan.sums_grid}:
+            assert (_bn_walk(plan, grid) == 1).all(), (sms, grid)
+
+
+@pytest.mark.parametrize("rows,c,aligned,vec", [(105, 3, True, 1), (100, 3, True, 4),
+                                                 (7, 5, True, 1), (64, 16, False, 1),
+                                                 (1, 1, True, 1), (2805, 24, True, 4),
+                                                 (9, 1024, True, 4), (33, 768, True, 4)])
+def test_bn_plan_odd_shapes(rows, c, aligned, vec):
+    """Channels whose period is not a power of two, slabs that do not hold
+    whole vectors, an unaligned input: a valid plan, one element at a time
+    where vectors do not fit."""
+    plan = fk._bn_plan(rows, c, 132, aligned)
+    _check_bn_plan(plan, 132)
+    assert plan.vec == vec
+    assert (_bn_walk(plan, plan.grid) == 1).all() and (_bn_walk(plan, plan.sums_grid) == 1).all()
+
+
+def test_bn_plan_rejects_shapes_outside_its_range():
+    with pytest.raises(ValueError, match="1024 channels"):
+        fk._bn_plan(4, 2048, 132)
+    with pytest.raises(ValueError, match="one row"):
+        fk._bn_plan(0, 8, 132)
+
+
+def test_bn_entry_points_take_the_plan_in_order():
+    """The wrappers pass their arguments positionally: the C prototypes of
+    batch_norm.cu name them in the order the wrappers give them, the plan's
+    fields after the slab, and the source's thread target is the plan's."""
+    import re
+
+    from image_enhancement_deglaring_tpu_torch.ops import _build
+
+    text = (_build.CSRC / "batch_norm.cu").read_text()
+    target = re.search(r"constexpr int kThreadTarget = (\d+);", text)
+    assert int(target.group(1)) == fk._BN_THREADS
+    text = text[text.index('extern "C" {'):]
+    names = {}
+    for name, params in re.findall(r"^int (\w+)\(([^)]*)\)", text, flags=re.M):
+        names[name] = [p.split()[-1].lstrip("*") for p in params.split(",")]
+    plan = ["rows", "C", "vec", "threads", "grid"]
+    assert names["bn_train_stats"] == ["x", "sums", "count", "part"] + plan + ["dtype", "stream"]
+    assert names["bn_train_apply"] == (
+        ["x", "sums", "gamma", "beta", "residual", "y", "stats", "running_mean", "running_var"]
+        + plan + ["count", "eps", "momentum", "one_minus_momentum", "act", "dtype", "stream"])
+    assert names["bn_train_bwd_sums"] == (
+        ["x", "dy", "out", "stats", "gamma", "beta", "sums", "count", "part"] + plan
+        + ["act", "dtype", "stream"])
+    assert names["bn_train_bwd_apply"] == (
+        ["x", "dy", "out", "stats", "gamma", "beta", "sums", "dx", "dres"] + plan
+        + ["count", "act", "dtype", "stream"])
+    for name, params in names.items():
+        assert len(_build.SIGNATURES["batch_norm"][name]) == len(params), name

@@ -255,7 +255,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "          'data.cv_ops', 'data.augment', 'utils.profiling', 'tools.crossval_artifact',\n"
         "          'tools.train_synthetic_demo', 'tools.train_roofline', 'native',\n"
         "          'parallel.mesh', 'parallel.distributed', 'data.jpeg_encode',\n"
-        "          'serve.engine', 'cli.train', 'models.restormer'):\n"
+        "          'serve.engine', 'cli.train', 'models.restormer', 'ops.fused_kernels',\n"
+        "          'ops._build'):\n"
         "    assert pkg.__name__ + '.' + m in names, m\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'PIL', 'cv2', 'matplotlib',\n"
