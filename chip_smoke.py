@@ -32,7 +32,7 @@ Phases, each fatal on failure:
    stream runs long matrix products, and as two calls at once on two
    streams, each equal to its single-stream result bit for bit;
 4. serve 16 seeded 512x512 frames through ``InferenceEngine.submit`` on the
-   bf16 LightweightUNet with ``pallas_gn=True, fused_blocks="auto"`` and the
+   bf16 LightweightUNet with ``kernels=True`` and the
    production weights (``deploy/models/best_model.onnx``); check the launch
    counters, compare with the same engine without the kernels (bf16 and f32);
    drive a 32x32 forward, which reaches the NHWC GroupNorm kernel and runs
@@ -1074,8 +1074,7 @@ def serve_slice() -> dict:
     from image_enhancement_deglaring_tpu_torch.serve import InferenceEngine
 
     def engine(dtype, kernels, size, device="cuda", **kw):
-        model = load_lightweight_unet(ONNX, dtype=dtype, device=device,
-                                      pallas_gn=kernels, fused_blocks="auto" if kernels else False)
+        model = load_lightweight_unet(ONNX, dtype=dtype, device=device, kernels=kernels)
         return InferenceEngine(model, image_size=size, compute_dtype=dtype, device=device, **kw)
 
     frames = make_frames(16, 512, seed=1)
@@ -1213,8 +1212,7 @@ def model_entry_points() -> dict:
         res = {}
         for dtype in (torch.bfloat16, torch.float32):
             tag = f"{size}x{size} {str(dtype)[6:]}"
-            model = load_lightweight_unet(ONNX, dtype=dtype, device="cuda", pallas_gn=True,
-                                          fused_blocks="auto")
+            model = load_lightweight_unet(ONNX, dtype=dtype, device="cuda", kernels=True)
             eng = InferenceEngine(model, image_size=size, max_batch_size=8,
                                   compute_dtype=dtype, warmup=False, device="cuda")
             caught = {}
@@ -1322,7 +1320,7 @@ def throughput(card: str) -> None:
     frames = make_frames(64, 512, seed=3)
     for kernels in (True, False):
         model = load_lightweight_unet(ONNX, dtype=torch.bfloat16, device="cuda",
-                                      pallas_gn=kernels, fused_blocks="auto" if kernels else False)
+                                      kernels=kernels)
         eng = InferenceEngine(model, image_size=512, max_batch_size=64)
         for b, iters in ((8, 30), (64, 8)):
             eng.infer_batch(frames[:b])
@@ -1901,7 +1899,7 @@ def _bn_composition(c: int, g, b):
         bn.bias.copy_(b)
 
     def fn(x, act, r):
-        with mock.patch.object(fk, "bn_route", lambda *a, **k: None):
+        with mock.patch.object(fk, "_routes_to_kernels", lambda t: False):
             return bn(x, True, act=act, residual=r)
     return bn, fn
 
@@ -2072,8 +2070,9 @@ def train_bn_kernels() -> tuple[dict, dict]:
             draws.append(generator.get_state())
             return drop(t, rate, train, generator)
 
+        # EnhancedUNet has no kernel site but its BatchNorms
         route = contextlib.nullcontext() if kernels else mock.patch.object(
-            fk, "bn_route", lambda *a, **k: None)
+            fk, "_routes_to_kernels", lambda t: False)
         times = []
         with mock.patch.object(eu, "dropout", dropout), route:
             for i in range(4):
@@ -2537,7 +2536,7 @@ EVAL_SIZE, EVAL_N, EVAL_BATCH = 512, 20, 8
 EVAL_RATE_N, EVAL_RATE_BATCH, EVAL_WORKERS = 48, 16, 4
 # f32 evaluation, card (K1/K3 f32) against the CPU (the composition)
 EVAL_F32_GATE = {"l1_loss": 1e-5, "psnr": 0.01, "ssim": 1e-4}
-# bf16 with the kernels against bf16 with both knobs off, on the card
+# bf16 with the kernels against bf16 without them, on the card
 EVAL_BF16_PSNR_GATE_DB = 0.05
 EVAL_PER_FORWARD = {"gn_silu_flat": 14, "gn_silu_nhwc": 0, "conv3x3_gn_silu": 4,
                     "conv3x3_gn_silu_batched": 0}
@@ -2670,7 +2669,7 @@ def evaluation(card: str) -> dict:
             raise AssertionError(f"f32 evaluation, card vs CPU: {delta} beyond {EVAL_F32_GATE}")
         del model32
 
-        # 9d: bf16 with the kernels against bf16 with both knobs off
+        # 9d: bf16 with the kernels against bf16 without them
         model16, _ = load_model_for_eval(onnx, compute_dtype=torch.bfloat16)
         plain16 = load_lightweight_unet(onnx, dtype=torch.bfloat16, device="cuda")
         evaluate(model16, held[:1], progress=False)
@@ -2682,7 +2681,7 @@ def evaluation(card: str) -> dict:
         d16 = abs(m16["psnr"] - m16c["psnr"])
         print(f"9d evaluate bf16 with the kernels: {fmt_metrics(m16)}; launches {counts16}",
               flush=True)
-        print(f"9d evaluate bf16, both knobs off: {fmt_metrics(m16c)}; |delta PSNR| "
+        print(f"9d evaluate bf16, kernels off: {fmt_metrics(m16c)}; |delta PSNR| "
               f"{d16:.5f} dB (gate {EVAL_BF16_PSNR_GATE_DB})", flush=True)
         if d16 > EVAL_BF16_PSNR_GATE_DB or forward_only(counts16) != per_forward(batches):
             raise AssertionError(f"bf16 evaluation: |delta PSNR| {d16} or launches {counts16}")

@@ -217,8 +217,8 @@ def _train(args) -> None:
         val_loader = distributed.LocalSliceLoader(val_loader)
 
     dtype = torch.bfloat16 if args.compute_dtype == "bfloat16" else torch.float32
-    # knobs off: on the card GroupNorm+SiLU trains through the kernel pair
-    # (ops.fused_kernels.gn_silu_train); K3 is forward-only
+    # kernels=False: K3 is forward-only; on the card GroupNorm+SiLU and
+    # BatchNorm still train through their kernel pairs (ops.fused_kernels)
     if args.model == "enhanced":
         model = EnhancedUNet(dtype=dtype, generator=generator)
     elif args.model == "optimized":

@@ -182,10 +182,10 @@ def load_model_for_eval(model_path: str, *, model_arch: str = "auto",
     BatchNorm running statistics travel with the weights, and a source
     without them raises, as in the JAX package.
 
-    A LightweightUNet is the H100 serving configuration: ``pallas_gn=True,
-    fused_blocks="auto"`` (K1 at the GroupNorm sites, K3 at the blocks of
-    64 channels and more). On a CPU tensor the dispatchers take the
-    composition, so on the CPU the model computes what the JAX model does
+    A LightweightUNet is the H100 serving configuration, ``kernels=True``
+    (K1 at the GroupNorm sites, K3 at the encoder blocks of 64 channels and
+    more). On a CPU tensor its sites take the composition, so on the CPU
+    the model computes what the JAX model does
     with both knobs off. The other families have no kernel, as in the JAX
     package. A Restormer (upstream's names, its widths read from the
     artifact by ``models.restormer.config_from_params``) runs on cuDNN,
@@ -249,8 +249,8 @@ def load_model_for_eval(model_path: str, *, model_arch: str = "auto",
     elif model_arch == "optimized":
         model = OptimizedUNet(init_features=width, dtype=compute_dtype, generator=gen)
     else:
-        model = LightweightUNet(features_start=width, dtype=compute_dtype, pallas_gn=True,
-                                fused_blocks="auto", generator=gen)
+        model = LightweightUNet(features_start=width, dtype=compute_dtype, kernels=True,
+                                generator=gen)
     load_jax_params(model, params)
     return model.to(dev).eval(), params
 

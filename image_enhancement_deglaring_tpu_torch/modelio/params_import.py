@@ -40,6 +40,7 @@ import torch
 
 from .._device import resolve_device
 from ..models.unet import LightweightUNet
+from ..utils.pytree import unflatten_tree
 from .onnx_reader import load_onnx
 
 _BLOCKS = ["enc1", "enc2", "enc3", "enc4", "bottleneck", "dec4", "dec3", "dec2", "dec1"]
@@ -239,15 +240,10 @@ def restormer_params_from_state_dict(sd: dict[str, np.ndarray]) -> dict:
     nested at each dot: 4-D conv kernels become HWIO (a depthwise (C, 1,
     3, 3) kernel (3, 3, 1, C)); the temperatures (heads, 1, 1) and the
     LayerNorms' vectors stay as they are."""
-    tree: dict = {}
-    for name, arr in sd.items():
-        *path, leaf = name.split(".")
-        node = tree
-        for part in path:
-            node = node.setdefault(part, {})
+    def leaf(arr):
         arr = np.asarray(arr, np.float32)
-        node[leaf] = _conv_to_hwio(arr) if arr.ndim == 4 else np.ascontiguousarray(arr)
-    return tree
+        return _conv_to_hwio(arr) if arr.ndim == 4 else np.ascontiguousarray(arr)
+    return unflatten_tree({name.replace(".", "/"): leaf(arr) for name, arr in sd.items()})
 
 
 def _named_initializers(path: str) -> dict[str, np.ndarray]:
@@ -327,14 +323,9 @@ def load_jax_params(model: torch.nn.Module, params_np: dict,
 
 
 def _export_tree(named) -> dict:
-    tree: dict = {}
-    for name, t in named:
-        *path, leaf = name.split(".")
-        node = tree
-        for part in path:
-            node = node.setdefault(part, {})
-        node[leaf] = t.detach().to("cpu", torch.float32).numpy().copy()
-    return tree
+    def leaf(t):
+        return t.detach().to("cpu", torch.float32).numpy().copy()
+    return unflatten_tree({name.replace(".", "/"): leaf(t) for name, t in named})
 
 
 def export_jax_params(model: torch.nn.Module) -> dict:
@@ -519,17 +510,16 @@ def export_jax_opt_state(optimizer: torch.optim.Optimizer, model: torch.nn.Modul
 
 
 def load_lightweight_unet(path: str, *, dtype: torch.dtype = torch.bfloat16,
-                          device="cuda", pallas_gn: bool = False,
-                          fused_blocks=False) -> LightweightUNet:
+                          device="cuda", kernels: bool = False) -> LightweightUNet:
     """LightweightUNet from an ``.onnx`` file, its width taken from the
-    artifact's ``enc1.conv1`` kernel, in eval mode on ``device``."""
+    artifact's ``enc1.conv1`` kernel, in eval mode on ``device``;
+    ``kernels`` as in ``LightweightUNet``."""
     if not str(path).lower().endswith(".onnx"):
         raise ValueError(f"expected an .onnx file, got {path!r}")
     dev = resolve_device(device)
     params = lightweight_unet_params_from_onnx(path)
     width = int(params["enc1"]["conv1"].shape[-1])
-    model = LightweightUNet(features_start=width, dtype=dtype, pallas_gn=pallas_gn,
-                            fused_blocks=fused_blocks,
+    model = LightweightUNet(features_start=width, dtype=dtype, kernels=kernels,
                             generator=torch.Generator().manual_seed(0))
     load_jax_params(model, params)
     return model.to(dev).eval()

@@ -24,11 +24,12 @@ alike on every rank.
 
 Each BatchNorm call takes the activation after it as its epilogue (ReLU,
 or ReLU of the sum with a second tensor: a residual block's shortcut, an
-attention gate's other branch). A training-mode call on the card with
-autograd on runs the port's BatchNorm training pair
-(``ops.fused_kernels.bn_act_train``), which under ``synced_batch_stats``
-adds its sums over the ranks between its launches; every other call (eval
-mode, the CPU, a ``torch.func`` transform) runs the float32 composition.
+attention gate's other branch). ``ops.fused_kernels.batch_norm_site``
+chooses what runs: a training-mode call on the card with autograd on runs
+the port's BatchNorm training pair (``bn_act_train``), which under
+``synced_batch_stats`` adds its sums over the ranks between its launches;
+every other call (eval mode, the CPU, a ``torch.func`` transform) runs the
+float32 composition.
 Dropout(0.2) sits after the first BatchNorm of each residual block and of
 the bottleneck; it draws from the generator the caller passes, so a
 training run is a function of its seed.
@@ -109,10 +110,13 @@ class BatchNorm(nn.Module):
         if act not in (None, "relu") or (residual is not None and act != "relu"):
             raise ValueError(f"BatchNorm epilogue act={act!r} with residual "
                              f"{residual is not None}: want None, 'relu', or 'relu' with it")
-        if train and fk.bn_route(x, self.scale, self.bias, residual) == "kernels":
-            return fk.bn_act_train(x, self.scale, self.bias, act=act, residual=residual,
-                                   eps=self.eps, momentum=self.momentum,
-                                   running=(self.mean, self.var), sums_hook=_sums_hook())
+        return fk.batch_norm_site(
+            x, self.scale, self.bias, lambda: self._composition(x, train, act, residual),
+            train=train, act=act, residual=residual, eps=self.eps, momentum=self.momentum,
+            running=(self.mean, self.var), sums_hook=_sums_hook())
+
+    def _composition(self, x: torch.Tensor, train: bool, act: str | None,
+                     residual: torch.Tensor | None) -> torch.Tensor:
         xf = x.float()
         if train:
             mean, mean2 = _batch_moments(xf)

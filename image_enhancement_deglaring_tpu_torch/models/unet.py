@@ -7,9 +7,9 @@ blocks, 1x1 output conv), the same parameter names and layouts (HWIO conv
 kernels, (Cin, Cout, 2, 2) up-conv weights), NHWC input and output.
 
 Parameters live in float32; ``dtype`` is the compute dtype. The output is
-cast to float32 and not clipped. ``pallas_gn`` and ``fused_blocks`` (the
-JAX package's knob names) route GroupNorm+SiLU and Conv3x3+GN+SiLU through
-the port's CUDA kernels, see ``ops.fused_kernels``.
+cast to float32 and not clipped. ``kernels`` lets its GroupNorm+SiLU and
+Conv3x3+GN+SiLU sites run the port's forward CUDA kernels, see
+``ops.fused_kernels``.
 """
 
 from __future__ import annotations
@@ -30,7 +30,6 @@ from ..ops.conv_blocks import (
     resolve_group_count,
     upsample2x_matmul,
 )
-from ..ops.fused_kernels import fused_conv3x3_gn_silu
 from ..ops.quant import fake_quant_act_int8
 
 
@@ -73,19 +72,18 @@ def _sub_scales(act_scales, name: str):
 
 
 class ConvBlock(nn.Module):
-    """[Conv3x3(no bias) -> GroupNorm -> SiLU] x 2.
+    """[Conv3x3(no bias) -> GroupNorm -> SiLU] x 2 (``ops.conv_block``).
 
-    ``fused=True`` runs each conv+GN+SiLU as one ``fused_conv3x3_gn_silu``;
-    else ``pallas_gn=True`` fuses each GN+SiLU pair. ``act_scales`` and
-    ``stats``: the block's int8-activation sites "a1" and "a2", after each
-    GN+SiLU (``_act_site``)."""
+    ``kernels``: the model's flag, passed to its sites, which choose what
+    runs (``ops.fused_kernels``). ``act_scales`` and ``stats``: the block's
+    int8-activation sites "a1" and "a2", after each GN+SiLU
+    (``_act_site``)."""
 
     def __init__(self, in_features: int, features: int, num_groups: int = 8, *,
-                 fused: bool = False, pallas_gn: bool = False, generator=None,
-                 device=None):
+                 kernels: bool = False, generator=None, device=None):
         super().__init__()
         f = features
-        self.fused, self.pallas_gn = fused, pallas_gn
+        self.kernels = kernels
         self.groups = resolve_group_count(f, num_groups)
         self.conv1 = _uniform((3, 3, in_features, f), 9 * in_features, generator, device)
         self.gn1_scale = nn.Parameter(torch.ones(f, device=device))
@@ -99,34 +97,23 @@ class ConvBlock(nn.Module):
                 ("conv1", "gn1_scale", "gn1_bias", "conv2", "gn2_scale", "gn2_bias")}
 
     def forward(self, x: torch.Tensor, act_scales=None, stats=None) -> torch.Tensor:
-        g = self.groups
-        hook = _act_hook(act_scales, stats)
-        if self.fused:
-            y = fused_conv3x3_gn_silu(x, self.conv1, self.gn1_scale, self.gn1_bias,
-                                      num_groups=g)
-            if hook is not None:
-                y = hook(y, "a1")
-            y = fused_conv3x3_gn_silu(y, self.conv2, self.gn2_scale, self.gn2_bias,
-                                      num_groups=g)
-            return y if hook is None else hook(y, "a2")
-        return conv_block(x, self._params(), num_groups=g, pallas_gn=self.pallas_gn,
-                          act_hook=hook)
+        return conv_block(x, self._params(), num_groups=self.groups, kernels=self.kernels,
+                          act_hook=_act_hook(act_scales, stats))
 
 
 class DualConvBlock(ConvBlock):
     """Decoder ConvBlock fed by (upsampled, skip) pairs without a concat;
     parameters as ConvBlock over the concatenated input (conv1 (3,3,2f,f))."""
 
-    def __init__(self, features: int, num_groups: int = 8, *, pallas_gn: bool = False,
+    def __init__(self, features: int, num_groups: int = 8, *, kernels: bool = False,
                  generator=None, device=None):
-        super().__init__(2 * features, features, num_groups, pallas_gn=pallas_gn,
+        super().__init__(2 * features, features, num_groups, kernels=kernels,
                          generator=generator, device=device)
 
     def forward(self, x_up: torch.Tensor, x_skip: torch.Tensor, act_scales=None,
                 stats=None) -> torch.Tensor:
         return conv_block_dual(x_up, x_skip, self._params(), num_groups=self.groups,
-                               pallas_gn=self.pallas_gn,
-                               act_hook=_act_hook(act_scales, stats))
+                               kernels=self.kernels, act_hook=_act_hook(act_scales, stats))
 
 
 class UpConv2x(nn.Module):
@@ -149,9 +136,11 @@ class LightweightUNet(nn.Module):
     Input/output: NHWC float tensors, grayscale (C=1), values in [0, 1];
     the output is float32 and not clipped.
 
-    ``fused_blocks``: False = composition everywhere, True = K3 at every
-    encoder/bottleneck block, "auto" = only where features >= 64.
-    ``pallas_gn``: fuse the other GroupNorm+SiLU pairs (K1/K2).
+    ``kernels``: the serving configuration, the JAX model's ``pallas_gn=True,
+    fused_blocks="auto"``: on the card a forward without autograd runs the
+    forward-only K1-K3 where ``ops.fused_kernels``' sites place them. Off
+    (the default, as ``cli.train`` builds it) the composition; either way a
+    grad call trains each GroupNorm+SiLU through the training pair.
     ``remat``: recompute each block's activations in the backward pass
     (``torch.utils.checkpoint`` per block, as the JAX model wraps each
     block in ``nn.remat``) instead of storing them.
@@ -168,36 +157,30 @@ class LightweightUNet(nn.Module):
 
     def __init__(self, in_channels: int = 1, out_channels: int = 1, num_groups: int = 8,
                  features_start: int = 8, dtype: torch.dtype = torch.float32,
-                 remat: bool = False, fused_blocks=False, pallas_gn: bool = False, *,
+                 remat: bool = False, kernels: bool = False, *,
                  generator: torch.Generator | None = None, device=None):
         super().__init__()
-        if fused_blocks not in (False, True, "auto"):
-            raise ValueError(f"fused_blocks must be False, True or 'auto', got {fused_blocks!r}")
         self.dtype = dtype
         self.num_groups = num_groups
         self.remat = remat
-        self.fused_blocks, self.pallas_gn = fused_blocks, pallas_gn
+        self.kernels = kernels
         f0 = features_start
         f = [f0, f0 * 2, f0 * 4, f0 * 8, f0 * 16]
         kw = dict(generator=generator, device=device)
-
-        def block(cin, feats):
-            fused = feats >= 64 if fused_blocks == "auto" else bool(fused_blocks)
-            return ConvBlock(cin, feats, num_groups, fused=fused, pallas_gn=pallas_gn, **kw)
-
-        self.enc1 = block(in_channels, f[0])
-        self.enc2 = block(f[0], f[1])
-        self.enc3 = block(f[1], f[2])
-        self.enc4 = block(f[2], f[3])
-        self.bottleneck = block(f[3], f[4])
+        blk = dict(kernels=kernels, **kw)
+        self.enc1 = ConvBlock(in_channels, f[0], num_groups, **blk)
+        self.enc2 = ConvBlock(f[0], f[1], num_groups, **blk)
+        self.enc3 = ConvBlock(f[1], f[2], num_groups, **blk)
+        self.enc4 = ConvBlock(f[2], f[3], num_groups, **blk)
+        self.bottleneck = ConvBlock(f[3], f[4], num_groups, **blk)
         self.upconv4 = UpConv2x(f[4], f[3], **kw)
-        self.dec4 = DualConvBlock(f[3], num_groups, pallas_gn=pallas_gn, **kw)
+        self.dec4 = DualConvBlock(f[3], num_groups, **blk)
         self.upconv3 = UpConv2x(f[3], f[2], **kw)
-        self.dec3 = DualConvBlock(f[2], num_groups, pallas_gn=pallas_gn, **kw)
+        self.dec3 = DualConvBlock(f[2], num_groups, **blk)
         self.upconv2 = UpConv2x(f[2], f[1], **kw)
-        self.dec2 = DualConvBlock(f[1], num_groups, pallas_gn=pallas_gn, **kw)
+        self.dec2 = DualConvBlock(f[1], num_groups, **blk)
         self.upconv1 = UpConv2x(f[1], f[0], **kw)
-        self.dec1 = DualConvBlock(f[0], num_groups, pallas_gn=pallas_gn, **kw)
+        self.dec1 = DualConvBlock(f[0], num_groups, **blk)
         self.output_conv_weight = _uniform((1, 1, f[0], out_channels), f[0], generator, device)
         self.output_conv_bias = _uniform((out_channels,), f[0], generator, device)
 

@@ -113,51 +113,50 @@ def group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *,
     return y.to(x.dtype)
 
 
-def _gn_silu_fn(num_groups: int, eps: float, pallas_gn: bool):
-    """GroupNorm+SiLU as one callable (y, scale, bias). A grad-mode call on
-    a device tensor runs the port's differentiable kernel pair
-    (``fused_kernels.gn_silu_train``) whatever ``pallas_gn`` is, or the
-    composition where the pair cannot (``fused_kernels.grad_route``);
-    any other call goes through the fused kernel dispatcher when
-    ``pallas_gn``, else the composition."""
-    from . import fused_kernels as fk
+def _gn_silu_fn(num_groups: int, eps: float, kernels: bool):
+    """A model's GroupNorm+SiLU site as one callable (y, scale, bias):
+    ``fused_kernels.gn_silu_site``, which chooses what runs there."""
+    # The blocks below look this name up at every call, so that one patch of
+    # it wraps every GroupNorm+SiLU of a model: perfbench's traced training
+    # run times them this way (norm_act_ms_per_step). fused_kernels builds
+    # on this module's compositions, hence the import at call time.
+    from .fused_kernels import gn_silu_site
 
     def gn_silu(y, s, b):
-        route = fk.grad_route(y, s, b, num_groups)
-        if route == "kernels":
-            return fk.gn_silu_train(y, s, b, num_groups=num_groups, eps=eps)
-        if pallas_gn and route is None:
-            return fk.fused_group_norm_silu(y, s, b, num_groups=num_groups, eps=eps)
-        return silu(group_norm(y, s, b, num_groups=num_groups, eps=eps))
+        return gn_silu_site(y, s, b, num_groups=num_groups, eps=eps, kernels=kernels)
     return gn_silu
 
 
 def conv_block(x: torch.Tensor, params: dict, *, num_groups: int,
-               eps: float = 1e-5, pallas_gn: bool = False, act_hook=None) -> torch.Tensor:
+               eps: float = 1e-5, kernels: bool = False, act_hook=None) -> torch.Tensor:
     """[Conv3x3(no bias) -> GroupNorm -> SiLU] x 2.
 
     ``params`` keys: conv1/gn1_scale/gn1_bias/conv2/gn2_scale/gn2_bias.
-    ``pallas_gn`` routes each GroupNorm+SiLU through the port's fused
-    kernel dispatcher (the knob keeps the JAX package's name).
+    Each conv+GroupNorm+SiLU is a ``fused_kernels.conv_gn_silu_site``,
+    which chooses its kernels from the model's ``kernels`` flag.
     ``act_hook(t, name)``, when given, is applied after each GN+SiLU at
     the int8-activation sites "a1" and "a2" (see ``ops.quant``)."""
-    gn_silu = _gn_silu_fn(num_groups, eps, pallas_gn)
-    y = gn_silu(conv2d(x, params["conv1"], padding=1), params["gn1_scale"], params["gn1_bias"])
-    if act_hook is not None:
-        y = act_hook(y, "a1")
-    y = conv2d(y, params["conv2"], padding=1)
-    y = gn_silu(y, params["gn2_scale"], params["gn2_bias"])
-    return y if act_hook is None else act_hook(y, "a2")
+    from .fused_kernels import conv_gn_silu_site
+
+    gn_silu = _gn_silu_fn(num_groups, eps, kernels)
+    y = x
+    for i in (1, 2):
+        y = conv_gn_silu_site(y, params[f"conv{i}"], params[f"gn{i}_scale"], params[f"gn{i}_bias"],
+                              gn_silu, num_groups=num_groups, eps=eps, kernels=kernels)
+        if act_hook is not None:
+            y = act_hook(y, f"a{i}")
+    return y
 
 
 def conv_block_dual(x_up: torch.Tensor, x_skip: torch.Tensor, params: dict, *,
                     num_groups: int, eps: float = 1e-5,
-                    pallas_gn: bool = False, act_hook=None) -> torch.Tensor:
+                    kernels: bool = False, act_hook=None) -> torch.Tensor:
     """Decoder block: conv_block(concat([x_up, x_skip]), ...) without the
     concatenation. conv1's (3, 3, 2f, f) kernel splits along its input
-    channels into the up-path and skip-path halves, in that order.
-    ``pallas_gn`` and ``act_hook`` as in :func:`conv_block`."""
-    gn_silu = _gn_silu_fn(num_groups, eps, pallas_gn)
+    channels into the up-path and skip-path halves, in that order. Its
+    convs are ``conv2d``s, each GroupNorm+SiLU a site of its own;
+    ``kernels`` and ``act_hook`` as in :func:`conv_block`."""
+    gn_silu = _gn_silu_fn(num_groups, eps, kernels)
     f = x_up.shape[-1]
     w1 = params["conv1"]
     y = conv2d(x_up, w1[:, :, :f, :], padding=1) + conv2d(x_skip, w1[:, :, f:, :], padding=1)

@@ -24,15 +24,12 @@ on a CUDA tensor it launches its kernel on the current stream or raises.
 K1-K5 are forward-only, as the TPU kernels are (none has a backward): on
 a CUDA tensor their wrappers raise under autograd, when grad mode is on
 and an argument requires grad (``refuse_autograd``), rather than return a
-result that carries no gradient. GroupNorm+SiLU trains through
-``gn_silu_train``, an autograd Function over the training pair (a forward
-that saves its statistics, and a fused backward); the models' blocks take
-it for every grad-mode call on a device tensor (``grad_route``).
-EnhancedUNet's training-mode BatchNorm, with the ReLU or add+ReLU after
-it, trains through ``bn_act_train``: four launches (statistics, apply,
-backward sums, backward apply), the sums summed over the ranks between
-them under a mesh (``bn_route``). Conv+GN+SiLU (K3) has no backward: train
-with ``fused_blocks=False``.
+result that carries no gradient. T1/T2, the GroupNorm+SiLU training pair
+(a forward that saves its statistics, and a fused backward), train through
+the autograd Function ``gn_silu_train``; T3/T4, EnhancedUNet's
+training-mode BatchNorm with the ReLU or add+ReLU after it, through
+``bn_act_train``: four launches (statistics, apply, backward sums,
+backward apply), the sums summed over the ranks between them under a mesh.
 Each launch adds one to ``LAUNCHES[<wrapper name>]``. The GroupNorm
 wrappers make one launch under the launch plan ``_gn_plan``, the BatchNorm
 ones one each under ``_bn_plan``. In bfloat16
@@ -43,7 +40,10 @@ launches).
 The dispatchers ``fused_group_norm_silu`` and ``fused_conv3x3_gn_silu``
 choose a kernel by the same shape rules as the JAX dispatchers; unless
 forced, they take the composition on a CPU tensor, as the JAX ones take
-XLA's off the TPU.
+XLA's off the TPU. The site functions ``gn_silu_site``,
+``conv_gn_silu_site`` and ``batch_norm_site`` alone choose what runs at
+a model's norm-and-activation sites, from the call and the model's
+``kernels`` flag.
 """
 
 from __future__ import annotations
@@ -363,8 +363,8 @@ def refuse_autograd(name: str, *tensors) -> None:
             f"{name}: the CUDA kernel is forward-only (no backward, as the TPU kernel has "
             f"none), but grad mode is on and an argument requires grad; call it under "
             f"torch.no_grad() or torch.inference_mode(); GroupNorm+SiLU trains through "
-            f"gn_silu_train, BatchNorm+ReLU through bn_act_train, and a model with "
-            f"fused_blocks trains with fused_blocks=False")
+            f"gn_silu_train, BatchNorm+ReLU through bn_act_train, and a LightweightUNet "
+            f"trains built with kernels=False")
 
 
 def _raise_on_error(name: str, err: int) -> None:
@@ -1055,45 +1055,33 @@ def _routes_to_kernels(x: torch.Tensor) -> bool:
     return x.device.type != "cpu"
 
 
-def grad_route(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-               num_groups: int) -> str | None:
-    """How a model's GroupNorm+SiLU call runs under autograd: None where it
-    is not a grad-mode call on a device tensor (``_routes_to_kernels``) with
-    an argument that requires grad, which then runs as without autograd;
-    "kernels" (``gn_silu_train``); or "composition", counted in
-    ``TRAIN_FALLBACKS``, inside a ``torch.func`` transform (whose batched
-    tensors show no requires_grad; any grad-mode call there counts) or
-    for a shape or dtype the training pair does not take."""
-    return _train_route(x, (x, scale, bias), lambda c: c % num_groups == 0
-                        and c <= _GN_MAX_THREADS)
+def _grad_call(x: torch.Tensor, *tensors) -> bool:
+    """A grad-mode call on a device tensor that autograd must see: inside a
+    ``torch.func`` transform (whose batched tensors show no requires_grad)
+    or with one of ``tensors`` requiring grad."""
+    return torch.is_grad_enabled() and _routes_to_kernels(x) and (
+        torch._C._functorch.peek_interpreter_stack() is not None
+        or any(t is not None and t.requires_grad for t in tensors))
 
 
-def bn_route(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-             residual: torch.Tensor | None = None) -> str | None:
-    """How EnhancedUNet's training-mode BatchNorm call runs, by
-    ``grad_route``'s rules: None (not a grad-mode call on a device tensor
-    with an argument that requires grad: the composition, uncounted),
-    "kernels" (``bn_act_train``), or "composition", counted in
-    ``TRAIN_FALLBACKS``, inside a ``torch.func`` transform or for a shape
-    or dtype the pair does not take."""
-    return _train_route(x, (x, scale, bias, residual), lambda c: c <= _BN_MAX_C and (
-        residual is None or residual.shape == x.shape))
-
-
-def _train_route(x: torch.Tensor, tensors, takes) -> str | None:
-    """The routes' common rules; ``takes(C)`` for an NHWC float32 or bf16
-    ``x`` says whether the kernels take the call."""
-    if not (torch.is_grad_enabled() and _routes_to_kernels(x)):
-        return None
+def _pair_takes(x: torch.Tensor, takes) -> bool:
+    """Whether a training pair takes a grad call on ``x``: not inside a
+    ``torch.func`` transform (its Function has no vmap rule) nor for a shape
+    or dtype it does not take (``takes(C)``), each counted."""
     if torch._C._functorch.peek_interpreter_stack() is not None:
         TRAIN_FALLBACKS["transform"] += 1
-        return "composition"
-    if not any(t is not None and t.requires_grad for t in tensors):
-        return None
+        return False
     if x.dim() != 4 or x.numel() == 0 or x.dtype not in _DTYPE_CODE or not takes(x.shape[-1]):
         TRAIN_FALLBACKS["shape"] += 1
-        return "composition"
-    return "kernels"
+        return False
+    return True
+
+
+def _conv_kernel_takes(x: torch.Tensor, cout: int, num_groups: int) -> bool:
+    """Where K3 runs unless forced (the JAX dispatcher's rule); in
+    LightweightUNet the encoder and bottleneck blocks of 64 channels and
+    more, as the decoder's dual blocks have no conv site."""
+    return _routes_to_kernels(x) and cout % num_groups == 0 and cout >= 64
 
 
 def _flat_eligible(x: torch.Tensor, num_groups: int) -> bool:
@@ -1145,7 +1133,7 @@ def fused_conv3x3_gn_silu(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     and None or <= 1 to K3."""
     cout = w.shape[-1]
     if use_kernel is None:
-        use_kernel = _routes_to_kernels(x) and cout % num_groups == 0 and cout >= 64
+        use_kernel = _conv_kernel_takes(x, cout, num_groups)
     if not use_kernel:
         y = conv2d(x, w, padding=1)
         return silu(group_norm(y, scale, bias, num_groups=num_groups, eps=eps))
@@ -1160,3 +1148,45 @@ def fused_conv3x3_gn_silu(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
         return conv3x3_gn_silu_batched(x.contiguous(), w, scale, bias, num_groups=num_groups,
                                        images=images_per_step, eps=eps)
     return conv3x3_gn_silu(x.contiguous(), w, scale, bias, num_groups=num_groups, eps=eps)
+
+
+# ------------------------------------------- sites: one norm-and-activation
+
+
+def gn_silu_site(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *,
+                 num_groups: int, eps: float = 1e-5, kernels: bool = False) -> torch.Tensor:
+    """One GroupNorm+SiLU of a model. A grad call (``_grad_call``) runs the
+    training pair where it takes it, else the composition; any other call
+    the dispatcher ``fused_group_norm_silu`` with ``kernels``, else the
+    composition."""
+    if _grad_call(x, x, scale, bias):
+        if _pair_takes(x, lambda c: c % num_groups == 0 and c <= _GN_MAX_THREADS):
+            return gn_silu_train(x, scale, bias, num_groups=num_groups, eps=eps)
+    elif kernels:
+        return fused_group_norm_silu(x, scale, bias, num_groups=num_groups, eps=eps)
+    return silu(group_norm(x, scale, bias, num_groups=num_groups, eps=eps))
+
+
+def conv_gn_silu_site(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
+                      bias: torch.Tensor, gn_silu, *, num_groups: int, eps: float = 1e-5,
+                      kernels: bool = False) -> torch.Tensor:
+    """One Conv3x3(same, no bias)+GroupNorm+SiLU of an encoder block: K3
+    with ``kernels`` where ``_conv_kernel_takes`` (it raises under a grad
+    call), else ``conv2d`` and the block's GroupNorm+SiLU site ``gn_silu``."""
+    if kernels and _conv_kernel_takes(x, w.shape[-1], num_groups):
+        return conv3x3_gn_silu(x.contiguous(), w, scale, bias, num_groups=num_groups, eps=eps)
+    return gn_silu(conv2d(x, w, padding=1), scale, bias)
+
+
+def batch_norm_site(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, composition, *,
+                    train: bool, act=None, residual: torch.Tensor | None = None,
+                    eps: float = 1e-5, momentum: float = 0.9, running=None,
+                    sums_hook=None) -> torch.Tensor:
+    """One BatchNorm of EnhancedUNet and its epilogue: a training-mode grad
+    call runs the training pair ``bn_act_train`` where it takes it; every
+    other call ``composition()``, the model's float32 composition."""
+    if train and _grad_call(x, x, scale, bias, residual) and _pair_takes(
+            x, lambda c: c <= _BN_MAX_C and (residual is None or residual.shape == x.shape)):
+        return bn_act_train(x, scale, bias, act=act, residual=residual, eps=eps,
+                            momentum=momentum, running=running, sums_hook=sums_hook)
+    return composition()

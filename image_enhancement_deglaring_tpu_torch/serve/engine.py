@@ -62,7 +62,7 @@ from ..modelio.params_import import load_jax_params
 from ..models.model_utils import dequantize_params_int8, quantize_params_int8
 from ..parallel.mesh import replica_devices
 from ..utils.profiling import span
-from ..utils.pytree import flatten_tree
+from ..utils.pytree import flatten_tree, unflatten_tree
 
 
 def _bucket_sizes(max_batch: int) -> list[int]:
@@ -121,13 +121,8 @@ def _int8_weights(model: torch.nn.Module) -> tuple:
     """(model, int8 tree, scales tree): the model's parameters as the JAX
     package's nested tree ({"enc1": {"conv1": ...}}), quantized per output
     channel."""
-    tree: dict = {}
-    for name, p in model.named_parameters():
-        *path, leaf = name.split(".")
-        node = tree
-        for part in path:
-            node = node.setdefault(part, {})
-        node[leaf] = p.detach()
+    tree = unflatten_tree({name.replace(".", "/"): p.detach()
+                           for name, p in model.named_parameters()})
     return (model, *quantize_params_int8(tree, per_channel=True))
 
 

@@ -51,9 +51,11 @@ per device), as JAX's step over its global mesh:
 
 On the card every GroupNorm+SiLU of a LightweightUNet trains through the
 port's differentiable kernel pair (``ops.fused_kernels.gn_silu_train``),
-with ``pallas_gn`` on or off. The other kernels are forward-only, as the
-TPU kernels are, and refuse to run under autograd: train a model built
-with ``fused_blocks=False``.
+and every BatchNorm of an EnhancedUNet through ``bn_act_train``; the
+model's sites choose them (``ops.fused_kernels.gn_silu_site``,
+``batch_norm_site``). K1-K5 are forward-only, as the TPU kernels are, and
+refuse to run under autograd: train a LightweightUNet built with
+``kernels=False``, as ``cli.train`` builds it.
 """
 
 from __future__ import annotations

@@ -17,7 +17,8 @@ from image_enhancement_deglaring_tpu_torch.ops import _build
 from image_enhancement_deglaring_tpu_torch.ops import fused_kernels as fk
 
 # (Cin, Cout) of every conv of LightweightUNet's encoder and bottleneck
-# blocks, which fused_blocks=True runs through the conv kernel
+# blocks, each a shape the conv kernel takes (the model runs it at the
+# blocks of 64 channels and more)
 UNET_PAIRS = [(1, 8), (8, 8), (8, 16), (16, 16), (16, 32), (32, 32), (32, 64), (64, 64),
               (64, 128), (128, 128)]
 SIZES = [(512, 512), (64, 64), (32, 32), (4, 4), (2, 2), (6, 6)]

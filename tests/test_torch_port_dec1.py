@@ -160,11 +160,10 @@ def test_dec1_on_production_activations_matches_jax_model():
     onnx = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                         "deploy", "models", "best_model.onnx")
     x = np.random.default_rng(0).random((2, 32, 32, 1)).astype(np.float32)
-    knobs = dict(pallas_gn=True, fused_blocks="auto")
     params = jax_reader(onnx)
-    want = np.asarray(jax.jit(JaxUNet(**knobs).apply)(
+    want = np.asarray(jax.jit(JaxUNet(pallas_gn=True, fused_blocks="auto").apply)(
         {"params": jax.tree_util.tree_map(jnp.asarray, params)}, jnp.asarray(x)))
-    model = load_lightweight_unet(onnx, dtype=torch.float32, device="cpu", **knobs)
+    model = load_lightweight_unet(onnx, dtype=torch.float32, device="cpu", kernels=True)
     caught = {}
     hook = model.dec1.register_forward_pre_hook(lambda _m, a: caught.__setitem__("dec1", a))
     try:

@@ -3,7 +3,8 @@
 With ``use_pallas=None`` off the TPU, both JAX dispatchers take the XLA
 composition, so the JAX model computes the same function on the CPU with
 ``pallas_gn`` / ``fused_blocks`` as without them. The port's dispatchers
-do the same with ``use_kernel=None`` on a CPU tensor; a forced
+do the same with ``use_kernel=None`` on a CPU tensor, and so does the
+port's model with ``kernels=True``, the JAX model's two knobs; a forced
 ``use_kernel=True`` there is the kernel's plain version (JAX runs the
 kernel in interpret mode). Then the bf16 serving path of both packages on
 the production weights, through their engines."""
@@ -27,6 +28,7 @@ from image_enhancement_deglaring_tpu_torch.serve import InferenceEngine
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ONNX = os.path.join(REPO, "deploy", "models", "best_model.onnx")
+# the JAX model's knobs that LightweightUNet(kernels=True) stands for
 KNOBS = dict(pallas_gn=True, fused_blocks="auto")
 
 # bf16 engine against bf16 engine, uint8 frames at 32x32 on best_model.onnx.
@@ -50,11 +52,11 @@ def _rand(rng, *shape, s=1.0):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_model_knobs_on_cpu_equal_knobs_off_bit_for_bit(dtype):
-    """pallas_gn / fused_blocks change nothing on the CPU, in either dtype:
-    every site takes the composition, as in the JAX model."""
+    """``kernels`` changes nothing on the CPU, in either dtype: every site
+    takes the composition, as in the JAX model."""
     x = torch.from_numpy(np.random.default_rng(1).random((2, 32, 32, 1)).astype(np.float32))
     outs = []
-    for knobs in (KNOBS, {}):
+    for knobs in (dict(kernels=True), {}):
         model = LightweightUNet(dtype=dtype, generator=torch.Generator().manual_seed(5), **knobs)
         fk.reset_launch_counts()
         with torch.inference_mode():
@@ -114,7 +116,8 @@ def bf16_frames(frames32):
     for key, knobs in (("off", {}), ("on", KNOBS)):
         jeng = JaxEngine(JaxUNet(dtype=jnp.bfloat16, **knobs).apply, params, image_size=32,
                          max_batch_size=4, compute_dtype=jnp.bfloat16, warmup=False)
-        model = load_lightweight_unet(ONNX, dtype=torch.bfloat16, device="cpu", **knobs)
+        model = load_lightweight_unet(ONNX, dtype=torch.bfloat16, device="cpu",
+                                      kernels=key == "on")
         eng = InferenceEngine(model, image_size=32, max_batch_size=4,
                               compute_dtype=torch.bfloat16, device="cpu", warmup=False)
         try:

@@ -70,8 +70,8 @@ def narrow():
     params = jax.jit(JaxUNet(features_start=4).init)(
         jax.random.PRNGKey(5), jnp.zeros((1, SIZE, SIZE, 1)))["params"]
     params = jax.tree_util.tree_map(np.asarray, params)
-    model = LightweightUNet(features_start=4, dtype=torch.float32, pallas_gn=True,
-                            fused_blocks="auto", generator=torch.Generator().manual_seed(0))
+    model = LightweightUNet(features_start=4, dtype=torch.float32, kernels=True,
+                            generator=torch.Generator().manual_seed(0))
     load_jax_params(model, params)
     return params, model
 

@@ -118,39 +118,39 @@ def calls(monkeypatch):
     return seen
 
 
-def _call(shape, groups, pallas_gn, requires_grad=True, dtype=torch.float32):
+def _call(shape, groups, kernels, requires_grad=True, dtype=torch.float32):
     c = shape[-1]
     x = torch.randn(shape, dtype=dtype).requires_grad_(requires_grad)
     s, b = torch.ones(c, requires_grad=requires_grad), torch.zeros(c)
-    return cb._gn_silu_fn(groups, 1e-5, pallas_gn)(x, s, b)
+    return cb._gn_silu_fn(groups, 1e-5, kernels)(x, s, b)
 
 
-@pytest.mark.parametrize("pallas_gn", [False, True])
-def test_grad_mode_on_a_device_tensor_takes_the_training_pair(monkeypatch, calls, pallas_gn):
+@pytest.mark.parametrize("kernels", [False, True])
+def test_grad_mode_on_a_device_tensor_takes_the_training_pair(monkeypatch, calls, kernels):
     """``_routes_to_kernels`` patched, a CPU tensor stands for a device one."""
     monkeypatch.setattr(fk, "_routes_to_kernels", lambda x: True)
-    out = _call((2, 16, 16, 8), 8, pallas_gn)
+    out = _call((2, 16, 16, 8), 8, kernels)
     assert calls == ["train"] and type(out.grad_fn).__name__ == "_GnSiluTrainBackward"
     assert fk.TRAIN_FALLBACKS == {"transform": 0, "shape": 0}
 
 
-@pytest.mark.parametrize("pallas_gn,route", [(True, ["K1"]), (False, [])])
-def test_grad_off_routes_as_before(monkeypatch, calls, pallas_gn, route):
+@pytest.mark.parametrize("kernels,route", [(True, ["K1"]), (False, [])])
+def test_grad_off_routes_as_before(monkeypatch, calls, kernels, route):
     monkeypatch.setattr(fk, "_routes_to_kernels", lambda x: True)
     with torch.no_grad():
-        _call((2, 16, 16, 8), 8, pallas_gn)
-    _call((2, 16, 16, 8), 8, pallas_gn, requires_grad=False)  # grad mode, nothing to train
+        _call((2, 16, 16, 8), 8, kernels)
+    _call((2, 16, 16, 8), 8, kernels, requires_grad=False)  # grad mode, nothing to train
     assert calls == route * 2
     assert fk.TRAIN_FALLBACKS == {"transform": 0, "shape": 0}
 
 
-@pytest.mark.parametrize("pallas_gn", [False, True])
-def test_vmap_takes_the_composition_and_counts(monkeypatch, calls, pallas_gn):
+@pytest.mark.parametrize("kernels", [False, True])
+def test_vmap_takes_the_composition_and_counts(monkeypatch, calls, kernels):
     """Under ``torch.func.vmap`` with per-trial gamma and beta, as the sweep's
     trial groups run: the composition, one fallback per call, and the
     gradients reach every trial's parameters."""
     monkeypatch.setattr(fk, "_routes_to_kernels", lambda x: True)
-    fn = cb._gn_silu_fn(8, 1e-5, pallas_gn)
+    fn = cb._gn_silu_fn(8, 1e-5, kernels)
     x = torch.randn(3, 2, 8, 8, 16)
     s = (torch.rand(3, 16) + 0.5).requires_grad_()
     b = torch.randn(3, 16, requires_grad=True)
@@ -175,11 +175,11 @@ def test_unsupported_shapes_take_the_composition_and_count(monkeypatch, calls, s
     assert fk.TRAIN_FALLBACKS == {"transform": 0, "shape": 1}
 
 
-@pytest.mark.parametrize("pallas_gn", [False, True])
-def test_cpu_default_stays_the_composition(calls, pallas_gn):
+@pytest.mark.parametrize("kernels", [False, True])
+def test_cpu_default_stays_the_composition(calls, kernels):
     """Without the patch a CPU tensor keeps the composition under autograd,
     so the JAX-parity tests of the models and the trainer run what they ran."""
-    out = _call((2, 16, 16, 8), 8, pallas_gn)
+    out = _call((2, 16, 16, 8), 8, kernels)
     assert calls == [] and type(out.grad_fn).__name__ != "_GnSiluTrainBackward"
     assert fk.TRAIN_FALLBACKS == {"transform": 0, "shape": 0}
     assert not any(fk.LAUNCHES.values())

@@ -60,24 +60,24 @@ def _block_params(rng, cin, f):
             {k: torch.from_numpy(v.copy()) for k, v in p.items()})
 
 
-@pytest.mark.parametrize("pallas_gn", [False, True])
-def test_conv_block_matches(rng, pallas_gn):
-    """The encoder block, with the fused GN+SiLU dispatch (on a CPU tensor
-    the composition, as JAX's off the TPU) or without it, against JAX's."""
+@pytest.mark.parametrize("kernels", [False, True])
+def test_conv_block_matches(rng, kernels):
+    """The encoder block, with its sites' kernels on (on a CPU tensor the
+    composition, as JAX's off the TPU) or off, against JAX's."""
     xj, xt = _both(rng.standard_normal((2, 8, 16, 4)).astype(np.float32))
     pj, pt = _block_params(rng, 4, 8)
-    _close(tops.conv_block(xt, pt, num_groups=4, pallas_gn=pallas_gn),
+    _close(tops.conv_block(xt, pt, num_groups=4, kernels=kernels),
            jops.conv_block(xj, pj, num_groups=4))
 
 
-@pytest.mark.parametrize("pallas_gn", [False, True])
-def test_conv_block_dual_matches(rng, pallas_gn):
-    """The concat-free decoder block, with the fused GN+SiLU dispatch (on a
-    CPU tensor: the composition) or without it, against the JAX composition."""
+@pytest.mark.parametrize("kernels", [False, True])
+def test_conv_block_dual_matches(rng, kernels):
+    """The concat-free decoder block, with its sites' kernels on (on a CPU
+    tensor: the composition) or off, against the JAX composition."""
     uj, ut = _both(rng.standard_normal((2, 8, 16, 8)).astype(np.float32))
     sj, st = _both(rng.standard_normal((2, 8, 16, 8)).astype(np.float32))
     pj, pt = _block_params(rng, 16, 8)
-    _close(tops.conv_block_dual(ut, st, pt, num_groups=8, pallas_gn=pallas_gn),
+    _close(tops.conv_block_dual(ut, st, pt, num_groups=8, kernels=kernels),
            jops.conv_block_dual(uj, sj, pj, num_groups=8))
 
 

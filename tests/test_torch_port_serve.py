@@ -876,8 +876,7 @@ def narrow_params():
 
 def _port_model(params, width=4, groups=2):
     model = LightweightUNet(features_start=width, num_groups=groups, dtype=torch.float32,
-                            pallas_gn=True, fused_blocks="auto",
-                            generator=torch.Generator().manual_seed(0))
+                            kernels=True, generator=torch.Generator().manual_seed(0))
     load_jax_params(model, jax.tree_util.tree_map(np.asarray, params))
     return model
 
@@ -955,7 +954,7 @@ def test_load_model_for_eval_params_equal_jax(artifacts, kind):
     assert got.keys() == ref.keys()
     for k in ref:
         np.testing.assert_array_equal(np.asarray(got[k]), ref[k], err_msg=k)
-    assert model.pallas_gn is True and model.fused_blocks == "auto"
+    assert model.kernels is True
     assert not model.training and next(model.parameters()).device.type == "cpu"
     assert sum(p.numel() for p in model.parameters()) == 486409
 

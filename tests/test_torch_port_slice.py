@@ -30,6 +30,8 @@ from image_enhancement_deglaring_tpu_torch.serve import InferenceEngine
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ONNX = os.path.join(REPO, "deploy", "models", "best_model.onnx")
 SIZE = 64
+# the JAX model's knobs that LightweightUNet(kernels=True) stands for
+JAX_KNOBS = dict(pallas_gn=True, fused_blocks="auto")
 
 
 def _leaves(tree, prefix=""):
@@ -87,10 +89,11 @@ def test_load_jax_params_rejects_mismatches(params):
         load_jax_params(model, missing)
 
 
-@pytest.mark.parametrize("knobs", [dict(pallas_gn=True, fused_blocks="auto"), {}])
+@pytest.mark.parametrize("knobs", [dict(kernels=True), {}])
 def test_f32_forward_matches_jax_on_production_weights(params, knobs):
+    """``kernels=True`` against the JAX model with both of its knobs on."""
     x = np.random.default_rng(0).random((2, SIZE, SIZE, 1)).astype(np.float32)
-    want = np.asarray(jax.jit(JaxUNet(**knobs).apply)(
+    want = np.asarray(jax.jit(JaxUNet(**(JAX_KNOBS if knobs else {})).apply)(
         {"params": jax.tree_util.tree_map(jnp.asarray, params)}, jnp.asarray(x)))
     model = LightweightUNet(**knobs)
     load_jax_params(model, params)
@@ -104,11 +107,10 @@ def test_f32_forward_matches_jax_on_production_weights(params, knobs):
 
 def test_engine_uint8_matches_jax_engine(params, frames):
     """Batch of 3 (padded to bucket 4) and submit(): uint8 within one level."""
-    knobs = dict(pallas_gn=True, fused_blocks="auto")
-    jeng = JaxEngine(JaxUNet(**knobs).apply, params, image_size=SIZE, max_batch_size=4,
+    jeng = JaxEngine(JaxUNet(**JAX_KNOBS).apply, params, image_size=SIZE, max_batch_size=4,
                      compute_dtype=jnp.float32, warmup=False)
     want = jeng.infer_batch(frames)
-    model = load_lightweight_unet(ONNX, dtype=torch.float32, device="cpu", **knobs)
+    model = load_lightweight_unet(ONNX, dtype=torch.float32, device="cpu", kernels=True)
     eng = InferenceEngine(model, image_size=SIZE, max_batch_size=4, compute_dtype=torch.float32,
                           device="cpu", warmup=False)
     try:

@@ -560,14 +560,23 @@ def test_kernel_launch_refuses_autograd(name):
 
 def test_plain_routes_still_differentiate():
     """On the CPU the kernel sites compute their plain versions, which are
-    plain torch: a model with the knobs on and its routes forced to the
-    kernels trains, every parameter getting a finite gradient."""
+    plain torch: a model with its kernels on and its routes forced to the
+    kernels trains, every parameter getting a finite gradient. K3 runs at
+    the encoder and bottleneck blocks of 64 channels and more only."""
     from unittest import mock
 
-    model = LightweightUNet(features_start=8, pallas_gn=True, fused_blocks=True)
+    model = LightweightUNet(features_start=8, kernels=True)
     x, y = _batches(1, seed=29)
-    with mock.patch.object(fk, "_routes_to_kernels", lambda t: True):
+    k3, conv = [], fk.conv3x3_gn_silu
+
+    def counted(t, w, *a, **k):
+        k3.append(w.shape[-1])
+        return conv(t, w, *a, **k)
+
+    with mock.patch.object(fk, "_routes_to_kernels", lambda t: True), \
+            mock.patch.object(fk, "conv3x3_gn_silu", counted):
         metrics.l1_loss(model(torch.from_numpy(x[0])), torch.from_numpy(y[0])).backward()
+    assert k3 == [64, 64, 128, 128]
     for n, p in model.named_parameters():
         assert p.grad is not None and torch.isfinite(p.grad).all(), n
         assert float(p.grad.abs().max()) > 0, n
