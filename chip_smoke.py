@@ -49,7 +49,17 @@ Phases, each fatal on failure:
    ``tools.dec1_slice_bench`` at its defaults (batch 128);
 6. time serving throughput (``infer_batch``) at buckets 8 and 64, with and
    without the kernels, and profile one batch of each: device time by
-   kernel and the device's busy share;
+   kernel and the device's busy share; (b) Restormer's channel LayerNorm
+   (K6, ``fused_kernels.channel_layer_norm``) at the bucket-16 shapes of its
+   88 sites, bf16 and float32, BiasFree and WithBias: against its plain
+   version and the composition (at most 1 bf16 ulp; float32 within 1e-5),
+   twice bit for bit, one launch a call, its time beside the bytes bound,
+   the plain version's and the composition's; one 512x512 bf16 Restormer
+   forward under inference_mode with 88 launches and no fallback, no
+   further off the float32 forward than the composition's; a bucket of 16
+   timed with K6 and with the composition; a grad-mode Restormer step with
+   no launch (its training keeps the composition); K6 launches on no other
+   path;
 7. training (K1-K5 are forward-only; GroupNorm+SiLU trains through the
    training pair, ``fused_kernels.gn_silu_train``): (a) every forward-only
    kernel wrapper raises under grad mode on CUDA arguments that require
@@ -1336,7 +1346,8 @@ def throughput(card: str) -> None:
 
 def _kernel_kind(name: str) -> str:
     low = name.lower()
-    if "gnk::" in name or "conv3x3_" in name or "conv_gn_" in name or "dec1_" in name:
+    if ("gnk::" in name or "lnk::" in name or "conv3x3_" in name or "conv_gn_" in name
+            or "dec1_" in name):
         return "port CUDA kernels"
     if any(k in low for k in ("conv", "fprop", "implicit", "cudnn")):
         return "cuDNN convolution"
@@ -1452,6 +1463,8 @@ def grad_guard() -> None:
                                                                    wo, bo),
             t(2, 64, 64, 8, dtype=bf), t(2, 64, 64, 8, dtype=bf), w8, g8, b8,
             t(1, 1, 8, 1), t(1)),
+        "channel_layer_norm": (lambda x, w, b: fk.channel_layer_norm(x, w, b),
+                               t(2, 8, 8, 48, dtype=bf), t(48), t(48)),
     }
     for name, (fn, *args) in calls.items():
         for which in range(len(args)):  # one argument at a time requires grad
@@ -2146,6 +2159,188 @@ def train_bn_kernels() -> tuple[dict, dict]:
     if any(vmapped["launches"].values()) or vmapped["fallbacks"]["transform"] < 47:
         raise AssertionError("7f the trial group's BatchNorm must keep the composition, counted")
     return rows, pair["launches"]
+
+
+# phase 6b: Restormer's channel LayerNorm (K6) at the bucket-16 shapes of
+# its 88 sites, and the sites of a forward at each: 512^2 x 48 (level 1's
+# encoder), 512^2 x 96 (level 1's decoder and the refinement), 256^2 x 96
+# (level 2), 128^2 x 192 (level 3), 64^2 x 384 (the latent)
+LN_SHAPES = {(16, 512, 512, 48): 8, (16, 512, 512, 96): 16, (16, 256, 256, 96): 24,
+             (16, 128, 128, 192): 24, (16, 64, 64, 384): 16}
+# K6 and the composition each round the same float32 function once, from
+# statistics summed in another order (a few float32 ulps apart, ~1e-6 of
+# the output's terms): the two roundings can fall on the two sides of one
+# bf16 boundary, never of two. So bf16 outputs differ by at most 1 bf16 ulp
+# of their size, sizes under LN_ULP_FLOOR measured at its ulp (2^-13, still
+# 100x the float32 gap): where WithBias's centred terms cancel, an output
+# near 0 has finer ulps than the terms' rounding. float32 outputs differ by
+# the statistics' rounding, under 1e-5 relative (a wrong formula: O(1))
+LN_BF16_ULPS, LN_ULP_FLOOR = 1.0, 2.0 ** -6
+LN_F32_TOL = (1e-5, 1e-5)  # atol, rtol
+# one 512^2 bf16 Restormer forward with K6 against the composition's, both
+# against the float32 forward: K6 no further off than 1.25x the composition
+LN_FORWARD_GATE = 1.25
+
+
+def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> float:
+    """The largest |a - b| over two bf16 tensors in bf16 ulps of the larger
+    of |a|, |b| and ``LN_ULP_FLOOR`` (8 significant bits: an ulp is
+    2^(floor(log2 v) - 7))."""
+    a, b = a.float(), b.float()
+    size = torch.maximum(a.abs(), b.abs()).clamp_min(LN_ULP_FLOOR)
+    ulp = torch.exp2(torch.floor(torch.log2(size)) - 7)
+    return float(((a - b).abs() / ulp).max())
+
+
+def layer_norm_kernels(card: str) -> tuple[dict, dict]:
+    """Phase 6b: K6 (``fused_kernels.channel_layer_norm``) at ``LN_SHAPES``
+    in bf16 and float32, BiasFree and WithBias: against its plain version
+    and the composition (``LN_BF16_ULPS``, ``LN_F32_TOL``), twice bit for
+    bit, one launch a call, its time beside the bytes bound, the plain
+    version's and the composition's; then one 512^2 Restormer forward
+    under inference_mode (88 launches, no fallback, ``LN_FORWARD_GATE``),
+    a bucket of 16 timed with K6 and with the composition, and a grad-mode
+    Restormer step (no launch). Returns the kernel row (the bf16 BiasFree
+    cases, as the model runs them, one call each) and the forward's
+    launches."""
+    from image_enhancement_deglaring_tpu_torch.models import Restormer
+    from image_enhancement_deglaring_tpu_torch.ops import conv_blocks as cb
+    from image_enhancement_deglaring_tpu_torch.ops import fused_kernels as fk
+
+    gen = torch.Generator(device="cuda").manual_seed(61)
+    row = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+           "by": {"bytes": 0.0}}
+    per_bucket = {"K6": 0.0, "device": 0.0, "bound": 0.0, "composition": 0.0}
+    for shape, sites in LN_SHAPES.items():
+        c = shape[-1]
+        for dtype in (torch.bfloat16, torch.float32):
+            # a mean far from 0, as the BiasFree input's
+            x = (torch.randn(shape, device="cuda", generator=gen) * 2 + 3).to(dtype)
+            w = torch.rand(c, device="cuda", generator=gen) + 0.5
+            for b in (None, torch.randn(c, device="cuda", generator=gen) * 0.5):
+                label = (f"6b {'x'.join(map(str, shape))} {str(dtype)[6:]} "
+                         f"{'BiasFree' if b is None else 'WithBias'}")
+                with torch.inference_mode():
+                    got, again = fk.channel_layer_norm(x, w, b), fk.channel_layer_norm(x, w, b)
+                    plain = fk.channel_layer_norm_plain(x, w, b)
+                    comp = cb.channel_layer_norm(x, w, b)
+                torch.cuda.synchronize()
+                if not torch.equal(got, again):
+                    raise AssertionError(f"{label}: two calls differ")
+                if dtype == torch.bfloat16:
+                    errs = (bf16_ulps(got, plain), bf16_ulps(got, comp))
+                    ok = max(errs) <= LN_BF16_ULPS
+                    err_text = f"{errs[0]:g} / {errs[1]:g} bf16 ulps"
+                else:
+                    atol, rtol = LN_F32_TOL
+                    ok = all(bool(((got - t).abs() <= atol + rtol * t.abs()).all())
+                             for t in (plain, comp))
+                    errs = (float((got - plain).abs().max()), float((got - comp).abs().max()))
+                    err_text = f"max |d| {errs[0]:.3g} / {errs[1]:.3g}"
+                if not ok:
+                    raise AssertionError(f"{label}: K6 against plain / composition {err_text}")
+                nbytes = 2 * x.numel() * x.element_size()
+                with torch.inference_mode():
+                    check_launches(lambda: fk.channel_layer_norm(x, w, b), label)
+                    t = time_many({"kernel": lambda: fk.channel_layer_norm(x, w, b),
+                                   "plain": lambda: fk.channel_layer_norm_plain(x, w, b),
+                                   "composition": lambda: cb.channel_layer_norm(x, w, b)})
+                    dev = device_ms(lambda: fk.channel_layer_norm(x, w, b))
+                bound_ms = nbytes / HBM_BYTES_S * 1e3
+                print(f"{label}: against plain / composition {err_text}; K6 {t['kernel']:.5f} ms "
+                      f"(device {dev:.5f}), bound {bound_ms:.5f} ms (bytes, "
+                      f"{bound_ms / dev:.1%} of it), plain {t['plain']:.5f}, composition "
+                      f"{t['composition']:.5f} ms ({card})", flush=True)
+                if dtype == torch.bfloat16 and b is None:
+                    row["max_abs_err"] = max(row["max_abs_err"],
+                                             float((got.float() - plain.float()).abs().max()))
+                    row["ms"] += t["kernel"]
+                    row["plain_ms"] += t["plain"]
+                    row["bound_ms"] += bound_ms
+                    row["by"]["bytes"] += bound_ms
+                    row["library_ms"] += t["composition"]
+                    for k, v in (("K6", t["kernel"]), ("device", dev), ("bound", bound_ms),
+                                 ("composition", t["composition"])):
+                        per_bucket[k] += sites * v
+                del got, again, plain, comp
+            del x
+    torch.cuda.empty_cache()
+
+    # one served 512^2 page, as the engine runs the model: bf16 under inference_mode
+    page = torch.from_numpy(make_frames(1, 512, seed=62)).cuda().float().div(255)[..., None]
+
+    def restormer(dtype):
+        m = Restormer(dtype=dtype, generator=torch.Generator(device="cuda").manual_seed(63),
+                      device="cuda").eval()
+        with torch.no_grad():
+            for name, p in m.named_parameters():
+                if name.endswith("body.weight"):  # LayerNorm weights away from 1
+                    p.copy_(torch.rand(p.shape, device="cuda", generator=gen) + 0.5)
+        return m
+
+    model, exact = restormer(torch.bfloat16), restormer(torch.float32)
+    exact.load_state_dict(model.state_dict())
+    with torch.inference_mode():
+        with mock.patch.object(fk, "_routes_to_kernels", lambda t: False):
+            want = exact(page)
+            comp = model(page)
+        fk.reset_launch_counts()
+        got = model(page)
+        torch.cuda.synchronize()
+    launches = {k: v for k, v in fk.LAUNCHES.items() if v}
+    fallbacks = dict(fk.LAYER_NORM_FALLBACKS)
+    err = [(float((t - want).abs().mean()), float((t - want).abs().max())) for t in (got, comp)]
+    print(f"6b one 512^2 Restormer forward (bf16, inference_mode): launches {launches}, "
+          f"fallbacks {fallbacks}; mean / max |out - float32 forward| with K6 {err[0][0]:.4g} / "
+          f"{err[0][1]:.4g}, with the composition {err[1][0]:.4g} / {err[1][1]:.4g} (gate "
+          f"{LN_FORWARD_GATE}x); K6 against the composition's forward: max |d| "
+          f"{float((got - comp).abs().max()):.4g}", flush=True)
+    if launches != {"channel_layer_norm": 88} or any(fallbacks.values()):
+        raise AssertionError("6b want 88 launches of channel_layer_norm a forward, no fallback")
+    if any(e > LN_FORWARD_GATE * ec for e, ec in zip(err[0], err[1])):
+        raise AssertionError("6b the forward with K6 is further off the float32 forward")
+    del exact, want, comp, got
+
+    bucket = page.expand(16, -1, -1, -1).contiguous()
+
+    def bucket_forward():
+        """ms of one forward of the bucket, and the peak memory it allocates."""
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.inference_mode():
+            ms = time_many({0: lambda: model(bucket)}, iters=2, warmup=1, rounds=3)[0]
+        return ms, torch.cuda.max_memory_allocated() - base
+
+    fwd, peak = bucket_forward()
+    with mock.patch.object(fk, "_routes_to_kernels", lambda t: False):
+        fwd_comp, peak_comp = bucket_forward()
+    print(f"6b a bucket of 16 512^2 pages (bf16): {fwd:.2f} ms with K6, {fwd_comp:.2f} ms with "
+          f"the composition ({16e3 / fwd:.1f} / {16e3 / fwd_comp:.1f} img/s, no host "
+          f"pipeline), peak memory above the weights and pages {peak / 2**30:.3f} / "
+          f"{peak_comp / 2**30:.3f} GiB; the 88 sites at the cases' bf16 BiasFree times: K6 "
+          f"{per_bucket['K6']:.3f} ms (device {per_bucket['device']:.3f}, bound "
+          f"{per_bucket['bound']:.3f}), composition {per_bucket['composition']:.3f} ms",
+          flush=True)
+    del bucket
+    torch.cuda.empty_cache()
+
+    # Restormer's training keeps the composition: a grad call launches nothing
+    small = Restormer(dtype=torch.bfloat16,
+                      generator=torch.Generator(device="cuda").manual_seed(64), device="cuda")
+    xs = torch.rand(2, 64, 64, 1, device="cuda", generator=gen)
+    fk.reset_launch_counts()
+    loss = (small(xs) - xs).abs().mean()
+    loss.backward()
+    torch.cuda.synchronize()
+    grads = sum(1 for p in small.parameters() if p.grad is not None and p.grad.abs().sum() > 0)
+    print(f"6b a grad-mode Restormer step (bf16, 2 x 64^2): loss {loss.item():.5f}, "
+          f"{grads} parameters with gradients, launches "
+          f"{ {k: v for k, v in fk.LAUNCHES.items() if v} }, fallbacks "
+          f"{fk.LAYER_NORM_FALLBACKS}", flush=True)
+    if any(fk.LAUNCHES.values()) or any(fk.LAYER_NORM_FALLBACKS.values()):
+        raise AssertionError("6b the grad-mode step must keep the composition, uncounted")
+    return {"channel_layer_norm": row}, launches
 
 
 # phase 8: HTTP serving. Traffic (my prediction and readings: PERF.md):
@@ -5838,6 +6033,9 @@ def main(argv: list | None = None) -> int:
              "5 entry points": phase("5 kernel entry points on model activations",
                                      model_entry_points)}
     phase("6 throughput", throughput, card)
+    ln_rows, paths["6b one Restormer forward"] = phase("6b Restormer's channel LayerNorm (K6)",
+                                                       layer_norm_kernels, card)
+    rows.update(ln_rows)
     phase("7a kernels refuse autograd", grad_guard)
     phase("7b f32 train step, card vs CPU", train_f32_parity)
     step_rate, paths["7c one bf16 train step"] = phase("7c bf16 train step throughput",
@@ -5880,7 +6078,13 @@ def main(argv: list | None = None) -> int:
         "gn_silu_train_fwd": (src + "gn_silu.cu", None),
         "gn_silu_train_bwd": (src + "gn_silu.cu", None),
         **{k: (src + "batch_norm.cu", None) for k in BN_KERNELS},
+        # Restormer exists only in the port
+        "channel_layer_norm": (src + "layer_norm.cu", None),
     }
+    ln_elsewhere = {p: c["channel_layer_norm"] for p, c in paths.items()
+                    if c.get("channel_layer_norm") and p != "6b one Restormer forward"}
+    if ln_elsewhere:
+        raise AssertionError(f"K6 launched on U-Net paths: {ln_elsewhere}")
     kernels = []
     for name, (source, replaces) in meta.items():
         r = rows[name]
@@ -5892,8 +6096,10 @@ def main(argv: list | None = None) -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": max(r["by"], key=r["by"].get), "library_ms": r["library_ms"],
         }
-        if name == "dec1_output" or name.startswith(("gn_silu_train", "bn_train")):
-            # no one PyTorch call computes the dec1 tail or a training pass:
+        if name in ("dec1_output", "channel_layer_norm") or name.startswith(
+                ("gn_silu_train", "bn_train")):
+            # no one PyTorch call computes the dec1 tail, a training pass or
+            # Restormer's BiasFree LayerNorm over NHWC channels:
             # the yardstick is the composition of the model's ops
             row["library_ms"], row["composition_ms"] = None, r["library_ms"]
         kernels.append(row)

@@ -14,8 +14,11 @@ output is float32 and not clipped: it is ``output(...) + input``, the
 global residual.
 
 Each block is ``x + MDTA(LN(x))`` then ``x + GDFN(LN(x))``
-(``ops.conv_blocks.channel_layer_norm``, ``transposed_attention``); the
-BiasFree LayerNorm does not centre ``x``. Down: a 3x3 conv to C/2 and
+(``ops.fused_kernels.layer_norm_site``, ``transposed_attention``); the
+BiasFree LayerNorm does not centre ``x``. On the card, outside a grad
+call, each LayerNorm is one launch of the hand-written kernel K6; on the
+CPU and in training, the float32 composition
+``ops.conv_blocks.channel_layer_norm``. Down: a 3x3 conv to C/2 and
 pixel-unshuffle; up: a 3x3 conv to 2C and pixel-shuffle; skips
 concatenated, a 1x1 ``reduce_chan`` at levels 3 and 2 (none at level 1);
 level 1's decoder and the refinement at 2 x dim. Sides must divide by 8.
@@ -37,13 +40,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.conv_blocks import (
-    channel_layer_norm,
     conv2d,
     highest_precision,
     pixel_shuffle,
     pixel_unshuffle,
     transposed_attention,
 )
+from ..ops.fused_kernels import layer_norm_site
 from ..utils.profiling import span
 
 #: upstream's gray denoising configuration
@@ -98,7 +101,7 @@ class LayerNorm(nn.Module):
         self.body = _LayerNormBody(c, layernorm_type == "WithBias", device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return channel_layer_norm(x, self.body.weight, self.body.bias)
+        return layer_norm_site(x, self.body.weight, self.body.bias)
 
 
 class Attention(nn.Module):

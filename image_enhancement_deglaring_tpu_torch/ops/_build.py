@@ -22,7 +22,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("gn_silu", "conv_gn_silu", "dec1_output", "batch_norm")
+SOURCES = ("gn_silu", "conv_gn_silu", "dec1_output", "batch_norm", "layer_norm")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -43,6 +43,7 @@ SIGNATURES = {
                    "bn_train_apply": [_P] * 9 + [_L] + [_I] * 4 + [_D] + [_F] * 3 + [_I] * 2 + [_P],
                    "bn_train_bwd_sums": [_P] * 9 + [_L] + [_I] * 6 + [_P],
                    "bn_train_bwd_apply": [_P] * 9 + [_L] + [_I] * 4 + [_D] + [_I] * 2 + [_P]},
+    "layer_norm": {"channel_layer_norm": [_P] * 4 + [_L, _I, _F, _I, _I, _P]},
 }
 
 _lock = threading.Lock()

@@ -14,6 +14,7 @@ gn_silu_train_bwd         composition)                         csrc/gn_silu.cu
 bn_sums, bn_apply         none (XLA's fusion of flax's         csrc/batch_norm.cu
 bn_bwd_sums               BatchNorm and ReLU in training)      csrc/batch_norm.cu
 bn_bwd_apply                                                   csrc/batch_norm.cu
+channel_layer_norm        none (Restormer is port-only) (K6)   csrc/layer_norm.cu
 ========================  ===================================  ====================
 
 (K5, the dec1 tail of ``pallas_dec1``, is in :mod:`.dec1`.)
@@ -30,6 +31,8 @@ the autograd Function ``gn_silu_train``; T3/T4, EnhancedUNet's
 training-mode BatchNorm with the ReLU or add+ReLU after it, through
 ``bn_act_train``: four launches (statistics, apply, backward sums,
 backward apply), the sums summed over the ranks between them under a mesh.
+K6, Restormer's channel LayerNorm, is forward-only too (its training keeps
+the composition): one launch a call on a persistent grid the kernel sizes.
 Each launch adds one to ``LAUNCHES[<wrapper name>]``. The GroupNorm
 wrappers make one launch under the launch plan ``_gn_plan``, the BatchNorm
 ones one each under ``_bn_plan``. In bfloat16
@@ -41,9 +44,9 @@ The dispatchers ``fused_group_norm_silu`` and ``fused_conv3x3_gn_silu``
 choose a kernel by the same shape rules as the JAX dispatchers; unless
 forced, they take the composition on a CPU tensor, as the JAX ones take
 XLA's off the TPU. The site functions ``gn_silu_site``,
-``conv_gn_silu_site`` and ``batch_norm_site`` alone choose what runs at
-a model's norm-and-activation sites, from the call and the model's
-``kernels`` flag.
+``conv_gn_silu_site``, ``batch_norm_site`` and ``layer_norm_site`` alone
+choose what runs at a model's normalization sites, from the call and the
+model's ``kernels`` flag.
 """
 
 from __future__ import annotations
@@ -56,25 +59,28 @@ from dataclasses import dataclass
 import torch
 from torch.autograd.function import once_differentiable
 
-from . import _build
+from . import _build, conv_blocks
 from .conv_blocks import conv2d, group_norm, highest_precision, silu
 
 #: kernel launches per wrapper since the last reset_launch_counts()
 LAUNCHES = {"gn_silu_flat": 0, "gn_silu_nhwc": 0, "conv3x3_gn_silu": 0,
             "conv3x3_gn_silu_batched": 0, "gn_silu_train_fwd": 0, "gn_silu_train_bwd": 0,
             "bn_train_stats": 0, "bn_train_apply": 0, "bn_train_bwd_sums": 0,
-            "bn_train_bwd_apply": 0}
+            "bn_train_bwd_apply": 0, "channel_layer_norm": 0}
 #: grad-mode GroupNorm+SiLU or training-mode BatchNorm calls on a device
 #: tensor that took the composition instead of ``gn_silu_train`` or
 #: ``bn_act_train``, by reason: inside a ``torch.func`` transform, or a
 #: shape or dtype the kernels do not take
 TRAIN_FALLBACKS = {"transform": 0, "shape": 0}
+#: Restormer's LayerNorm calls on a device tensor outside a grad call that
+#: took the composition instead of K6, by the same reasons
+LAYER_NORM_FALLBACKS = {"transform": 0, "shape": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def reset_launch_counts() -> None:
-    for table in (LAUNCHES, TRAIN_FALLBACKS):
+    for table in (LAUNCHES, TRAIN_FALLBACKS, LAYER_NORM_FALLBACKS):
         for k in table:
             table[k] = 0
 
@@ -298,6 +304,21 @@ def bn_act_train_bwd_plain(x: torch.Tensor, dy: torch.Tensor, scale: torch.Tenso
     Returns (dx, the residual's gradient or None, dgamma, dbeta)."""
     return _bn_bwd(bn_bwd_sums_plain, bn_bwd_apply_plain, x, dy, scale, bias, stats, act, out,
                    sums_hook)
+
+
+def channel_layer_norm_plain(x: torch.Tensor, weight: torch.Tensor,
+                             bias: torch.Tensor | None = None, *,
+                             eps: float = 1e-5) -> torch.Tensor:
+    """K6 as its kernel computes it, per pixel over the C channels in
+    float32: mean = sum x / C, var = sum (x - mean)^2 / C (about the mean),
+    r = rsqrt(var + eps); without ``bias`` (BiasFree) (x * r) * w, x not
+    centred, with it ((x - mean) * r) * w + b; one rounding to x's dtype."""
+    c = x.shape[-1]
+    xf = x.float()
+    d = xf - xf.sum(-1, keepdim=True) / c
+    r = torch.rsqrt((d * d).sum(-1, keepdim=True) / c + eps)
+    y = xf * r * weight.float() if bias is None else d * r * weight.float() + bias.float()
+    return y.to(x.dtype)
 
 
 def conv3x3_gn_silu_plain(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
@@ -970,6 +991,41 @@ def bn_act_train(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *, ac
                              sums_hook)
 
 
+_LN_MAX_C = 1_024  # lnk::kMaxC; and C a multiple of 8 (16-byte vectors in bf16)
+
+
+def channel_layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None = None,
+                       *, eps: float = 1e-5) -> torch.Tensor:
+    """K6: LayerNorm over the channels of each pixel of NHWC ``x`` (float32
+    or bf16, C a multiple of 8 up to 1024, 16-byte aligned), float32
+    statistics, BiasFree without ``bias``: one launch of
+    ``csrc/layer_norm.cu``, one read of x and one write. On a CPU tensor,
+    the plain version ``channel_layer_norm_plain``."""
+    if x.device.type == "cpu":
+        return channel_layer_norm_plain(x, weight, bias, eps=eps)
+    name = "channel_layer_norm"
+    refuse_autograd(name, x, weight, bias)
+    _check_activation(name, x)
+    c = x.shape[-1]
+    if c % 8 or c > _LN_MAX_C:
+        raise ValueError(f"{name}: {c} channels; the kernel takes multiples of 8 up to "
+                         f"{_LN_MAX_C}")
+    if x.data_ptr() % 16:
+        raise ValueError(f"{name}: input must be 16-byte aligned")
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: tensor on {x.device}, want cpu or cuda")
+    w = _affine(name, x, weight, c)
+    b = None if bias is None else _affine(name, x, bias, c)
+    y = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        err = _build.load("layer_norm").channel_layer_norm(
+            x.data_ptr(), w.data_ptr(), _ptr(b), y.data_ptr(), x.numel() // c, c, eps,
+            _sm_count(x.device), _DTYPE_CODE[x.dtype], _stream(x.device))
+    _raise_on_error(name, err)
+    LAUNCHES[name] += 1
+    return y
+
+
 def _conv_launch(name: str, x, w, scale, bias, num_groups: int, eps: float, images: int):
     """Launch conv_gn_silu.cu for K3 (``images`` 1) or K4: in bf16 the
     tensor-core kernel under ``_conv_plan``, in float32 the CUDA-core one
@@ -1064,15 +1120,15 @@ def _grad_call(x: torch.Tensor, *tensors) -> bool:
         or any(t is not None and t.requires_grad for t in tensors))
 
 
-def _pair_takes(x: torch.Tensor, takes) -> bool:
-    """Whether a training pair takes a grad call on ``x``: not inside a
-    ``torch.func`` transform (its Function has no vmap rule) nor for a shape
-    or dtype it does not take (``takes(C)``), each counted."""
+def _kernel_takes(x: torch.Tensor, takes, fallbacks: dict) -> bool:
+    """Whether a kernel takes a call on ``x``: not inside a ``torch.func``
+    transform (the kernels have no vmap rule) nor for a shape or dtype it
+    does not take (``takes(C)``), each counted in ``fallbacks``."""
     if torch._C._functorch.peek_interpreter_stack() is not None:
-        TRAIN_FALLBACKS["transform"] += 1
+        fallbacks["transform"] += 1
         return False
     if x.dim() != 4 or x.numel() == 0 or x.dtype not in _DTYPE_CODE or not takes(x.shape[-1]):
-        TRAIN_FALLBACKS["shape"] += 1
+        fallbacks["shape"] += 1
         return False
     return True
 
@@ -1160,7 +1216,8 @@ def gn_silu_site(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *,
     the dispatcher ``fused_group_norm_silu`` with ``kernels``, else the
     composition."""
     if _grad_call(x, x, scale, bias):
-        if _pair_takes(x, lambda c: c % num_groups == 0 and c <= _GN_MAX_THREADS):
+        if _kernel_takes(x, lambda c: c % num_groups == 0 and c <= _GN_MAX_THREADS,
+                         TRAIN_FALLBACKS):
             return gn_silu_train(x, scale, bias, num_groups=num_groups, eps=eps)
     elif kernels:
         return fused_group_norm_silu(x, scale, bias, num_groups=num_groups, eps=eps)
@@ -1185,8 +1242,24 @@ def batch_norm_site(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, co
     """One BatchNorm of EnhancedUNet and its epilogue: a training-mode grad
     call runs the training pair ``bn_act_train`` where it takes it; every
     other call ``composition()``, the model's float32 composition."""
-    if train and _grad_call(x, x, scale, bias, residual) and _pair_takes(
-            x, lambda c: c <= _BN_MAX_C and (residual is None or residual.shape == x.shape)):
+    if train and _grad_call(x, x, scale, bias, residual) and _kernel_takes(
+            x, lambda c: c <= _BN_MAX_C and (residual is None or residual.shape == x.shape),
+            TRAIN_FALLBACKS):
         return bn_act_train(x, scale, bias, act=act, residual=residual, eps=eps,
                             momentum=momentum, running=running, sums_hook=sums_hook)
     return composition()
+
+
+def layer_norm_site(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None = None,
+                    *, eps: float = 1e-5) -> torch.Tensor:
+    """One channel LayerNorm of Restormer (BiasFree without ``bias``): K6
+    for a call on a device tensor that is no grad call, where it takes the
+    shape, dtype and alignment (else counted in ``LAYER_NORM_FALLBACKS``);
+    every other call, the CPU's and training's among them (K6 has no
+    backward), the float32 composition ``conv_blocks.channel_layer_norm``."""
+    if _routes_to_kernels(x) and not _grad_call(x, x, weight, bias):
+        xc = x.contiguous()
+        if _kernel_takes(xc, lambda c: c % 8 == 0 and c <= _LN_MAX_C and xc.data_ptr() % 16 == 0,
+                         LAYER_NORM_FALLBACKS):
+            return channel_layer_norm(xc, weight, bias, eps=eps)
+    return conv_blocks.channel_layer_norm(x, weight, bias, eps=eps)

@@ -259,10 +259,12 @@ def test_cpu_wrappers_leave_launch_counts_at_zero(rng):
     fk.gn_silu_train_bwd(_t(x), y, _t(s), _t(b), stats, num_groups=8)
     y, stats = fk.bn_act_train_fwd(_t(x), _t(s), _t(b), act="relu", residual=_t(x))
     fk.bn_act_train_bwd(_t(x), y, _t(s), _t(b), stats, act="relu", out=y)
+    fk.channel_layer_norm(_t(x), _t(s), _t(b))
     assert fk.LAUNCHES == {"gn_silu_flat": 0, "gn_silu_nhwc": 0, "conv3x3_gn_silu": 0,
                            "conv3x3_gn_silu_batched": 0, "gn_silu_train_fwd": 0,
                            "gn_silu_train_bwd": 0, "bn_train_stats": 0, "bn_train_apply": 0,
-                           "bn_train_bwd_sums": 0, "bn_train_bwd_apply": 0}
+                           "bn_train_bwd_sums": 0, "bn_train_bwd_apply": 0,
+                           "channel_layer_norm": 0}
 
 
 @pytest.mark.parametrize("name", ["gn_silu_flat", "gn_silu_nhwc", "conv3x3_gn_silu",
